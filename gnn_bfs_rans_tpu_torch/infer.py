@@ -1,0 +1,123 @@
+"""Checkpoint load + predict: the GAT serving path.
+
+Counterpart of ``gnn_bfs_rans_tpu/infer.py``.  Every GAT checkpoint is
+served through the banded kernel path, whatever ``backend`` its meta
+records: the JAX package's ``backend='auto'`` → ``dense`` rule exists to
+skip a minutes-long TPU compile that the card does not have.  The dense and
+segment paths, the other layer types and BN recalibration are not ported
+yet and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .foam.reader import FoamCase
+from .graph.band import LAYER_COMPONENTS
+from .graph.build import build_graph
+from .graph.structs import Graph
+from .models.flow_gnn import FlowGNN, ModelConfig, split_fields
+from .train.checkpoint import load_checkpoint
+from .train.normalization import FieldNormalizer
+
+
+@dataclasses.dataclass
+class Predictor:
+    """A loaded model + normalizer on one device.
+
+    ``exact_bn``: predict through the deterministic train-mode forward —
+    BatchNorm uses the exact batch statistics of the input graph (see the
+    JAX package's ``Predictor.exact_bn``).
+    """
+
+    model: FlowGNN
+    model_config: ModelConfig
+    normalizer: FieldNormalizer | None
+    meta: dict
+    device: torch.device
+    exact_bn: bool = False
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        checkpoint_dir: str | Path,
+        name: str = "best",
+        exact_bn: bool | str = "auto",
+        device: str | torch.device = "cuda",
+    ) -> "Predictor":
+        """``exact_bn='auto'`` follows ``meta['bn_recalibrated']``."""
+        dev = resolve_device(device)
+        state, meta = load_checkpoint(checkpoint_dir, name)
+        if exact_bn == "auto":
+            exact_bn = bool(meta.get("bn_recalibrated"))
+        model_config = ModelConfig.from_dict(meta["model_config"])
+        model = FlowGNN(model_config)
+        model.load_state_dict(state)
+        model.eval().to(dev)
+        normalizer = (FieldNormalizer.from_dict(meta["normalizer"])
+                      if meta.get("normalizer") else None)
+        return cls(model=model, model_config=model_config,
+                   normalizer=normalizer, meta=meta, device=dev,
+                   exact_bn=bool(exact_bn))
+
+    def predict_packed(self, graph: Graph) -> np.ndarray:
+        """Normalized model output in ORIGINAL cell order, [n_nodes, 7]."""
+        with torch.inference_mode():
+            out = self.model(graph.to(self.device), exact_bn=self.exact_bn)
+        out = out.float().cpu().numpy()[: graph.n_nodes]
+        if graph.perm is not None:
+            perm = graph.perm.cpu().numpy()[: graph.n_nodes]
+            orig = np.empty_like(out)
+            orig[perm] = out
+            out = orig
+        return out
+
+    def predict_fields(
+        self, graph: Graph, denormalize: bool = True
+    ) -> dict[str, np.ndarray]:
+        """Forward + slice + (optionally) denormalize."""
+        fields = split_fields(self.predict_packed(graph))
+        if denormalize and self.normalizer is not None:
+            fields = self.normalizer.inverse_transform(fields)
+        return fields
+
+
+def load_graph(case_path: str | Path, layer_type: str = "GAT",
+               boundary_self_loops: bool = False) -> Graph:
+    """Parse a case and build its banded graph (CPU tensors)."""
+    mesh = FoamCase(case_path).load_mesh()
+    graph = build_graph(mesh, with_band=True,
+                        band_components=LAYER_COMPONENTS[layer_type],
+                        boundary_self_loops=boundary_self_loops)
+    if graph.band is None:
+        raise NotImplementedError(
+            f"the mesh at {case_path} has no band (its reordered bandwidth "
+            "needs a window wider than 5 tiles); the dense path is not "
+            "ported yet")
+    return graph
+
+
+def predict_case(
+    checkpoint_dir: str | Path,
+    case_path: str | Path,
+    name: str = "best",
+    boundary_self_loops: bool = False,
+    recalibrate_bn: bool = False,
+    exact_bn: bool | str = "auto",
+    device: str | torch.device = "cuda",
+) -> tuple[Predictor, dict[str, np.ndarray], Graph]:
+    """End to end: load checkpoint, parse case, build graph, predict."""
+    if recalibrate_bn:
+        raise NotImplementedError(
+            "recalibrate_bn needs train/recal.py, which is not ported yet")
+    predictor = Predictor.from_checkpoint(checkpoint_dir, name,
+                                          exact_bn=exact_bn, device=device)
+    graph = load_graph(case_path, predictor.model_config.layer_type,
+                       boundary_self_loops).to(predictor.device)
+    fields = predictor.predict_fields(graph)
+    return predictor, fields, graph

@@ -1,0 +1,153 @@
+"""FlowGNN — the flow-surrogate model, GAT serving path.
+
+Counterpart of ``gnn_bfs_rans_tpu/models/flow_gnn.py::FlowGNN``:
+``Linear(3→H)`` input projection, ``L`` blocks of {GAT conv, residual add,
+BatchNorm, ReLU}, and the output MLP ``H→H→H→H/2→out``.  Output layout is
+``[U(3), p, k, epsilon, nut]``.  Dtype rules are the JAX module's
+(``flow_gnn.py:56-66, 108-153``): ``bfloat16`` runs everything but the final
+head in bf16; ``mixed`` runs the convs and the MLP in bf16 on an f32
+residual stream; parameters stay f32.
+
+``forward(graph, exact_bn=True)`` is the deterministic train-mode forward
+the JAX package's ``make_forward(exact_bn=True)`` runs: batch statistics of
+the input graph through the fused epilogue.  Dropout never runs here (the
+serving path is deterministic).  Only ``layer_type='GAT'`` with batch or no
+normalization is ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any
+
+import torch
+from torch import nn
+
+from ..graph.structs import Graph
+from .convs import GATConv
+from .norm import MaskedBatchNorm
+
+FIELD_SLICES = {"U": (0, 3), "p": (3, 4), "k": (4, 5), "epsilon": (5, 6), "nut": (6, 7)}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """The JAX package's ``ModelConfig`` fields, so its meta files parse."""
+
+    input_dim: int = 3
+    hidden_dim: int = 256
+    output_dim: int = 7
+    num_layers: int = 6
+    layer_type: str = "GCN"
+    heads: int = 4
+    dropout: float = 0.1
+    use_batch_norm: bool = True
+    norm_type: str = "batch"
+    use_edge_attr: bool = True
+    backend: str = "dense"
+    compute_dtype: str = "float32"
+    fuse_eval: bool = False
+    fuse_train: bool = True
+    fuse_epilogue: bool = True
+    remat: bool = False
+
+    def to_dict(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "ModelConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    """flax ``Dense(dtype=...)``: inputs, kernel and bias cast to the compute
+    dtype, product then bias add, each rounded there."""
+    dt = x.dtype if dtype is None else dtype
+    y = x.to(dt) @ layer.weight.t().to(dt)
+    return y + layer.bias.to(dt)
+
+
+class FlowGNN(nn.Module):
+    """Parameters are initialized from ``generator`` (a fixed seed when
+    None), never from the global RNG."""
+
+    def __init__(self, config: ModelConfig,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        cfg = config
+        if cfg.layer_type != "GAT":
+            raise NotImplementedError(
+                f"layer_type {cfg.layer_type!r} is not ported yet (GAT only)")
+        self.bn = cfg.use_batch_norm and cfg.norm_type == "batch"
+        if cfg.use_batch_norm and cfg.norm_type not in ("batch", "none"):
+            raise NotImplementedError(
+                f"norm_type {cfg.norm_type!r} is not ported yet")
+        if cfg.compute_dtype not in ("float32", "bfloat16", "mixed"):
+            raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
+        self.config = cfg
+        h = cfg.hidden_dim
+        lin = functools.partial(nn.utils.skip_init, nn.Linear)
+        self.input_proj = lin(cfg.input_dim, h)
+        self.convs = nn.ModuleList(
+            GATConv(h, heads=cfg.heads) for _ in range(cfg.num_layers))
+        self.norms = nn.ModuleList(
+            MaskedBatchNorm(h) for _ in range(cfg.num_layers if self.bn else 0))
+        self.out_0 = lin(h, h)
+        self.out_1 = lin(h, h)
+        self.out_2 = lin(h, h // 2)
+        self.out_3 = lin(h // 2, cfg.output_dim)
+        self.reset_parameters(
+            generator or torch.Generator().manual_seed(0))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The JAX model's init for the linear layers (uniform ±1/√fan_in,
+        zero bias); BatchNorm starts at the identity affine."""
+        for layer in (self.input_proj, self.out_0, self.out_1, self.out_2,
+                      self.out_3):
+            f = layer.weight.shape[1]
+            layer.weight.uniform_(-f ** -0.5, f ** -0.5, generator=generator)
+            layer.bias.zero_()
+        for conv in self.convs:
+            conv.reset_parameters(generator)
+
+    def forward(self, graph: Graph, exact_bn: bool = False) -> torch.Tensor:
+        cfg = self.config
+        if exact_bn and self.bn and not cfg.fuse_epilogue:
+            raise NotImplementedError(
+                "exact_bn without the fused epilogue (fuse_epilogue=False) "
+                "is not ported yet")
+        mixed = cfg.compute_dtype == "mixed"
+        dtype = torch.bfloat16 if cfg.compute_dtype in ("bfloat16", "mixed") \
+            else None
+        x = _dense(self.input_proj, graph.node_feat, dtype)
+        if mixed:
+            # f32 residual stream; convs see bf16, their outputs rejoin in f32
+            x = x.float()
+        for i, conv in enumerate(self.convs):
+            x_in = x.to(torch.bfloat16) if mixed else x
+            x_new = conv(x_in, graph)
+            if mixed:
+                x_new = x_new.float()
+            if self.bn and exact_bn:
+                x = self.norms[i].batch_forward(x, x_new, graph.n_nodes)
+                continue
+            x = x + x_new
+            if self.bn:
+                x = self.norms[i](x)
+            x = torch.relu(x)
+        h = torch.relu(_dense(self.out_0, x, dtype))
+        h = torch.relu(_dense(self.out_1, h, dtype))
+        h = torch.relu(_dense(self.out_2, h, dtype))
+        # the final head always runs in float32
+        return _dense(self.out_3, h.float(), None)
+
+
+def split_fields(output):
+    """Slice model output into named fields (tensor or numpy)."""
+    fields = {name: output[:, a:b] for name, (a, b) in FIELD_SLICES.items()}
+    if output.shape[1] > 7:
+        fields["residual"] = output[:, 7:8]
+    return fields

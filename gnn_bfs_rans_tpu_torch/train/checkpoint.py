@@ -1,0 +1,61 @@
+"""The port's checkpoint format: a state dict plus the JAX package's meta.
+
+``<dir>/<name>.pt`` holds the model's ``state_dict`` (``torch.save``);
+``<dir>/<name>.meta.json`` uses the same schema as the JAX package's
+sidecar (``gnn_bfs_rans_tpu/train/checkpoint.py:63-73``): epoch, val_loss,
+model_config, train_config, normalizer, plus any extra keys such as
+``bn_recalibrated``.  Orbax checkpoints need JAX to read and are not read
+here: carry JAX weights over with :mod:`..compat.from_jax`.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Any
+
+import torch
+
+from ..models.flow_gnn import ModelConfig
+from .normalization import FieldNormalizer
+
+
+def save_checkpoint(
+    directory: str | Path,
+    name: str,
+    state_dict: dict[str, torch.Tensor],
+    *,
+    model_config: ModelConfig,
+    normalizer: FieldNormalizer | None,
+    epoch: int = 0,
+    val_loss: float = float("nan"),
+    train_config: dict | None = None,
+    extra: dict | None = None,
+) -> Path:
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    path = directory / f"{name}.pt"
+    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, path)
+    meta = {
+        "epoch": epoch,
+        "val_loss": float(val_loss),
+        "model_config": model_config.to_dict(),
+        "train_config": dict(train_config or {}),
+        "normalizer": normalizer.to_dict() if normalizer is not None else None,
+        **(extra or {}),
+    }
+    (directory / f"{name}.meta.json").write_text(json.dumps(meta, indent=2))
+    return path
+
+
+def load_meta(directory: str | Path, name: str) -> dict[str, Any]:
+    return json.loads((Path(directory) / f"{name}.meta.json").read_text())
+
+
+def load_checkpoint(
+    directory: str | Path, name: str
+) -> tuple[dict[str, torch.Tensor], dict[str, Any]]:
+    """(state_dict on the CPU, meta)."""
+    state = torch.load(Path(directory) / f"{name}.pt", map_location="cpu",
+                       weights_only=True)
+    return state, load_meta(directory, name)

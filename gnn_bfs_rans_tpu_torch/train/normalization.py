@@ -1,0 +1,109 @@
+"""Field normalization (numpy).
+
+Counterpart of ``gnn_bfs_rans_tpu/train/normalization.py`` less the JAX
+loss functions (training is not ported yet): ``FieldNormalizer`` — per-field
+z-score, velocity per component, std floored at 1e-10 → 1.0 — with its
+dict (JSON) form, and the packed ``[U(3), p, k, epsilon, nut]`` layout.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+_STD_FLOOR = 1e-10
+
+
+class FieldNormalizer:
+    """Per-field z-score normalizer with per-component velocity stats."""
+
+    def __init__(self):
+        self.scalers: dict[str, dict] = {}
+        self.field_stats: dict[str, dict] = {}
+
+    def fit(self, fields: dict[str, np.ndarray]) -> "FieldNormalizer":
+        for name, data in fields.items():
+            if name == "U" and data.ndim == 2 and data.shape[1] == 3:
+                mean = np.mean(data, axis=0)
+                std = np.std(data, axis=0)
+                flat = data.reshape(-1)
+                self.field_stats[name] = {
+                    "mean": float(flat.mean()),
+                    "std": float(flat.std()),
+                    "min": float(flat.min()),
+                    "max": float(flat.max()),
+                    "per_component_mean": mean.tolist(),
+                    "per_component_std": std.tolist(),
+                }
+                std = np.where(std > _STD_FLOOR, std, 1.0)
+                self.scalers[name] = {
+                    "mean": mean, "std": std, "per_component": True
+                }
+            else:
+                flat = np.asarray(data).reshape(-1)
+                mean = float(flat.mean())
+                std = float(flat.std())
+                self.field_stats[name] = {
+                    "mean": mean, "std": std,
+                    "min": float(flat.min()), "max": float(flat.max()),
+                }
+                self.scalers[name] = {
+                    "mean": mean,
+                    "std": std if std > _STD_FLOOR else 1.0,
+                    "per_component": False,
+                }
+        return self
+
+    def transform(self, fields: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+        out = {}
+        for name, data in fields.items():
+            if name not in self.scalers:
+                out[name] = data
+                continue
+            s = self.scalers[name]
+            out[name] = (data - s["mean"]) / s["std"]
+        return out
+
+    def inverse_transform(self, fields: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+        out = {}
+        for name, data in fields.items():
+            if name not in self.scalers:
+                out[name] = data
+                continue
+            s = self.scalers[name]
+            out[name] = data * s["std"] + s["mean"]
+        return out
+
+    # ---------------------------------------------------------- serialization
+    def to_dict(self) -> dict:
+        scalers = {}
+        for name, s in self.scalers.items():
+            scalers[name] = {
+                "mean": np.asarray(s["mean"]).tolist(),
+                "std": np.asarray(s["std"]).tolist(),
+                "per_component": bool(s.get("per_component", False)),
+            }
+        return {"scalers": scalers, "field_stats": self.field_stats}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "FieldNormalizer":
+        norm = cls()
+        norm.field_stats = d.get("field_stats", {})
+        for name, s in d.get("scalers", {}).items():
+            mean = np.asarray(s["mean"])
+            std = np.asarray(s["std"])
+            if not s.get("per_component", False):
+                mean = float(mean)
+                std = float(std)
+            norm.scalers[name] = {
+                "mean": mean, "std": std,
+                "per_component": bool(s.get("per_component", False)),
+            }
+        return norm
+
+
+def pack_targets(fields: dict[str, np.ndarray]) -> np.ndarray:
+    """Stack normalized fields into the canonical [N, 7] target layout."""
+    cols = [np.asarray(fields["U"]).reshape(-1, 3)]
+    for name in ("p", "k", "epsilon", "nut"):
+        cols.append(np.asarray(fields[name]).reshape(-1, 1))
+    return np.concatenate(cols, axis=1)
