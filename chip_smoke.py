@@ -23,11 +23,33 @@ Phases (any failure raises and exits non-zero):
    run through the plain versions on the card; then the forward's host-clock
    time, its device time (replayed as a CUDA graph) and a torch.profiler
    breakdown by kernel with the card's idle share;
-5. print the kernel table as one JSON line, then the result line.
+5. kernel 1 in its training form (attention dropout 0.1, z emitted) against
+   its plain version on both bands, in f32 and bf16;
+6. the GAT backward, rows 5 and 6 (``banded_gat_bwd``, ``fold_project_bwd``)
+   through the autograd op at the flagship width (F 256, H 4, C 256) on both
+   bands, f32 and bf16, dropout 0 and 0.1: (dW, dWa, dx) against the op run
+   through the plain versions;
+7. the BN epilogue backward, row 3 (``fused_epilogue_bwd``), and the forward
+   at rate 0.1, at [12,032, 256] in f32, bf16 and mixed;
+8. one train step of the 4×256 GAT from the same seeded parameters through
+   the kernels and through the plain versions, in f32, bf16 and mixed: the
+   loss and each parameter group's gradient (f32: the largest relative gap
+   held to 3e-2; bf16 and mixed: the distance from the plain versions' f32
+   step on the same masks held to 1.5 × the plain bf16 step's own);
+9. training: ``python -m gnn_bfs_rans_tpu_torch train`` (in process) on
+   the 12,000-cell box case with three snapshots, bf16, dropout 0.1, a few
+   epochs, with the launch counters set to 0 just before and read just
+   after: every kernel launched, the loss finite and lower in the last epoch
+   than in the first, and the checkpoint then served by ``infer``; then the
+   train step's host-clock time, its device time (torch.profiler's device
+   sum), the breakdown by kernel and the card's idle share;
+10. print the kernel table as one JSON line, then the result line.
 
-Kernel times (``ms``, ``plain_ms``) are device times per call: ten calls
-captured in one CUDA graph and replayed, so host launch overhead does not
-enter them; the eager per-call time is printed beside them.
+Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times per
+call: ten calls captured in one CUDA graph and replayed, so host launch
+overhead does not enter them; the eager per-call time is printed beside
+them.  ``launches`` counts each wrapper's launches on the training path
+(phase 9).
 
 Needs no network; builds into ``gnn_bfs_rans_tpu_torch/build`` and writes
 scratch files only under the temporary directory.
@@ -49,6 +71,25 @@ HIDDEN, HEADS, LAYERS = 256, 4, 4
 GAT_TOL = {"float32": 1e-4, "bfloat16": 1e-2}    # × max |plain output|
 EPI_TOL = {"float32": 1e-5, "bfloat16": 1e-2, "mixed": 1e-5}
 SERVE_TOL = 5e-2                                  # × max |plain field|
+# × max |plain cotangent|: f32 summation order; bf16 one rounding of dz or
+# an output may flip (2^-8 relative) and dx, dW sum such values
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# One train step, kernels vs plain versions.  The f32 loss: summation
+# order only (bf16, mixed: bf16 roundings).  The f32 gradients: a ReLU
+# whose input lies within rounding of 0
+# takes the other branch on one side, and each such element moves a weight
+# gradient (a sum over N = 12,000 rows that largely cancels) by about
+# 1/√N ≈ 1% of its largest entry; a wrong kernel moves it by O(1).
+STEP_LOSS_TOL = {"float32": 1e-5, "bfloat16": 1e-3, "mixed": 1e-3}  # × |loss|
+STEP_TOL_F32 = 3e-2   # × max |plain gradient| per parameter group
+# bf16 and mixed: each group's gradient through the kernels lies no further
+# from the plain versions' f32 gradient (norms) than this multiple of the
+# plain versions' own bf16 (mixed) gradient does, plus 1e-4 of the group's
+# norm (of the largest group's for a conv bias): the kernel path is as
+# accurate as the plain path it mirrors, which rounds at the same points
+STEP_F32_RATIO = 1.5
+TRAIN_EPOCHS = 6
+DROPOUT = 0.1
 
 
 def log(*args):
@@ -189,17 +230,28 @@ def check_epilogue(mode, n_pad, n_valid, gen):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the model's kernel calls to the plain versions (on the card)."""
-    from gnn_bfs_rans_tpu_torch.kernels import banded, epilogue
+    """Route every kernel call of the model, forward and backward, to the
+    plain versions (on the card)."""
+    from gnn_bfs_rans_tpu_torch.kernels import banded, banded_bwd, epilogue
     from gnn_bfs_rans_tpu_torch.models import convs, norm
 
-    saved = convs.banded_gat_mean_fused, norm.fused_epilogue_fwd
-    convs.banded_gat_mean_fused = banded.banded_gat_mean_fused_plain
-    norm.fused_epilogue_fwd = epilogue.fused_epilogue_fwd_plain
+    swaps = [
+        (convs, "banded_gat_mean_fused", banded.banded_gat_mean_fused_plain),
+        (banded, "banded_gat_mean_fused", banded.banded_gat_mean_fused_plain),
+        (banded_bwd, "banded_gat_bwd", banded_bwd.banded_gat_bwd_plain),
+        (banded_bwd, "fold_project_bwd", banded_bwd.fold_project_bwd_plain),
+        (norm, "fused_epilogue_fwd", epilogue.fused_epilogue_fwd_plain),
+        (epilogue, "_forward", epilogue._forward_plain),
+        (epilogue, "fused_epilogue_bwd", epilogue.fused_epilogue_bwd_plain),
+    ]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        convs.banded_gat_mean_fused, norm.fused_epilogue_fwd = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def serve(tmp, gen):
@@ -299,8 +351,9 @@ def host_time_ms(fn, reps=20, warmup=3):
 
 
 def profile_forward(fwd, label, steps=5):
-    """Device time by kernel over ``steps`` forwards (torch.profiler), and
-    the card's busy share of the host-clock window."""
+    """Device time by kernel over ``steps`` calls of ``fwd``
+    (torch.profiler), and the card's busy share of the host-clock window;
+    returns the device µs per call (None when nothing was recorded)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -313,19 +366,419 @@ def profile_forward(fwd, label, steps=5):
             fwd()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
+    # device events, less the annotation ranges (Adam's step shows as one)
+    # that span kernels already counted
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
     busy = sum(by_name.values())
     if busy == 0:
         log(f"profile {label}: the profiler recorded no device time")
-        return
-    log(f"profile {label}: {busy / steps:.1f} us device per forward, "
+        return None
+    log(f"profile {label}: {busy / steps:.1f} us device per call, "
         f"{wall_us / steps:.1f} us wall, idle share {1 - busy / wall_us:.3f}")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"  {us / steps:9.1f} us  {name[:90]}")
+    return busy / steps
+
+
+
+
+def _rel_err(got, ref):
+    """(max abs error, max |ref|) of two tensors, in f32."""
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, ref.float().abs().max().item()
+
+
+def _gat_inputs(n, dt, gen):
+    import torch
+
+    dev = torch.device("cuda")
+    f, hc = HIDDEN, HEADS * HIDDEN
+    x = torch.randn(n, f, generator=gen).to(dev, dt)
+    w = (torch.randn(f, hc, generator=gen) * f ** -0.5).to(dev, dt)
+    wa = (torch.randn(f, 2 * HEADS, generator=gen) * f ** -0.5).to(dev, dt)
+    g = torch.randn(n, HIDDEN, generator=gen).to(dev, dt)
+    seed = torch.tensor([1234], dtype=torch.int32, device=dev)
+    return x, w, wa, g, seed
+
+
+def check_gat_train(graph, dtype_name, gen):
+    """Phase 5: kernel 1's training form (dropout, z emitted) vs plain."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.kernels.banded import (
+        banded_gat_mean_fused, banded_gat_mean_fused_plain)
+
+    dt = getattr(torch, dtype_name)
+    n = graph.n_pad
+    x, w, wa, _, seed = _gat_inputs(n, dt, gen)
+    alphas = (x.float() @ wa.float()).contiguous()
+    mask = graph.band.bias_self
+    args = (mask, w, alphas, x, HEADS, 0.2, DROPOUT, seed)
+    got, z = banded_gat_mean_fused(*args, emit_z=True)
+    ref, ref_z = banded_gat_mean_fused_plain(*args, emit_z=True)
+    torch.cuda.synchronize()
+    err, scale = _rel_err(got, ref)
+    z_err, z_scale = _rel_err(z, ref_z)
+    if not (torch.isfinite(got).all() and err <= GAT_TOL[dtype_name] * scale
+            and z_err <= GAT_TOL[dtype_name] * z_scale):
+        raise AssertionError(f"banded_gat_mean_fused training form "
+                             f"{dtype_name}: max err {err} (z {z_err})")
+    ms = graph_time_ms(lambda: banded_gat_mean_fused(*args, emit_z=True))
+    plain_ms = graph_time_ms(
+        lambda: banded_gat_mean_fused_plain(*args, emit_z=True), 3, 2)
+    nnz = int(mask.sum().item())
+    isz = x.element_size()
+    f, hc = HIDDEN, HEADS * HIDDEN
+    # inputs read once; out and the z residual written once
+    nbytes = (mask.numel() + f * hc * isz + alphas.numel() * 4 + n * f * isz
+              + n * HIDDEN * isz + n * hc * isz)
+    flops = 2 * n * f * hc + 2 * nnz * hc
+    peak = H100_BF16_FLOPS if dt == torch.bfloat16 else H100_FP32_FLOPS
+    bound_ms, bound_by = bound(nbytes, flops, peak)
+    log(f"kernel1 training form {dtype_name} dropout {DROPOUT} Wcols "
+        f"{mask.shape[-1]}: max_abs_err {err:.3e} (z {z_err:.3e}) ms "
+        f"{ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.5f} "
+        f"({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def check_gat_bwd(graph, dtype_name, rate, gen, measure):
+    """Phase 6: rows 5 and 6 through the autograd op vs the plain versions;
+    with ``measure``, times of both kernels (returned as two rows)."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.kernels.banded import banded_gat_mean_fused_wa
+    from gnn_bfs_rans_tpu_torch.kernels.banded_bwd import (
+        banded_gat_bwd, banded_gat_bwd_plain, fold_project_bwd,
+        fold_project_bwd_plain)
+
+    dt = getattr(torch, dtype_name)
+    n = graph.n_pad
+    mask = graph.band.bias_self
+    x, w, wa, g, seed = _gat_inputs(n, dt, gen)
+    seed = seed if rate else None
+    grads = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (w, wa, x)]
+        with plain_versions() if plain else contextlib.nullcontext():
+            y = banded_gat_mean_fused_wa(mask, *leaves, HEADS, 0.2, rate, seed)
+            y.backward(g)
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    for name, got, ref in zip(("dW", "dWa", "dx"), *grads):
+        err, scale = _rel_err(got, ref)
+        log(f"rows 5+6 {dtype_name} rate {rate} Wcols {mask.shape[-1]} {name}: "
+            f"max_abs_err {err:.3e} (tol {BWD_TOL[dtype_name]} x {scale:.3e})")
+        if not (torch.isfinite(got).all()
+                and err <= BWD_TOL[dtype_name] * scale):
+            raise AssertionError(f"GAT backward {name} {dtype_name} rate "
+                                 f"{rate}: max err {err} vs {scale}")
+    if not measure:
+        return None
+    # each kernel alone on the op's own inputs
+    alphas = (x.float() @ wa.float()).contiguous()
+    z = (x.float() @ w.float()).to(dt)
+    a5 = (mask, z, alphas, g, HEADS, 0.2, rate, seed)
+    dz, da = banded_gat_bwd(*a5)
+    ref_dz, ref_da = banded_gat_bwd_plain(*a5)
+    dx, dw = fold_project_bwd(dz, x, w)
+    ref_dx, ref_dw = fold_project_bwd_plain(dz, x, w)
+    torch.cuda.synchronize()
+    err5, scale5 = _rel_err(dz, ref_dz)
+    err6, scale6 = _rel_err(dx, ref_dx)
+    for what, err, scale in (("dz", err5, scale5), ("da", *_rel_err(da, ref_da)),
+                             ("dx", err6, scale6), ("dW", *_rel_err(dw, ref_dw))):
+        if not err <= BWD_TOL[dtype_name] * scale:
+            raise AssertionError(f"{what}: max err {err} vs {scale}")
+    ms5 = graph_time_ms(lambda: banded_gat_bwd(*a5))
+    plain5 = graph_time_ms(lambda: banded_gat_bwd_plain(*a5), 3, 2)
+    ms6 = graph_time_ms(lambda: fold_project_bwd(dz, x, w))
+    plain6 = graph_time_ms(lambda: fold_project_bwd_plain(dz, x, w), 3, 2)
+    wt = w.t()
+    lib6 = graph_time_ms(lambda: (dz @ wt, x.t() @ dz))
+    isz = x.element_size()
+    f, hc = HIDDEN, HEADS * HIDDEN
+    nnz = int(mask.sum().item())
+    # row 5: mask, z, α, g read once; dz and dα written once; its
+    # arithmetic (f32, on the SIMT units) is the sparse products: dp and
+    # dz, 2·C operations each per nonzero entry and head
+    b5 = bound(mask.numel() + n * hc * isz + n * 2 * HEADS * 4
+               + n * HIDDEN * isz + n * hc * isz + n * 2 * HEADS * 4,
+               4 * nnz * hc, H100_FP32_FLOPS)
+    # row 6: dz, x, W read once; dx and the f32 dW written once
+    b6 = bound(n * hc * isz + n * f * isz + f * hc * isz + n * f * isz
+               + f * hc * 4, 4 * n * f * hc,
+               H100_BF16_FLOPS if dt == torch.bfloat16 else H100_FP32_FLOPS)
+    log(f"row 5 banded_gat_bwd {dtype_name} rate {rate} N {n} nnz {nnz}: "
+        f"max_abs_err {err5:.3e} ms {ms5:.4f} plain_ms {plain5:.4f} bound_ms "
+        f"{b5[0]:.5f} ({b5[1]})")
+    log(f"row 6 fold_project_bwd {dtype_name}: max_abs_err {err6:.3e} ms "
+        f"{ms6:.4f} plain_ms {plain6:.4f} library_ms (2 x torch.matmul) "
+        f"{lib6:.4f} bound_ms {b6[0]:.5f} ({b6[1]})")
+    return (dict(max_abs_err=err5, ms=ms5, plain_ms=plain5, bound_ms=b5[0],
+                 bound_by=b5[1], library_ms=None),
+            dict(max_abs_err=err6, ms=ms6, plain_ms=plain6, bound_ms=b6[0],
+                 bound_by=b6[1], library_ms=lib6))
+
+
+def check_epilogue_bwd(mode, n_pad, n_valid, gen):
+    """Phase 7: kernel 2 at rate 0.1 and row 3 vs their plain versions."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.kernels.epilogue import (
+        _forward, _forward_plain, fused_epilogue, fused_epilogue_bwd,
+        fused_epilogue_bwd_plain)
+
+    dev = torch.device("cuda")
+    dx, dxn = {"float32": ("float32", "float32"),
+               "bfloat16": ("bfloat16", "bfloat16"),
+               "mixed": ("float32", "bfloat16")}[mode]
+    x = (torch.randn(n_pad, HIDDEN, generator=gen)
+         + torch.randn(HIDDEN, generator=gen)).to(dev, getattr(torch, dx))
+    xn = torch.randn(n_pad, HIDDEN, generator=gen).to(dev, getattr(torch, dxn))
+    scale = (1 + 0.1 * torch.randn(HIDDEN, generator=gen)).to(dev)
+    bias = (0.1 * torch.randn(HIDDEN, generator=gen)).to(dev)
+    seed = torch.tensor([4321], dtype=torch.int32, device=dev)
+    leaves = [t.clone().requires_grad_() for t in (x, xn, scale, bias)]
+    y, _, _ = fused_epilogue(*leaves, seed, n_valid, DROPOUT, 1e-5)
+    g = torch.randn(y.shape, generator=gen).to(dev, y.dtype)
+    y.backward(g)
+    fwd_args = (x, xn, scale, bias, n_valid, 1e-5, DROPOUT, seed)
+    y_ref = _forward_plain(*fwd_args)[0]
+    # the plain backward on the kernel forward's own residuals
+    y_k, mean_k, _, xr_k, vec_k = _forward(*fwd_args)
+    ref = fused_epilogue_bwd_plain(g, xr_k, vec_k, mean_k, n_valid, DROPOUT,
+                                   seed, x.dtype, xn.dtype)
+    torch.cuda.synchronize()
+    err_y, scale_y = _rel_err(y, y_ref)
+    tol_y = EPI_TOL[mode] * max(scale_y, 1.0)
+    # identical dropout masks: nothing dropped on one side only (a bf16
+    # rounding may move a value across the ReLU's 0, within the tolerance)
+    if ((y == 0) & (y_ref.float().abs() > tol_y)).any() or (
+            (y_ref == 0) & (y.float().abs() > tol_y)).any():
+        raise AssertionError(f"fused epilogue {mode}: dropout masks differ")
+    if not err_y <= tol_y:
+        raise AssertionError(f"fused_epilogue_fwd {mode} rate {DROPOUT}: "
+                             f"max err {err_y}")
+    errs = []
+    for name, t, r in zip(("dx", "dx_new", "dscale", "dbias"), leaves, ref):
+        err, sc = _rel_err(t.grad, r)
+        tol = 1e-4 if r.dtype == torch.float32 else 2e-2
+        log(f"row 3 {mode} {name}: max_abs_err {err:.3e} (tol {tol} x "
+            f"{sc:.3e})")
+        if not (torch.isfinite(t.grad).all() and err <= tol * sc):
+            raise AssertionError(f"fused_epilogue_bwd {mode} {name}: {err}")
+        errs.append(err)
+    fwd_ms = graph_time_ms(lambda: _forward(*fwd_args))
+    fwd_plain = graph_time_ms(lambda: _forward_plain(*fwd_args))
+    bwd_args = (g, xr_k, vec_k, mean_k, n_valid, DROPOUT, seed, x.dtype,
+                xn.dtype)
+    ms = graph_time_ms(lambda: fused_epilogue_bwd(*bwd_args))
+    eager_ms = cuda_time_ms(lambda: fused_epilogue_bwd(*bwd_args))
+    plain_ms = graph_time_ms(lambda: fused_epilogue_bwd_plain(*bwd_args))
+    isz = xr_k.element_size()
+    # g, xr, the [4, C] vectors and the mean read once; dx (and dx_new when
+    # its dtype differs), dscale, dbias written once
+    nbytes = (g.numel() * g.element_size() + xr_k.numel() * isz
+              + 5 * HIDDEN * 4 + x.numel() * x.element_size()
+              + (xn.numel() * xn.element_size() if xn.dtype != x.dtype else 0)
+              + 2 * HIDDEN * 4)
+    flops = 16 * xr_k.numel()   # affine recompute, mask, x̂, 2 sums, dx
+    bound_ms, bound_by = bound(nbytes, flops, H100_FP32_FLOPS)
+    f_bytes = (x.numel() * x.element_size() + xn.numel() * xn.element_size()
+               + 2 * HIDDEN * 4 + y_k.numel() * y_k.element_size())
+    f_bound, f_by = bound(f_bytes, 10 * x.numel(), H100_FP32_FLOPS)
+    log(f"kernel2 fused_epilogue_fwd {mode} rate {DROPOUT}: max_abs_err "
+        f"{err_y:.3e} ms {fwd_ms:.4f} plain_ms {fwd_plain:.4f} bound_ms "
+        f"{f_bound:.5f} ({f_by})")
+    log(f"row 3 fused_epilogue_bwd {mode} rate {DROPOUT} [{n_pad}, {HIDDEN}]: "
+        f"ms {ms:.4f} (eager {eager_ms:.4f}) plain_ms {plain_ms:.4f} "
+        f"bound_ms {bound_ms:.5f} ({bound_by})")
+    return (dict(max_abs_err=err_y, ms=fwd_ms, plain_ms=fwd_plain,
+                 bound_ms=f_bound, bound_by=f_by, library_ms=None),
+            dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+
+
+@contextlib.contextmanager
+def epilogue_dropout_keys(itemsize):
+    """Key the plain epilogue's dropout stream as for ``itemsize``-byte
+    rows (the JAX package's ``_pick_block`` depends on it), so an f32 run
+    draws the masks of a bf16 run."""
+    from gnn_bfs_rans_tpu_torch.kernels import epilogue
+
+    pick = epilogue.pick_block
+    epilogue.pick_block = lambda n, c, _: pick(n, c, itemsize)
+    try:
+        yield
+    finally:
+        epilogue.pick_block = pick
+
+
+def compare_train_step(graph, dtype_name):
+    """Phase 8: one step's loss and gradients, kernels vs plain versions,
+    from the same seeded parameters and dropout masks; bf16 and mixed are
+    also held against the plain versions' f32 step on those masks."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.models.flow_gnn import FlowGNN, ModelConfig
+    from gnn_bfs_rans_tpu_torch.train.loop import TrainConfig, batch_loss
+
+    targets = torch.randn(1, graph.n_pad, 7,
+                          generator=torch.Generator().manual_seed(9)).cuda()
+
+    def step(dt, plain, itemsize=None):
+        cfg = ModelConfig(hidden_dim=HIDDEN, num_layers=LAYERS,
+                          layer_type="GAT", heads=HEADS, backend="pallas",
+                          dropout=DROPOUT, compute_dtype=dt)
+        model = FlowGNN(cfg, generator=torch.Generator().manual_seed(1)).cuda()
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        with contextlib.ExitStack() as ctx:
+            if plain:
+                ctx.enter_context(plain_versions())
+            if itemsize:
+                ctx.enter_context(epilogue_dropout_keys(itemsize))
+            loss = batch_loss(model(graph, train=True, generator=gen),
+                              targets, graph, TrainConfig())
+            loss.backward()
+        return loss.item(), {k: p.grad.float() for k, p in
+                             model.named_parameters()}
+
+    loss_k, g_k = step(dtype_name, False)
+    loss_p, g_p = step(dtype_name, True)
+    log(f"train step {dtype_name}: loss kernels {loss_k:.7f} plain "
+        f"{loss_p:.7f}")
+    if not (abs(loss_k - loss_p) <= STEP_LOSS_TOL[dtype_name] * abs(loss_p)
+            and all(torch.isfinite(v).all() for v in g_k.values())):
+        raise AssertionError(f"train step {dtype_name}: loss {loss_k} vs "
+                             f"{loss_p}")
+    if dtype_name == "float32":
+        g_max = max(v.abs().max().item() for v in g_p.values())
+        worst = 0.0
+        for name in g_p:
+            err, scale = _rel_err(g_k[name], g_p[name])
+            log(f"  grad {name}: max relative gap "
+                f"{err / max(scale, 1e-30):.3e} (max |g| {scale:.3e})")
+            # a conv bias feeds BatchNorm: its gradient is zero in exact
+            # arithmetic, rounding noise on both sides; groups whose
+            # gradient nearly cancels are measured against 1e-3 of the
+            # largest gradient
+            floor = g_max if _zero_grad(name) else 1e-3 * g_max
+            worst = max(worst, err / max(scale, floor))
+        if worst > STEP_TOL_F32:
+            raise AssertionError(f"train step f32: gradient gap {worst}")
+        return worst
+    # the f32 step on the same masks: the mixed residual stream is f32, so
+    # only bf16 rows key the epilogue's stream otherwise
+    _, g_f = step("float32", True, 2 if dtype_name == "bfloat16" else None)
+    g_norm = max(v.norm().item() for v in g_f.values())
+    worst = 0.0
+    for name in g_p:
+        ref = g_f[name]
+        own = (g_p[name] - ref).norm().item()
+        dist = (g_k[name] - ref).norm().item()
+        gap = (g_k[name] - g_p[name]).norm().item()
+        scale = g_norm if _zero_grad(name) else ref.norm().item()
+        rel = 1.0 / max(scale, 1e-30)
+        log(f"  grad {name}: |kernels - plain| "
+            f"{gap / max(g_p[name].norm().item(), 1e-30):.3e}, from f32: "
+            f"plain {own * rel:.3e} kernels {dist * rel:.3e} (ratio "
+            f"{dist / max(own, 1e-30):.2f}; relative to |g| {scale:.3e})")
+        if not dist <= STEP_F32_RATIO * own + 1e-4 * scale:
+            raise AssertionError(
+                f"train step {dtype_name} {name}: kernels {dist} from the "
+                f"f32 step > {STEP_F32_RATIO} x plain {own}")
+        worst = max(worst, dist / max(own, 1e-30))
+    return worst
+
+
+def _zero_grad(name):
+    """A conv bias: BatchNorm follows, so its gradient is zero in exact
+    arithmetic and rounding noise in any other."""
+    return name.startswith("convs.") and name.endswith(".bias")
+
+
+def train(tmp):
+    """Phase 9; returns the launch counts of the training path."""
+    import json as _json
+
+    import numpy as np
+    import torch
+    from gnn_bfs_rans_tpu_torch.cli.main import main as cli_main
+    from gnn_bfs_rans_tpu_torch.foam import (drifting_box_fields,
+                                             generate_box_case)
+    from gnn_bfs_rans_tpu_torch.kernels import _build
+    from gnn_bfs_rans_tpu_torch.models.flow_gnn import ModelConfig
+    from gnn_bfs_rans_tpu_torch.train.data import load_dataset
+    from gnn_bfs_rans_tpu_torch.train.loop import TrainConfig, train_step
+    from gnn_bfs_rans_tpu_torch.train.trainer import Trainer
+
+    times = ("100", "200", "282")
+    case = tmp / "train_case"
+    info = generate_box_case(case, 400, 30, 1, time_dirs=times,
+                             time_field_fn=drifting_box_fields)
+    out = tmp / "train_run"
+    argv = ["train", "--case_path", str(case), "--time_dirs", *times,
+            "--output_dir", str(out), "--hidden_dim", str(HIDDEN),
+            "--num_layers", str(LAYERS), "--epochs", str(TRAIN_EPOCHS),
+            "--save_every", str(TRAIN_EPOCHS), "--lr", "1e-3",
+            "--dropout", str(DROPOUT), "--compute_dtype", "bfloat16",
+            "--device", "cuda"]
+    t = time.time()
+    _build.reset_launches()           # the training path starts here
+    rc = cli_main(argv)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)  # ... and ends here
+    log(f"train: {TRAIN_EPOCHS} epochs in {time.time() - t:.1f} s, launches "
+        f"{launches}")
+    if rc != 0:
+        raise RuntimeError(f"train returned {rc}")
+    hist = _json.loads((out / "training_history.json").read_text())
+    losses = hist["train_loss"]
+    log(f"train losses {losses}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"training did not lower the loss: {losses}")
+    meta = _json.loads((out / f"epoch_{TRAIN_EPOCHS}.meta.json").read_text())
+    if not meta.get("bn_recalibrated"):
+        raise AssertionError("bf16 checkpoint not saved recalibrated")
+    pred = tmp / "train_pred"
+    rc = cli_main(["infer", "--checkpoint", str(out), "--case_path", str(case),
+                   "--output_dir", str(pred), "--reference_time", "100",
+                   "--device", "cuda"])
+    if rc != 0:
+        raise RuntimeError(f"infer of the trained checkpoint returned {rc}")
+    fields = dict(np.load(pred / "predictions.npz"))
+    if fields["U"].shape != (info["n_cells"], 3) or not all(
+            np.isfinite(v).all() for v in fields.values()):
+        raise AssertionError("bad predictions from the trained checkpoint")
+    comp = _json.loads((pred / "comparison.json").read_text())
+    log(f"served the trained checkpoint: U mae {comp['U']['mae']:.4e}, "
+        f"p mae {comp['p']['mae']:.4e}")
+
+    # the train step's time and where it goes (after the counts were read)
+    dataset = load_dataset(case, list(times), with_band=True,
+                           band_components=("bias_self",))
+    mcfg = ModelConfig(hidden_dim=HIDDEN, num_layers=LAYERS, layer_type="GAT",
+                       heads=HEADS, backend="pallas", dropout=DROPOUT,
+                       compute_dtype="bfloat16")
+    tcfg = TrainConfig(lr=1e-3)
+    tr = Trainer(dataset, mcfg, tcfg, output_dir=tmp / "timing",
+                 log_fn=lambda *a: None, device="cuda")
+    batch = tr.targets[:1]
+
+    def step():
+        return train_step(tr.model, tr.optimizer, tr.graph, batch, 1e-3,
+                          tcfg, tr.generator)
+
+    host = host_time_ms(step)
+    device_us = profile_forward(step, "train step")
+    log(f"train step bf16 {LAYERS}x{HIDDEN}x{HEADS}h N {tr.graph.n_nodes} "
+        f"dropout {DROPOUT}: host clock median {host[1]:.4f} ms (quartiles "
+        f"{host[0]:.4f}, {host[2]:.4f}; 20 steps), device time (profiler "
+        f"sum) {'not measured' if device_us is None else f'{device_us / 1e3:.4f} ms'}")
+    return launches
 
 
 def main() -> int:
@@ -360,35 +813,77 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(0)
     rows = {}
+    graphs = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         for nx, ny in ((163, 75), (400, 30)):
             generate_box_case(tmp / f"box{nx}", nx, ny, 1)
-            graph = load_graph(tmp / f"box{nx}").to("cuda")
+            graphs[nx] = graph = load_graph(tmp / f"box{nx}").to("cuda")
             for dt in ("float32", "bfloat16"):
                 rows[("gat", nx, dt)] = check_gat(graph, dt, gen)
         n_pad, n_valid = graph.n_pad, graph.n_nodes
         for mode in ("float32", "mixed", "bfloat16"):
             rows[("epi", mode)] = check_epilogue(mode, n_pad, n_valid, gen)
         t1 = time.time()
-        launches = serve(tmp, gen)
-        log(f"serving phase: {time.time() - t1:.1f} s")
+        serve_launches = serve(tmp, gen)
+        log(f"serving phase: {time.time() - t1:.1f} s, launches "
+            f"{serve_launches}")
 
+        t1 = time.time()
+        for nx in (163, 400):
+            for dt in ("float32", "bfloat16"):
+                rows[("gat_train", nx, dt)] = check_gat_train(graphs[nx], dt,
+                                                              gen)
+                for rate in (0.0, DROPOUT):
+                    measured = check_gat_bwd(
+                        graphs[nx], dt, rate, gen,
+                        measure=(nx == 400 and dt == "bfloat16"
+                                 and rate == DROPOUT))
+                    if measured:
+                        rows["row5"], rows["row6"] = measured
+        for mode in ("float32", "mixed", "bfloat16"):
+            rows[("epi_train", mode)], rows[("row3", mode)] = \
+                check_epilogue_bwd(mode, n_pad, n_valid, gen)
+        for dt in ("float32", "bfloat16", "mixed"):
+            compare_train_step(graphs[400], dt)
+        log(f"training kernel phases: {time.time() - t1:.1f} s")
+        t1 = time.time()
+        launches = train(tmp)
+        log(f"training phase: {time.time() - t1:.1f} s")
+
+    gat = {k: v for k, v in rows[("gat_train", 400, "bfloat16")].items()}
     kernels = [
         dict(name="banded_gat_mean_fused", route="cuda",
              source="gnn_bfs_rans_tpu_torch/csrc/banded_gat.cu",
              replaces="gnn_bfs_rans_tpu/kernels/banded.py:991",
              launches=launches.get("banded_gat_mean_fused", 0),
-             library_ms=None, **rows[("gat", 400, "bfloat16")]),
+             library_ms=None, **gat),
         dict(name="fused_epilogue_fwd", route="triton",
              source="gnn_bfs_rans_tpu_torch/kernels/epilogue.py",
              replaces="gnn_bfs_rans_tpu/kernels/epilogue.py:217",
              launches=launches.get("fused_epilogue_fwd", 0),
-             library_ms=None, **rows[("epi", "bfloat16")]),
+             **rows[("epi_train", "bfloat16")]),
+        dict(name="fused_epilogue_bwd", route="triton",
+             source="gnn_bfs_rans_tpu_torch/kernels/epilogue.py",
+             replaces="gnn_bfs_rans_tpu/kernels/epilogue.py:260",
+             launches=launches.get("fused_epilogue_bwd", 0),
+             **rows[("row3", "bfloat16")]),
+        dict(name="banded_gat_bwd", route="cuda",
+             source="gnn_bfs_rans_tpu_torch/csrc/banded_gat_bwd.cu",
+             replaces="gnn_bfs_rans_tpu/kernels/banded_bwd.py:682",
+             launches=launches.get("banded_gat_bwd", 0), **rows["row5"]),
+        dict(name="fold_project_bwd", route="cuda",
+             source="gnn_bfs_rans_tpu_torch/csrc/fold_project_bwd.cu",
+             replaces="gnn_bfs_rans_tpu/kernels/banded_bwd.py:202",
+             launches=launches.get("fold_project_bwd", 0), **rows["row6"]),
     ]
     for k in kernels:
         if k["launches"] <= 0:
-            raise AssertionError(f"{k['name']} never launched on the main path")
+            raise AssertionError(f"{k['name']} never launched on the "
+                                 "training path")
+    for name in ("banded_gat_mean_fused", "fused_epilogue_fwd"):
+        if serve_launches.get(name, 0) <= 0:
+            raise AssertionError(f"{name} never launched on the serving path")
     log(f"total: {time.time() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,6 @@
 """OpenFOAM I/O: FoamFile-aware parsing, geometry, and writeback (numpy)."""
 
-from .casegen import box_fields, generate_box_case
+from .casegen import box_fields, drifting_box_fields, generate_box_case
 from .reader import (
     DEFAULT_FIELDS,
     BoundaryPatch,
@@ -14,6 +14,7 @@ from .writer import FIELD_DIMENSIONS, save_fields_openfoam_format
 __all__ = [
     "generate_box_case",
     "box_fields",
+    "drifting_box_fields",
     "DEFAULT_FIELDS",
     "BoundaryPatch",
     "FoamCase",

@@ -59,6 +59,18 @@ def box_fields(centers: np.ndarray) -> dict[str, np.ndarray]:
     }
 
 
+def drifting_box_fields(centers: np.ndarray, time: float
+                        ) -> dict[str, np.ndarray]:
+    """:func:`box_fields` drifting with the snapshot time: the pattern
+    shifts along x and its velocity and pressure grow, so snapshots of one
+    mesh differ as solver snapshots at several times do."""
+    shifted = centers + np.array([1e-3 * time, 0.0, 0.0])
+    fields = box_fields(shifted)
+    fields["U"] = fields["U"] * (1.0 + 1e-3 * time)
+    fields["p"] = fields["p"] * (1.0 + 2e-3 * time)
+    return fields
+
+
 def generate_box_case(
     path: str | Path,
     nx: int,
@@ -67,8 +79,13 @@ def generate_box_case(
     lengths: tuple[float, float, float] = (1.0, 1.0, 1.0),
     time_dirs: tuple[str, ...] = ("100",),
     field_fn=box_fields,
+    time_field_fn=None,
 ) -> dict:
     """Write a hex-box OpenFOAM case; returns golden counts for tests.
+
+    Each time directory gets ``field_fn(centers)``, or, when
+    ``time_field_fn`` is given, ``time_field_fn(centers, float(time_dir))``
+    (snapshots that differ by time, e.g. :func:`drifting_box_fields`).
 
     Returns dict with n_points / n_cells / n_faces / n_internal_faces /
     cell_centers (analytic, cell order) / patch face counts.
@@ -206,7 +223,8 @@ def generate_box_case(
     centers = np.stack([II.ravel(), JJ.ravel(), KK.ravel()], axis=1)  # cid order
 
     for td in time_dirs:
-        fields = field_fn(centers)
+        fields = (field_fn(centers) if time_field_fn is None
+                  else time_field_fn(centers, float(td)))
         save_fields_openfoam_format(fields, path, td)
 
     return {

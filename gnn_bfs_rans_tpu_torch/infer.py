@@ -4,8 +4,7 @@ Counterpart of ``gnn_bfs_rans_tpu/infer.py``.  Every GAT checkpoint is
 served through the banded kernel path, whatever ``backend`` its meta
 records: the JAX package's ``backend='auto'`` → ``dense`` rule exists to
 skip a minutes-long TPU compile that the card does not have.  The dense and
-segment paths, the other layer types and BN recalibration are not ported
-yet and raise.
+segment paths and the other layer types are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ from .graph.structs import Graph
 from .models.flow_gnn import FlowGNN, ModelConfig, split_fields
 from .train.checkpoint import load_checkpoint
 from .train.normalization import FieldNormalizer
+from .train.recal import exact_stats
 
 
 @dataclasses.dataclass
@@ -77,6 +77,14 @@ class Predictor:
             out = orig
         return out
 
+    def recalibrate_bn(self, graph: Graph) -> None:
+        """Replace the BatchNorm running statistics with the exact batch
+        statistics of one deterministic train-mode pass over ``graph``
+        (``train/recal.py``).  No-op without batch statistics."""
+        stats = exact_stats(self.model, graph.to(self.device))
+        if stats:
+            self.model.load_state_dict({**self.model.state_dict(), **stats})
+
     def predict_fields(
         self, graph: Graph, denormalize: bool = True
     ) -> dict[str, np.ndarray]:
@@ -111,13 +119,13 @@ def predict_case(
     exact_bn: bool | str = "auto",
     device: str | torch.device = "cuda",
 ) -> tuple[Predictor, dict[str, np.ndarray], Graph]:
-    """End to end: load checkpoint, parse case, build graph, predict."""
-    if recalibrate_bn:
-        raise NotImplementedError(
-            "recalibrate_bn needs train/recal.py, which is not ported yet")
+    """End to end: load checkpoint, parse case, build graph, (optionally)
+    recalibrate BN on it, predict."""
     predictor = Predictor.from_checkpoint(checkpoint_dir, name,
                                           exact_bn=exact_bn, device=device)
     graph = load_graph(case_path, predictor.model_config.layer_type,
                        boundary_self_loops).to(predictor.device)
+    if recalibrate_bn:
+        predictor.recalibrate_bn(graph)
     fields = predictor.predict_fields(graph)
     return predictor, fields, graph

@@ -99,6 +99,16 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def bind(name: str, fn_name: str, argtypes: list) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu`` with launcher ``fn_name``'s C
+    signature set (it returns a CUDA error code)."""
+    lib = load(name)
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise if a launcher returned a CUDA error code."""
     if rc != 0:

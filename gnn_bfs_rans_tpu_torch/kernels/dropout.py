@@ -1,0 +1,73 @@
+"""The port's dropout stream (plain PyTorch version).
+
+The JAX package's kernels draw dropout bits from the TPU's Mosaic PRNG on
+the chip and, in interpret mode, from a counter-based hash of (seed, draw,
+element index) (``gnn_bfs_rans_tpu/kernels/banded.py::_hash_bits``).  The
+TPU stream cannot be reproduced off the TPU, so the port uses the hash
+everywhere: its masks are bit-identical to the JAX package run on the CPU.
+Every caller uses draw 0.  The same function is written for the card in
+``csrc/dropout.cuh`` (the CUDA kernels) and in ``kernels/epilogue.py`` (the
+Triton kernels).
+
+An element is kept when ``hash_bits(seed, flat) >= threshold(rate)`` and
+then scaled by ``1 / (1 − rate)``.  Seeds are [1] int32 tensors on the
+device of the data they mask, drawn from an explicit ``torch.Generator``,
+so a kernel reads its seed without a host round trip.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_M32 = 0xFFFFFFFF
+
+
+def threshold(rate: float) -> int:
+    """The keep threshold on the uint32 bits (``_dropout_thresh``)."""
+    return min(int(rate * 2 ** 32), 2 ** 32 - 1)
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x·c) mod 2³² for int64 x in [0, 2³²): split so no product
+    overflows int64."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def hash_bits(seed, flat: torch.Tensor) -> torch.Tensor:
+    """uint32 bits (as int64) of element ``flat`` of the stream ``seed``.
+
+    ``seed`` is an int or an int64 tensor broadcastable against ``flat``;
+    it wraps to 32 bits as the int32 seed arithmetic of the kernels does.
+    """
+    flat = flat.to(torch.int64)
+    seed = torch.as_tensor(seed, dtype=torch.int64, device=flat.device) & _M32
+    x = flat ^ _mul32(seed, 0x9E3779B9)
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def check_seed(seed: torch.Tensor | None, rate: float,
+               device: torch.device) -> torch.Tensor | None:
+    """The seed a kernel reads: None at rate 0, else a [1] int32 tensor on
+    ``device`` (raises otherwise)."""
+    if rate <= 0:
+        return None
+    if not 0 < rate < 1:
+        raise ValueError(f"dropout rate must lie in [0, 1), got {rate}")
+    if seed is None:
+        raise ValueError("dropout rate > 0 needs a seed tensor")
+    if (seed.dtype != torch.int32 or seed.numel() != 1
+            or seed.device != device):
+        raise ValueError(f"the seed must be one int32 on {device}, got "
+                         f"{seed.dtype} {tuple(seed.shape)} on {seed.device}")
+    return seed.contiguous()
+
+
+def draw_seed(generator: torch.Generator, device) -> torch.Tensor:
+    """One kernel seed in [0, 2³¹ − 1) from ``generator`` (on ``device``),
+    the range of the JAX package's ``_dropout_seed``."""
+    return torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                         device=device, dtype=torch.int32)

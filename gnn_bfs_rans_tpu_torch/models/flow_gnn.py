@@ -10,9 +10,15 @@ residual stream; parameters stay f32.
 
 ``forward(graph, exact_bn=True)`` is the deterministic train-mode forward
 the JAX package's ``make_forward(exact_bn=True)`` runs: batch statistics of
-the input graph through the fused epilogue.  Dropout never runs here (the
-serving path is deterministic).  Only ``layer_type='GAT'`` with batch or no
-normalization is ported.
+the input graph through the fused epilogue.  ``forward(graph, train=True,
+generator=g)`` is the training forward (``flow_gnn.py:100-202`` with
+``train=True``): the differentiable GAT op and fused epilogue with their
+in-kernel dropout, each layer's kernel seeds and the output MLP's dropout
+masks drawn from the explicit ``g`` (never the global RNG), and the running
+BatchNorm statistics updated.  Without a generator the training forward is
+deterministic (the JAX package's dropout-free train-mode forward of the
+recalibration).  Only ``layer_type='GAT'`` with batch or no normalization is
+ported; the unfused batch-norm epilogue (``fuse_epilogue=False``) is not.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 from torch import nn
 
 from ..graph.structs import Graph
+from ..kernels.dropout import draw_seed
 from .convs import GATConv
 from .norm import MaskedBatchNorm
 
@@ -91,7 +98,8 @@ class FlowGNN(nn.Module):
         lin = functools.partial(nn.utils.skip_init, nn.Linear)
         self.input_proj = lin(cfg.input_dim, h)
         self.convs = nn.ModuleList(
-            GATConv(h, heads=cfg.heads) for _ in range(cfg.num_layers))
+            GATConv(h, heads=cfg.heads, dropout=cfg.dropout)
+            for _ in range(cfg.num_layers))
         self.norms = nn.ModuleList(
             MaskedBatchNorm(h) for _ in range(cfg.num_layers if self.bn else 0))
         self.out_0 = lin(h, h)
@@ -113,36 +121,68 @@ class FlowGNN(nn.Module):
         for conv in self.convs:
             conv.reset_parameters(generator)
 
-    def forward(self, graph: Graph, exact_bn: bool = False) -> torch.Tensor:
+    def forward(self, graph: Graph, exact_bn: bool = False,
+                train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         cfg = self.config
-        if exact_bn and self.bn and not cfg.fuse_epilogue:
+        if (exact_bn or train) and self.bn and not cfg.fuse_epilogue:
             raise NotImplementedError(
-                "exact_bn without the fused epilogue (fuse_epilogue=False) "
-                "is not ported yet")
+                "batch statistics without the fused epilogue "
+                "(fuse_epilogue=False) are not ported yet")
+        if train and not cfg.fuse_train:
+            raise NotImplementedError(
+                "the unfused GAT training path (fuse_train=False) is not "
+                "ported yet")
+        rate = cfg.dropout if (train and generator is not None) else 0.0
         mixed = cfg.compute_dtype == "mixed"
         dtype = torch.bfloat16 if cfg.compute_dtype in ("bfloat16", "mixed") \
             else None
+        dev = graph.node_feat.device
+
+        def seed():
+            return draw_seed(generator, dev) if rate > 0 else None
+
         x = _dense(self.input_proj, graph.node_feat, dtype)
         if mixed:
             # f32 residual stream; convs see bf16, their outputs rejoin in f32
             x = x.float()
         for i, conv in enumerate(self.convs):
             x_in = x.to(torch.bfloat16) if mixed else x
-            x_new = conv(x_in, graph)
+            x_new = conv(x_in, graph, train=train, seed=seed())
             if mixed:
                 x_new = x_new.float()
+            if self.bn and train:
+                x = self.norms[i].train_forward(x, x_new, graph.n_nodes, rate,
+                                                seed())
+                continue
             if self.bn and exact_bn:
                 x = self.norms[i].batch_forward(x, x_new, graph.n_nodes)
                 continue
             x = x + x_new
             if self.bn:
                 x = self.norms[i](x)
-            x = torch.relu(x)
+            x = self._dropout(torch.relu(x), rate, generator)
         h = torch.relu(_dense(self.out_0, x, dtype))
+        h = self._dropout(h, rate, generator)
         h = torch.relu(_dense(self.out_1, h, dtype))
+        h = self._dropout(h, rate, generator)
         h = torch.relu(_dense(self.out_2, h, dtype))
         # the final head always runs in float32
         return _dense(self.out_3, h.float(), None)
+
+    @staticmethod
+    def _dropout(h: torch.Tensor, rate: float,
+                 generator: torch.Generator | None) -> torch.Tensor:
+        """flax ``nn.Dropout``: keep with probability 1 − rate, scale by
+        1/(1 − rate) (the divisor rounded to h's dtype, as flax's weakly
+        typed scalar is), masks from ``generator``."""
+        if rate <= 0:
+            return h
+        keep = 1.0 - rate
+        mask = torch.rand(h.shape, generator=generator,
+                          device=h.device) < keep
+        div = float(torch.tensor(keep).to(h.dtype))
+        return torch.where(mask, h / div, torch.zeros_like(h))
 
 
 def split_fields(output):

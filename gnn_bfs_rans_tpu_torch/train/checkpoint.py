@@ -4,8 +4,12 @@
 ``<dir>/<name>.meta.json`` uses the same schema as the JAX package's
 sidecar (``gnn_bfs_rans_tpu/train/checkpoint.py:63-73``): epoch, val_loss,
 model_config, train_config, normalizer, plus any extra keys such as
-``bn_recalibrated``.  Orbax checkpoints need JAX to read and are not read
-here: carry JAX weights over with :mod:`..compat.from_jax`.
+``bn_recalibrated`` and the trainer's resume fields (``best_val``, ``lr``,
+``sched_best``).  A training checkpoint adds ``<dir>/<name>.train.pt``:
+the optimizer's state dict (Adam's moments and step), which ``--resume``
+needs.
+Orbax checkpoints need JAX to read and are not read here: carry JAX
+weights over with :mod:`..compat.from_jax`.
 """
 
 from __future__ import annotations
@@ -31,11 +35,15 @@ def save_checkpoint(
     val_loss: float = float("nan"),
     train_config: dict | None = None,
     extra: dict | None = None,
+    train_state: dict | None = None,
 ) -> Path:
+    """``train_state``: ``{"optimizer": state_dict}`` for resume."""
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     path = directory / f"{name}.pt"
     torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, path)
+    if train_state is not None:
+        torch.save(train_state, directory / f"{name}.train.pt")
     meta = {
         "epoch": epoch,
         "val_loss": float(val_loss),
@@ -59,3 +67,29 @@ def load_checkpoint(
     state = torch.load(Path(directory) / f"{name}.pt", map_location="cpu",
                        weights_only=True)
     return state, load_meta(directory, name)
+
+
+def load_train_state(directory: str | Path, name: str) -> dict:
+    """The optimizer state saved beside a training checkpoint."""
+    return torch.load(Path(directory) / f"{name}.train.pt",
+                      map_location="cpu", weights_only=True)
+
+
+def latest_checkpoint(directory: str | Path) -> str | None:
+    """Name of the newest ``epoch_N`` checkpoint (for resume), else
+    ``best``, else None."""
+    directory = Path(directory)
+    if not directory.exists():
+        return None
+    epochs = []
+    for p in directory.glob("epoch_*.meta.json"):
+        try:
+            epochs.append((int(p.name[len("epoch_"):-len(".meta.json")]),
+                           p.name[:-len(".meta.json")]))
+        except ValueError:
+            continue
+    if epochs:
+        return max(epochs)[1]
+    if (directory / "best.meta.json").exists():
+        return "best"
+    return None

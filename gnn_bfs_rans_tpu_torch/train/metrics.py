@@ -1,15 +1,31 @@
-"""Field comparison metrics (numpy), as in the reference's inference script.
+"""Per-field error metrics, as in the reference's training and inference
+scripts.
 
-Counterpart of ``comparison_stats`` / ``compare_with_reference`` in
-``gnn_bfs_rans_tpu/train/metrics.py`` (which imports JAX for its training
-metrics, so the port keeps its own copy).
+Counterpart of ``gnn_bfs_rans_tpu/train/metrics.py`` (which imports JAX,
+so the port keeps its own copy): ``compute_field_errors`` (torch, the
+training loop's per-field errors: U as the mean L2 norm of the per-cell
+velocity error, scalars as MAE) and the numpy ``comparison_stats`` /
+``compare_with_reference`` of inference.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 FIELD_NAMES = ("U", "p", "k", "epsilon", "nut")
+
+
+def compute_field_errors(pred: torch.Tensor, target: torch.Tensor,
+                         node_mask: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Per-field errors on packed [N_pad, 7] tensors, over real nodes."""
+    m = node_mask.to(pred.dtype)
+    count = torch.clamp_min(m.sum(), 1.0)
+    errors = {"U": (torch.linalg.vector_norm(pred[:, 0:3] - target[:, 0:3],
+                                             dim=1) * m).sum() / count}
+    for i, name in enumerate(("p", "k", "epsilon", "nut"), start=3):
+        errors[name] = ((pred[:, i] - target[:, i]).abs() * m).sum() / count
+    return errors
 
 
 def comparison_stats(pred: np.ndarray, ref: np.ndarray, vector: bool) -> dict:

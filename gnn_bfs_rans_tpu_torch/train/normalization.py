@@ -1,14 +1,22 @@
-"""Field normalization (numpy).
+"""Field normalization (numpy) and the training loss (torch).
 
-Counterpart of ``gnn_bfs_rans_tpu/train/normalization.py`` less the JAX
-loss functions (training is not ported yet): ``FieldNormalizer`` — per-field
-z-score, velocity per component, std floored at 1e-10 → 1.0 — with its
-dict (JSON) form, and the packed ``[U(3), p, k, epsilon, nut]`` layout.
+Counterpart of ``gnn_bfs_rans_tpu/train/normalization.py``:
+``FieldNormalizer`` — per-field z-score, velocity per component, std
+floored at 1e-10 → 1.0 — with its dict (JSON) form, the packed
+``[U(3), p, k, epsilon, nut]`` layout, and ``weighted_fieldwise_mse``, the
+field-weighted MSE with the pressure-mean anchor.
 """
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
+
 import numpy as np
+import torch
+
+DEFAULT_FIELD_WEIGHTS = {"U": 1.0, "p": 3.0, "k": 0.5, "epsilon": 0.5,
+                         "nut": 0.5}
 
 _STD_FLOOR = 1e-10
 
@@ -84,6 +92,9 @@ class FieldNormalizer:
             }
         return {"scalers": scalers, "field_stats": self.field_stats}
 
+    def save(self, path: str | Path) -> None:
+        Path(path).write_text(json.dumps(self.to_dict(), indent=2))
+
     @classmethod
     def from_dict(cls, d: dict) -> "FieldNormalizer":
         norm = cls()
@@ -107,3 +118,35 @@ def pack_targets(fields: dict[str, np.ndarray]) -> np.ndarray:
     for name in ("p", "k", "epsilon", "nut"):
         cols.append(np.asarray(fields[name]).reshape(-1, 1))
     return np.concatenate(cols, axis=1)
+
+
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean over real nodes (and trailing dims), padding excluded."""
+    m = mask.to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
+    denom = m.sum() * (x.numel() / x.shape[0])
+    return (x * m).sum() / torch.clamp_min(denom, 1.0)
+
+
+def weighted_fieldwise_mse(
+    pred: torch.Tensor,
+    target: torch.Tensor,
+    node_mask: torch.Tensor,
+    field_weights: dict[str, float] | None = None,
+    pressure_ref_weight: float = 0.1,
+) -> torch.Tensor:
+    """Field-wise weighted MSE with the pressure-mean anchor.
+
+    ``pred``/``target``: [N_pad, 7]; ``node_mask``: [N_pad] bool.
+    """
+    w = {**DEFAULT_FIELD_WEIGHTS, **(field_weights or {})}
+    sq = (pred - target) ** 2
+    u_loss = _masked_mean(sq[:, 0:3], node_mask)
+    p_loss = _masked_mean(sq[:, 3:4], node_mask)
+    p_mean_pred = _masked_mean(pred[:, 3:4], node_mask)
+    p_mean_tgt = _masked_mean(target[:, 3:4], node_mask)
+    p_loss = p_loss + pressure_ref_weight * (p_mean_pred - p_mean_tgt) ** 2
+    k_loss = _masked_mean(sq[:, 4:5], node_mask)
+    eps_loss = _masked_mean(sq[:, 5:6], node_mask)
+    nut_loss = _masked_mean(sq[:, 6:7], node_mask)
+    return (w["U"] * u_loss + w["p"] * p_loss + w["k"] * k_loss
+            + w["epsilon"] * eps_loss + w["nut"] * nut_loss)

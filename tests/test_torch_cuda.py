@@ -6,6 +6,8 @@ imports no JAX, so it runs on a machine that has only PyTorch:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,12 +20,27 @@ from gnn_bfs_rans_tpu_torch.kernels.banded import (
     banded_gat_mean_fused,
     banded_gat_mean_fused_plain,
 )
+from gnn_bfs_rans_tpu_torch.kernels.banded_bwd import (
+    banded_gat_bwd,
+    banded_gat_bwd_plain,
+    fold_project_bwd,
+    fold_project_bwd_plain,
+)
 from gnn_bfs_rans_tpu_torch.kernels.epilogue import (
+    _forward,
+    _forward_plain,
+    fused_epilogue,
+    fused_epilogue_bwd_plain,
     fused_epilogue_fwd,
     fused_epilogue_fwd_plain,
 )
 from gnn_bfs_rans_tpu_torch.models.flow_gnn import FlowGNN, ModelConfig
 from gnn_bfs_rans_tpu_torch.train.checkpoint import save_checkpoint
+from gnn_bfs_rans_tpu_torch.train.loop import (
+    TrainConfig,
+    make_optimizer,
+    train_step,
+)
 from gnn_bfs_rans_tpu_torch.train.normalization import FieldNormalizer
 
 pytestmark = pytest.mark.cuda
@@ -142,3 +159,172 @@ def test_predict_case_card_matches_cpu(card, tmp_path, dtype):
         for k in ref:
             np.testing.assert_allclose(got[k], ref[k], rtol=tol,
                                        atol=tol * np.abs(ref[k]).max())
+
+
+def _close(got, want, tol, floor=1e-30):
+    """max |got − want| ≤ tol × max(max |want|, floor)."""
+    want = want.float().cpu()
+    scale = max(want.abs().max().item(), floor)
+    err = (got.float().cpu() - want).abs().max().item()
+    assert err <= tol * scale, f"max err {err} > {tol} × {scale}"
+
+
+def _seed(card):
+    return torch.tensor([1234], dtype=torch.int32, device=card)
+
+
+# f32: summation order only; bf16: one rounding of z, dz or an output may
+# flip (one bf16 ulp, 2^-8 relative), and dx, dW sum such values
+KTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("width", [60, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gat_kernel_training_form_matches_plain(card, width, dtype):
+    n, heads, c, f = 512, 4, 64, 64
+    gen = torch.Generator().manual_seed(3)
+    dt = getattr(torch, dtype)
+    x = torch.randn(n, f, generator=gen).to(card, dt)
+    w = (torch.randn(f, heads * c, generator=gen) * f ** -0.5).to(card, dt)
+    alphas = (x.float() @ torch.randn(f, 2 * heads, generator=gen).to(card)
+              ).contiguous()
+    mask = _band(n, width).to(card)
+    args = (mask, w, alphas, x, heads, 0.2, 0.1, _seed(card))
+    out, z = banded_gat_mean_fused(*args, emit_z=True)
+    ref, ref_z = banded_gat_mean_fused_plain(*args, emit_z=True)
+    torch.cuda.synchronize()
+    _close(z, ref_z, 1e-6 if dtype == "float32" else 1e-2)
+    _close(out, ref, KTOL[dtype])
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("width", [60, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gat_backward_kernels_match_plain(card, width, dtype, rate):
+    n, heads, c, f = 512, 4, 64, 64
+    gen = torch.Generator().manual_seed(4)
+    dt = getattr(torch, dtype)
+    x = torch.randn(n, f, generator=gen).to(card, dt)
+    w = (torch.randn(f, heads * c, generator=gen) * f ** -0.5).to(card, dt)
+    z = (x.float() @ w.float()).to(dt)
+    alphas = (x.float() @ torch.randn(f, 2 * heads, generator=gen).to(card)
+              ).contiguous()
+    g = torch.randn(n, c, generator=gen).to(card, dt)
+    mask = _band(n, width).to(card)
+    seed = _seed(card) if rate else None
+    _build.reset_launches()
+    dz, da = banded_gat_bwd(mask, z, alphas, g, heads, 0.2, rate, seed)
+    dx, dw = fold_project_bwd(dz, x, w)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["banded_gat_bwd"] == 1
+    assert _build.LAUNCHES["fold_project_bwd"] == 1
+    ref_dz, ref_da = banded_gat_bwd_plain(mask, z, alphas, g, heads, 0.2, rate,
+                                          seed)
+    _close(dz, ref_dz, KTOL[dtype])
+    _close(da, ref_da, 1e-4 if dtype == "float32" else 1e-2)
+    ref_dx, ref_dw = fold_project_bwd_plain(dz, x, w)
+    assert dx.dtype == dt and dw.dtype == torch.float32
+    _close(dx, ref_dx, KTOL[dtype])
+    _close(dw, ref_dw, 1e-4 if dtype == "float32" else 1e-3)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "mixed"])
+def test_epilogue_backward_matches_plain(card, mode, rate):
+    dx_, dxn_ = {"float32": ("float32", "float32"),
+                 "bfloat16": ("bfloat16", "bfloat16"),
+                 "mixed": ("float32", "bfloat16")}[mode]
+    gen = torch.Generator().manual_seed(5)
+    n, c, n_valid = 1000, 96, 937
+    x = (torch.randn(n, c, generator=gen) + 2).to(card, getattr(torch, dx_))
+    xn = torch.randn(n, c, generator=gen).to(card, getattr(torch, dxn_))
+    scale = (1 + 0.1 * torch.randn(c, generator=gen)).to(card)
+    bias = (0.1 * torch.randn(c, generator=gen)).to(card)
+    seed = _seed(card) if rate else None
+    xs = [t.clone().requires_grad_() for t in (x, xn, scale, bias)]
+    _build.reset_launches()
+    y, mean, var = fused_epilogue(*xs, seed, n_valid, rate, 1e-5)
+    g = torch.randn(y.shape, generator=gen).to(card, y.dtype)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_epilogue_fwd"] == 2
+    assert _build.LAUNCHES["fused_epilogue_bwd"] == 2
+    y_ref = _forward_plain(x, xn, scale, bias, n_valid, 1e-5, rate, seed)[0]
+    tol = 5e-2 if mode == "bfloat16" else 1e-5
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol, atol=tol)
+    # the dropout masks are identical: no element is dropped on one side
+    # only (a bf16 rounding may move a value across the ReLU's 0, within tol)
+    assert not ((y == 0) & (y_ref.float().abs() > tol)).any()
+    assert not ((y_ref == 0) & (y.float().abs() > tol)).any()
+    # the backward on the kernel forward's own residuals: the same ReLU
+    # predicate on both sides, sums in other orders
+    _, m_k, _, xr, vec = _forward(x, xn, scale, bias, n_valid, 1e-5, rate,
+                                  seed)
+    grads = fused_epilogue_bwd_plain(g, xr, vec, m_k, n_valid, rate, seed,
+                                     x.dtype, xn.dtype)
+    for t, ref in zip(xs, grads):
+        assert t.grad.dtype == ref.dtype
+        _close(t.grad, ref, 1e-4 if ref.dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "mixed"])
+def test_train_step_card_matches_cpu(card, tmp_path, dtype):
+    from gnn_bfs_rans_tpu_torch.infer import load_graph
+
+    generate_box_case(tmp_path / "case", 24, 14, 1)
+    graph = load_graph(tmp_path / "case")
+    cfg = ModelConfig(hidden_dim=64, num_layers=2, layer_type="GAT", heads=2,
+                      backend="pallas", compute_dtype=dtype, dropout=0.0)
+    tcfg = TrainConfig(lr=1e-3)
+    targets = torch.randn(2, graph.n_pad, 7,
+                          generator=torch.Generator().manual_seed(6))
+    results = []
+    for dev in ("cpu", card):
+        model = FlowGNN(cfg, generator=torch.Generator().manual_seed(2)).to(dev)
+        loss = train_step(model, make_optimizer(model, tcfg), graph.to(dev),
+                          targets.to(dev), 1e-3, tcfg)
+        # the clipped gradients the step applied, and the parameters after
+        results.append((loss.item(),
+                        {k: p.grad.float().cpu()
+                         for k, p in model.named_parameters()},
+                        {k: p.detach().float().cpu()
+                         for k, p in model.named_parameters()}))
+    (l_cpu, g_cpu, p_cpu), (l_card, g_card, p_card) = results
+    assert l_card == pytest.approx(l_cpu, rel=1e-5 if dtype == "float32"
+                                   else 2e-2)
+    if dtype != "float32":
+        # each group's gradient on the card lies no further from the f32
+        # step's than 1.5 × the CPU bf16 (mixed) step's own distance, plus
+        # 1e-4 of the group's norm (of the largest group's for a conv bias,
+        # whose gradient is rounding noise): the kernels are as accurate as
+        # the plain versions, which round at the same points
+        f32 = FlowGNN(dataclasses.replace(cfg, compute_dtype="float32"),
+                      generator=torch.Generator().manual_seed(2))
+        train_step(f32, make_optimizer(f32, tcfg), graph, targets, 1e-3,
+                   tcfg)
+        g_f32 = {k: p.grad for k, p in f32.named_parameters()}
+        g_norm = max(g.norm().item() for g in g_f32.values())
+        for k, ref in g_f32.items():
+            own = (g_cpu[k] - ref).norm().item()
+            dist = (g_card[k] - ref).norm().item()
+            scale = g_norm if k.startswith("convs.") and k.endswith(".bias") \
+                else ref.norm().item()
+            assert dist <= 1.5 * own + 1e-4 * scale, (k, dist, own)
+    if dtype == "float32":
+        # f32 in other summation orders through 2 layers and back: an entry
+        # of input_proj's gradient sums ± terms over every node, which
+        # amplifies the rounding ~10× (measured 1.2e-4 of its largest
+        # entry); a group whose gradient nearly cancels (input_proj's bias,
+        # the attention vectors) is measured against 1e-3 of the largest one
+        floor = 1e-3 * max(g.abs().max().item() for g in g_cpu.values())
+        for k in g_cpu:
+            if k.startswith("convs.") and k.endswith(".bias"):
+                continue   # zero gradient up to rounding: Adam moves ±lr
+            _close(g_card[k], g_cpu[k], 1e-3, floor)
+            # Adam's first step is lr·g/(|g| + ε): it moves each entry by
+            # ≈ ±lr whatever the size of g, so where g is small beside the
+            # gradients' rounding the sign is a coin toss; the step is
+            # compared where |g| ≥ 1e-6 and ≥ 1% of the group's largest
+            firm = g_cpu[k].abs() >= max(1e-6, 1e-2 * g_cpu[k].abs().max().item())
+            torch.testing.assert_close(p_card[k][firm], p_cpu[k][firm],
+                                       rtol=1e-4, atol=1e-3 * tcfg.lr)
