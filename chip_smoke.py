@@ -36,20 +36,37 @@ Phases (any failure raises and exits non-zero):
    loss and each parameter group's gradient (f32: the largest relative gap
    held to 3e-2; bf16 and mixed: the distance from the plain versions' f32
    step on the same masks held to 1.5 × the plain bf16 step's own);
-9. training: ``python -m gnn_bfs_rans_tpu_torch train`` (in process) on
-   the 12,000-cell box case with three snapshots, bf16, dropout 0.1, a few
-   epochs, with the launch counters set to 0 just before and read just
-   after: every kernel launched, the loss finite and lower in the last epoch
-   than in the first, and the checkpoint then served by ``infer``; then the
-   train step's host-clock time, its device time (torch.profiler's device
-   sum), the breakdown by kernel and the card's idle share;
-10. print the kernel table as one JSON line, then the result line.
+9. row 8, ``banded_spmm`` (CUDA), forward and backward (through the autograd
+   op, on the transposed band) against the plain versions at F 256: the
+   ``gcn`` (f32) and ``adj`` (bf16) planes, x in f32 and bf16, on the
+   400×30 box (W 3) and a 200×150 box (W 5), with cuSPARSE's time of the
+   same product beside the kernel's; row 4, ``banded_gat_mean`` (CUDA),
+   against its plain version and its op's (dW, dWa, dx) against the plain
+   versions, rate 0 and 0.1, f32 and bf16, on both GAT bands;
+10. GCN and GIN serving at 6×256 through ``infer`` (``--bn_exact off|on``):
+    the default ``ModelConfig`` (GCN, f32) and its bf16 form, and GIN in
+    bf16, each as in phase 4;
+11. one train step through the kernels vs the plain versions, as in phase
+    8, for GCN 6×256 (f32, bf16, mixed), GIN 6×256 (f32) and the unfused
+    GAT 4×256 (``fuse_train=False``, bf16);
+12. training, each path with the launch counters set to 0 just before and
+    read just after: ``python -m gnn_bfs_rans_tpu_torch train`` (in process)
+    on the 12,000-cell box case with three snapshots, (a) the flagship GAT
+    (``--layer_type GAT``, bf16, dropout 0.1, 6 epochs) and (b) the CLI's
+    default model (GCN, 6×256, f32, 4 epochs): every kernel of the path
+    launched, the loss finite and lower in the last epoch than in the first,
+    and the checkpoint then served by ``infer``; (c) the unfused GAT
+    (bf16) for 2 epochs through the ``Trainer``; then the train steps'
+    host-clock time, device time (torch.profiler's device sum), breakdown
+    by kernel and the card's idle share;
+13. print the kernel table as one JSON line, then the result line.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times per
 call: ten calls captured in one CUDA graph and replayed, so host launch
 overhead does not enter them; the eager per-call time is printed beside
-them.  ``launches`` counts each wrapper's launches on the training path
-(phase 9).
+them.  ``launches`` counts each wrapper's launches on its training path
+(phase 12: the flagship GAT's for rows 1, 2, 3, 5, 6; the GCN run's for
+row 8; the unfused GAT run's for row 4).
 
 Needs no network; builds into ``gnn_bfs_rans_tpu_torch/build`` and writes
 scratch files only under the temporary directory.
@@ -57,6 +74,7 @@ scratch files only under the temporary directory.
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -85,11 +103,27 @@ STEP_TOL_F32 = 3e-2   # × max |plain gradient| per parameter group
 # bf16 and mixed: each group's gradient through the kernels lies no further
 # from the plain versions' f32 gradient (norms) than this multiple of the
 # plain versions' own bf16 (mixed) gradient does, plus 1e-4 of the group's
-# norm (of the largest group's for a conv bias): the kernel path is as
-# accurate as the plain path it mirrors, which rounds at the same points
+# norm: the kernel path is as accurate as the plain path it mirrors, which
+# rounds at the same points
 STEP_F32_RATIO = 1.5
+# a conv bias that feeds the BatchNorm has a zero gradient in exact
+# arithmetic: both paths give rounding noise, whose two sizes a ratio cannot
+# compare; it is held to zero up to one bf16 rounding (2^-8) of the largest
+# group's norm (measured ≤ 8.2e-4 of it)
+ZERO_GRAD_TOL = 2.0 ** -8
 TRAIN_EPOCHS = 6
+TRAIN_TIMES = ("100", "200", "282")
 DROPOUT = 0.1
+# the GCN / GIN model: the JAX CLI's default (6 layers, hidden 256)
+GCN_LAYERS = 6
+GCN_EPOCHS = 4
+# row 8 vs its plain version: f32 exact products summed in another order;
+# bf16 x: the f32 sum rounds once to bf16 on both sides, an order change
+# may flip it (2^-8 relative)
+SPMM_TOL = {"float32": 1e-5, "bfloat16": 1e-2}      # × max |plain output|
+# the conv kernel a layer type launches once per layer and forward
+CONV_KERNEL = {"GAT": "banded_gat_mean_fused", "GCN": "banded_spmm",
+               "GIN": "banded_spmm"}
 
 
 def log(*args):
@@ -238,6 +272,8 @@ def plain_versions():
     swaps = [
         (convs, "banded_gat_mean_fused", banded.banded_gat_mean_fused_plain),
         (banded, "banded_gat_mean_fused", banded.banded_gat_mean_fused_plain),
+        (banded, "banded_gat_mean", banded.banded_gat_mean_plain),
+        (banded, "banded_spmm_fwd", banded.banded_spmm_plain),
         (banded_bwd, "banded_gat_bwd", banded_bwd.banded_gat_bwd_plain),
         (banded_bwd, "fold_project_bwd", banded_bwd.fold_project_bwd_plain),
         (norm, "fused_epilogue_fwd", epilogue.fused_epilogue_fwd_plain),
@@ -254,46 +290,46 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
-def serve(tmp, gen):
-    """Phase 4; returns the launch counts of the main path."""
+def serve(tmp, case, info, cfg, label, gen):
+    """Serve a seeded checkpoint of ``cfg`` through ``infer`` with
+    ``--bn_exact off`` and ``on``: launches, outputs, fields against the
+    plain versions, then the forward's times.  Returns the launch counts of
+    the two ``infer`` runs (the serving path)."""
     import numpy as np
     import torch
     from gnn_bfs_rans_tpu_torch.cli.main import main as cli_main
-    from gnn_bfs_rans_tpu_torch.foam import box_fields, generate_box_case
+    from gnn_bfs_rans_tpu_torch.foam import box_fields
     from gnn_bfs_rans_tpu_torch.infer import Predictor, load_graph
     from gnn_bfs_rans_tpu_torch.kernels import _build
-    from gnn_bfs_rans_tpu_torch.models.flow_gnn import FlowGNN, ModelConfig
+    from gnn_bfs_rans_tpu_torch.models.flow_gnn import FlowGNN
     from gnn_bfs_rans_tpu_torch.train.checkpoint import save_checkpoint
     from gnn_bfs_rans_tpu_torch.train.normalization import FieldNormalizer
 
-    case = tmp / "case"
-    info = generate_box_case(case, 400, 30, 1)
-    cfg = ModelConfig(hidden_dim=HIDDEN, num_layers=LAYERS, layer_type="GAT",
-                      heads=HEADS, backend="pallas", compute_dtype="bfloat16")
+    ckpt = tmp / f"ckpt_{label}"
     model = FlowGNN(cfg, generator=gen)
     norm = FieldNormalizer().fit(box_fields(info["cell_centers"]))
-    save_checkpoint(tmp / "ckpt", "best", model.state_dict(),
-                    model_config=cfg, normalizer=norm)
-
-    runs = {"off": {"banded_gat_mean_fused": LAYERS},
-            "on": {"banded_gat_mean_fused": LAYERS,
-                   "fused_epilogue_fwd": 2 * LAYERS}}
+    save_checkpoint(ckpt, "best", model.state_dict(), model_config=cfg,
+                    normalizer=norm)
+    conv = CONV_KERNEL[cfg.layer_type]
+    layers = cfg.num_layers
+    runs = {"off": {conv: layers},
+            "on": {conv: layers, "fused_epilogue_fwd": 2 * layers}}
     totals = {}
-    _build.reset_launches()           # main path starts here
+    _build.reset_launches()           # the serving path starts here
     for bn in ("off", "on"):
         before = dict(_build.LAUNCHES)
-        out = tmp / f"pred_{bn}"
-        rc = cli_main(["infer", "--checkpoint", str(tmp / "ckpt"),
+        out = tmp / f"pred_{label}_{bn}"
+        rc = cli_main(["infer", "--checkpoint", str(ckpt),
                        "--case_path", str(case), "--output_dir", str(out),
                        "--save_format", "both", "--reference_time", "100",
                        "--bn_exact", bn, "--device", "cuda"])
         torch.cuda.synchronize()
         if rc != 0:
-            raise RuntimeError(f"infer --bn_exact {bn} returned {rc}")
+            raise RuntimeError(f"{label} infer --bn_exact {bn} returned {rc}")
         moved = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()}
         moved = {k: v for k, v in moved.items() if v}
         if moved != runs[bn]:
-            raise AssertionError(f"--bn_exact {bn}: launches {moved}, "
+            raise AssertionError(f"{label} --bn_exact {bn}: launches {moved}, "
                                  f"expected {runs[bn]}")
         for name in ("predicted/U", "predicted/nut", "comparison.json"):
             if not (out / name).is_file():
@@ -301,34 +337,35 @@ def serve(tmp, gen):
         pred = dict(np.load(out / "predictions.npz"))
         if pred["U"].shape != (info["n_cells"], 3) or not all(
                 np.isfinite(v).all() for v in pred.values()):
-            raise AssertionError(f"bad predictions for --bn_exact {bn}")
+            raise AssertionError(f"bad {label} predictions, --bn_exact {bn}")
+        totals = dict(_build.LAUNCHES)
         # the same predictor through the plain versions, on the card
-        predictor = Predictor.from_checkpoint(tmp / "ckpt", exact_bn=bn == "on")
-        graph = load_graph(case).to("cuda")
+        predictor = Predictor.from_checkpoint(ckpt, exact_bn=bn == "on")
+        graph = load_graph(case, cfg.layer_type).to("cuda")
         with plain_versions():
             plain = predictor.predict_fields(graph)
         for k, v in plain.items():
             err = float(np.abs(pred[k] - v).max())
             tol = SERVE_TOL * max(float(np.abs(v).max()), 1e-6)
-            log(f"serve --bn_exact {bn} {k}: max_abs_err vs plain {err:.3e} "
-                f"(tol {tol:.3e})")
+            log(f"serve {label} --bn_exact {bn} {k}: max_abs_err vs plain "
+                f"{err:.3e} (tol {tol:.3e})")
             if not err <= tol:
-                raise AssertionError(f"--bn_exact {bn} field {k} off by {err}")
-        totals = dict(_build.LAUNCHES)
-    # forward time and where it goes (after the main path's counts were read)
+                raise AssertionError(f"{label} --bn_exact {bn} field {k} off "
+                                     f"by {err}")
+    # forward time and where it goes (after the serving path's counts)
     for bn in ("off", "on"):
-        predictor = Predictor.from_checkpoint(tmp / "ckpt", exact_bn=bn == "on")
-        graph = load_graph(case).to("cuda")
+        predictor = Predictor.from_checkpoint(ckpt, exact_bn=bn == "on")
+        graph = load_graph(case, cfg.layer_type).to("cuda")
         with torch.inference_mode():
             def fwd():
                 return predictor.model(graph, exact_bn=predictor.exact_bn)
             host = host_time_ms(fwd)
             device_ms = graph_time_ms(fwd, calls=5, replays=4)
-            profile_forward(fwd, f"--bn_exact {bn}")
-        log(f"serve forward bf16 {LAYERS}x{HIDDEN}x{HEADS}h N "
-            f"{graph.n_nodes} --bn_exact {bn}: host clock median "
-            f"{host[1]:.4f} ms (quartiles {host[0]:.4f}, {host[2]:.4f}; "
-            f"20 forwards), device time in a CUDA graph {device_ms:.4f} ms")
+            profile_forward(fwd, f"{label} --bn_exact {bn}")
+        log(f"serve forward {label} N {graph.n_nodes} --bn_exact {bn}: host "
+            f"clock median {host[1]:.4f} ms (quartiles {host[0]:.4f}, "
+            f"{host[2]:.4f}; 20 forwards), device time in a CUDA graph "
+            f"{device_ms:.4f} ms")
     return totals
 
 
@@ -618,10 +655,11 @@ def epilogue_dropout_keys(itemsize):
         epilogue.pick_block = pick
 
 
-def compare_train_step(graph, dtype_name):
-    """Phase 8: one step's loss and gradients, kernels vs plain versions,
-    from the same seeded parameters and dropout masks; bf16 and mixed are
-    also held against the plain versions' f32 step on those masks."""
+def compare_train_step(graph, dtype_name, label="gat4x256", **overrides):
+    """One step's loss and gradients, kernels vs plain versions, from the
+    same seeded parameters and dropout masks; bf16 and mixed are also held
+    against the plain versions' f32 step on those masks.  ``overrides``:
+    ModelConfig fields over the flagship GAT's."""
     import torch
     from gnn_bfs_rans_tpu_torch.models.flow_gnn import FlowGNN, ModelConfig
     from gnn_bfs_rans_tpu_torch.train.loop import TrainConfig, batch_loss
@@ -630,9 +668,10 @@ def compare_train_step(graph, dtype_name):
                           generator=torch.Generator().manual_seed(9)).cuda()
 
     def step(dt, plain, itemsize=None):
-        cfg = ModelConfig(hidden_dim=HIDDEN, num_layers=LAYERS,
-                          layer_type="GAT", heads=HEADS, backend="pallas",
-                          dropout=DROPOUT, compute_dtype=dt)
+        cfg = ModelConfig(**{**dict(
+            hidden_dim=HIDDEN, num_layers=LAYERS, layer_type="GAT",
+            heads=HEADS, backend="pallas", dropout=DROPOUT,
+            compute_dtype=dt), **overrides})
         model = FlowGNN(cfg, generator=torch.Generator().manual_seed(1)).cuda()
         gen = torch.Generator(device="cuda").manual_seed(5)
         with contextlib.ExitStack() as ctx:
@@ -648,12 +687,12 @@ def compare_train_step(graph, dtype_name):
 
     loss_k, g_k = step(dtype_name, False)
     loss_p, g_p = step(dtype_name, True)
-    log(f"train step {dtype_name}: loss kernels {loss_k:.7f} plain "
+    log(f"train step {label} {dtype_name}: loss kernels {loss_k:.7f} plain "
         f"{loss_p:.7f}")
     if not (abs(loss_k - loss_p) <= STEP_LOSS_TOL[dtype_name] * abs(loss_p)
             and all(torch.isfinite(v).all() for v in g_k.values())):
-        raise AssertionError(f"train step {dtype_name}: loss {loss_k} vs "
-                             f"{loss_p}")
+        raise AssertionError(f"train step {label} {dtype_name}: loss "
+                             f"{loss_k} vs {loss_p}")
     if dtype_name == "float32":
         g_max = max(v.abs().max().item() for v in g_p.values())
         worst = 0.0
@@ -668,7 +707,8 @@ def compare_train_step(graph, dtype_name):
             floor = g_max if _zero_grad(name) else 1e-3 * g_max
             worst = max(worst, err / max(scale, floor))
         if worst > STEP_TOL_F32:
-            raise AssertionError(f"train step f32: gradient gap {worst}")
+            raise AssertionError(f"train step {label} f32: gradient gap "
+                                 f"{worst}")
         return worst
     # the f32 step on the same masks: the mixed residual stream is f32, so
     # only bf16 rows key the epilogue's stream otherwise
@@ -686,46 +726,44 @@ def compare_train_step(graph, dtype_name):
             f"{gap / max(g_p[name].norm().item(), 1e-30):.3e}, from f32: "
             f"plain {own * rel:.3e} kernels {dist * rel:.3e} (ratio "
             f"{dist / max(own, 1e-30):.2f}; relative to |g| {scale:.3e})")
+        if _zero_grad(name):
+            if not dist <= ZERO_GRAD_TOL * scale:
+                raise AssertionError(
+                    f"train step {label} {dtype_name} {name}: |g| {dist} > "
+                    f"{ZERO_GRAD_TOL} x {scale}")
+            continue
         if not dist <= STEP_F32_RATIO * own + 1e-4 * scale:
             raise AssertionError(
-                f"train step {dtype_name} {name}: kernels {dist} from the "
-                f"f32 step > {STEP_F32_RATIO} x plain {own}")
+                f"train step {label} {dtype_name} {name}: kernels {dist} "
+                f"from the f32 step > {STEP_F32_RATIO} x plain {own}")
         worst = max(worst, dist / max(own, 1e-30))
     return worst
 
 
 def _zero_grad(name):
-    """A conv bias: BatchNorm follows, so its gradient is zero in exact
-    arithmetic and rounding noise in any other."""
-    return name.startswith("convs.") and name.endswith(".bias")
+    """A conv bias that feeds the BatchNorm (GCN and GAT ``bias``, GIN's
+    last MLP layer): its gradient is zero in exact arithmetic and rounding
+    noise in any other."""
+    return re.fullmatch(r"convs\.\d+\.(nn\.2\.)?bias", name) is not None
 
 
-def train(tmp):
-    """Phase 9; returns the launch counts of the training path."""
+def train(tmp, case, info):
+    """``train`` of the flagship GAT (bf16, dropout); returns the launch
+    counts of the training path."""
     import json as _json
 
     import numpy as np
     import torch
     from gnn_bfs_rans_tpu_torch.cli.main import main as cli_main
-    from gnn_bfs_rans_tpu_torch.foam import (drifting_box_fields,
-                                             generate_box_case)
     from gnn_bfs_rans_tpu_torch.kernels import _build
-    from gnn_bfs_rans_tpu_torch.models.flow_gnn import ModelConfig
-    from gnn_bfs_rans_tpu_torch.train.data import load_dataset
-    from gnn_bfs_rans_tpu_torch.train.loop import TrainConfig, train_step
-    from gnn_bfs_rans_tpu_torch.train.trainer import Trainer
 
-    times = ("100", "200", "282")
-    case = tmp / "train_case"
-    info = generate_box_case(case, 400, 30, 1, time_dirs=times,
-                             time_field_fn=drifting_box_fields)
     out = tmp / "train_run"
-    argv = ["train", "--case_path", str(case), "--time_dirs", *times,
+    argv = ["train", "--case_path", str(case), "--time_dirs", *TRAIN_TIMES,
             "--output_dir", str(out), "--hidden_dim", str(HIDDEN),
             "--num_layers", str(LAYERS), "--epochs", str(TRAIN_EPOCHS),
             "--save_every", str(TRAIN_EPOCHS), "--lr", "1e-3",
             "--dropout", str(DROPOUT), "--compute_dtype", "bfloat16",
-            "--device", "cuda"]
+            "--layer_type", "GAT", "--device", "cuda"]
     t = time.time()
     _build.reset_launches()           # the training path starts here
     rc = cli_main(argv)
@@ -756,15 +794,242 @@ def train(tmp):
     comp = _json.loads((pred / "comparison.json").read_text())
     log(f"served the trained checkpoint: U mae {comp['U']['mae']:.4e}, "
         f"p mae {comp['p']['mae']:.4e}")
-
     # the train step's time and where it goes (after the counts were read)
-    dataset = load_dataset(case, list(times), with_band=True,
+    step_times(tmp, case, f"gat{LAYERS}x{HIDDEN}-bf16", layer_type="GAT",
+               num_layers=LAYERS, compute_dtype="bfloat16")
+    return launches
+
+
+def check_spmm(graph, plane, dtype_name, gen, measure=False):
+    """Row 8 forward and backward (through the autograd op, on the
+    transposed band) vs the plain versions at F 256; with ``measure`` its
+    times, bound and the cuSPARSE time of the same product."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.kernels.banded import (
+        banded_spmm, banded_spmm_fwd, banded_spmm_plain, transpose_band)
+
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype_name)
+    a = getattr(graph.band, plane)
+    n, window = graph.n_pad, a.shape[1]
+    x = torch.randn(n, HIDDEN, generator=gen).to(dev, dt)
+    g = torch.randn(n, HIDDEN, generator=gen).to(dev, dt)
+    got = banded_spmm_fwd(a, x)
+    ref = banded_spmm_plain(a, x)
+    grads = []
+    for plain in (False, True):
+        xl = x.clone().requires_grad_()
+        with plain_versions() if plain else contextlib.nullcontext():
+            banded_spmm(a, xl).backward(g)
+        grads.append(xl.grad)
+    torch.cuda.synchronize()
+    err, scale = _rel_err(got, ref)
+    gerr, gscale = _rel_err(*grads)
+    tol = SPMM_TOL[dtype_name]
+    log(f"row 8 banded_spmm {plane} ({a.dtype}) x {dtype_name} W {window} "
+        f"N {n}: max_abs_err {err:.3e} (tol {tol} x {scale:.3e}), dx "
+        f"{gerr:.3e} (x {gscale:.3e})")
+    if not (torch.isfinite(got).all() and torch.isfinite(grads[0]).all()
+            and err <= tol * scale and gerr <= tol * gscale):
+        raise AssertionError(f"banded_spmm {plane} {dtype_name} W {window}: "
+                             f"max err {err} / dx {gerr}")
+    if not measure:
+        return None
+    at = transpose_band(a)
+    ms = graph_time_ms(lambda: banded_spmm_fwd(a, x))
+    eager_ms = cuda_time_ms(lambda: banded_spmm_fwd(a, x))
+    bwd_ms = graph_time_ms(lambda: banded_spmm_fwd(at, g))
+    tr_ms = graph_time_ms(lambda: transpose_band(a))
+    plain_ms = graph_time_ms(lambda: banded_spmm_plain(a, x), 3, 2)
+    # cuSPARSE: a CSR copy of the same band times x, in f32 (it takes no
+    # mixed dtypes); timed here only, never on the port's path
+    t, k, i, j = (a != 0).nonzero(as_tuple=True)
+    tile = a.shape[2]
+    rows = t * tile + i
+    cols = (t - window // 2 + k) * tile + j
+    csr = torch.sparse_coo_tensor(
+        torch.stack([rows, cols]), a[t, k, i, j].float(), (n, n)
+    ).coalesce().to_sparse_csr()
+    xf = x.float()
+    lib = torch.sparse.mm(csr, xf)
+    lib_err, _ = _rel_err(lib, banded_spmm_plain(a, xf))
+    library_ms = graph_time_ms(lambda: torch.sparse.mm(csr, xf))
+    library_eager = cuda_time_ms(lambda: torch.sparse.mm(csr, xf))
+    nnz = int(rows.numel())
+    # the plane, x and out once; the products the nonzeros need, exact f32
+    # on the SIMT units
+    nbytes = (a.numel() * a.element_size() + 2 * x.numel() * x.element_size())
+    bound_ms, bound_by = bound(nbytes, 2 * nnz * HIDDEN, H100_FP32_FLOPS)
+    log(f"row 8 banded_spmm {plane} x {dtype_name} W {window} nnz {nnz}: ms "
+        f"{ms:.4f} (eager {eager_ms:.4f}; backward on the transposed band "
+        f"{bwd_ms:.4f}, transpose_band {tr_ms:.4f}) plain_ms {plain_ms:.4f} "
+        f"library_ms (torch.sparse.mm, CSR f32) {library_ms:.4f} (eager "
+        f"{library_eager:.4f}) "
+        f"(max err vs plain {lib_err:.3e}) bound_ms {bound_ms:.5f} "
+        f"({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def check_gat_mean(graph, dtype_name, rate, gen, measure=False):
+    """Row 4 vs its plain version, and its op's (dW, dWa, dx) through
+    z = x·W and α = x·wa, kernels (rows 4, 5) vs plain versions."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.kernels.banded import (
+        banded_gat_mean, banded_gat_mean_packed, banded_gat_mean_plain)
+
+    dt = getattr(torch, dtype_name)
+    n = graph.n_pad
+    mask = graph.band.bias_self
+    x, w, wa, g, seed = _gat_inputs(n, dt, gen)
+    seed = seed if rate else None
+    z = (x.float() @ w.float()).to(dt)
+    alphas = (x.float() @ wa.float()).contiguous()
+    args = (mask, z, alphas, HEADS, 0.2, rate, seed)
+    got = banded_gat_mean(*args)
+    ref = banded_gat_mean_plain(*args)
+    grads = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (w, wa, x)]
+        with plain_versions() if plain else contextlib.nullcontext():
+            w_, wa_, x_ = leaves
+            y = banded_gat_mean_packed(mask, x_ @ w_,
+                                       x_.float() @ wa_.float(), HEADS, 0.2,
+                                       rate, seed)
+            y.backward(g)
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    err, scale = _rel_err(got, ref)
+    log(f"row 4 banded_gat_mean {dtype_name} rate {rate} Wcols "
+        f"{mask.shape[-1]}: max_abs_err {err:.3e} (tol {GAT_TOL[dtype_name]} "
+        f"x {scale:.3e})")
+    if not (torch.isfinite(got).all() and err <= GAT_TOL[dtype_name] * scale):
+        raise AssertionError(f"banded_gat_mean {dtype_name} rate {rate}: "
+                             f"max err {err}")
+    for name, gk, gp in zip(("dW", "dWa", "dx"), *grads):
+        gerr, gscale = _rel_err(gk, gp)
+        log(f"  op {name}: max_abs_err {gerr:.3e} (tol {BWD_TOL[dtype_name]} "
+            f"x {gscale:.3e})")
+        if not (torch.isfinite(gk).all()
+                and gerr <= BWD_TOL[dtype_name] * gscale):
+            raise AssertionError(f"banded_gat_mean_packed {name} "
+                                 f"{dtype_name} rate {rate}: {gerr}")
+    if not measure:
+        return None
+    ms = graph_time_ms(lambda: banded_gat_mean(*args))
+    eager_ms = cuda_time_ms(lambda: banded_gat_mean(*args))
+    plain_ms = graph_time_ms(lambda: banded_gat_mean_plain(*args), 3, 2)
+    nnz = int(mask.sum().item())
+    isz = z.element_size()
+    hc = HEADS * HIDDEN
+    # mask, z and α read once, out written once; the f32 SIMT work is the
+    # sparse product, 2·C operations per nonzero entry and head
+    nbytes = mask.numel() + n * hc * isz + alphas.numel() * 4 + n * HIDDEN * isz
+    bound_ms, bound_by = bound(nbytes, 2 * nnz * hc, H100_FP32_FLOPS)
+    log(f"row 4 banded_gat_mean {dtype_name} rate {rate} N {n} nnz {nnz}: ms "
+        f"{ms:.4f} (eager {eager_ms:.4f}) plain_ms {plain_ms:.4f} bound_ms "
+        f"{bound_ms:.5f} ({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def train_default(tmp, case, info):
+    """``train`` with the CLI's default model (GCN, 6 layers, hidden 256,
+    f32): a few epochs, the loss must fall and the checkpoint serve; then
+    the train step's times.  Returns the launch counts of the run."""
+    import json as _json
+
+    import numpy as np
+    import torch
+    from gnn_bfs_rans_tpu_torch.cli.main import main as cli_main
+    from gnn_bfs_rans_tpu_torch.kernels import _build
+
+    out = tmp / "train_gcn"
+    argv = ["train", "--case_path", str(case), "--time_dirs", *TRAIN_TIMES,
+            "--output_dir", str(out), "--epochs", str(GCN_EPOCHS),
+            "--save_every", str(GCN_EPOCHS), "--lr", "1e-3", "--device",
+            "cuda"]
+    t = time.time()
+    _build.reset_launches()           # the GCN training path starts here
+    rc = cli_main(argv)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)  # ... and ends here
+    log(f"train (default: GCN): {GCN_EPOCHS} epochs in {time.time() - t:.1f} "
+        f"s, launches {launches}")
+    if rc != 0:
+        raise RuntimeError(f"train returned {rc}")
+    meta = _json.loads((out / f"epoch_{GCN_EPOCHS}.meta.json").read_text())
+    mcfg = meta["model_config"]
+    if (mcfg["layer_type"], mcfg["num_layers"], mcfg["hidden_dim"]) != (
+            "GCN", GCN_LAYERS, HIDDEN):
+        raise AssertionError(f"the default model is not GCN 6x256: {mcfg}")
+    losses = _json.loads((out / "training_history.json").read_text())[
+        "train_loss"]
+    log(f"train losses (GCN) {losses}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"GCN training did not lower the loss: {losses}")
+    pred = tmp / "train_gcn_pred"
+    rc = cli_main(["infer", "--checkpoint", str(out), "--case_path",
+                   str(case), "--output_dir", str(pred), "--reference_time",
+                   "100", "--device", "cuda"])
+    if rc != 0:
+        raise RuntimeError(f"infer of the GCN checkpoint returned {rc}")
+    fields = dict(np.load(pred / "predictions.npz"))
+    if fields["U"].shape != (info["n_cells"], 3) or not all(
+            np.isfinite(v).all() for v in fields.values()):
+        raise AssertionError("bad predictions from the GCN checkpoint")
+    step_times(tmp, case, "gcn6x256-f32", layer_type="GCN",
+               num_layers=GCN_LAYERS, compute_dtype="float32")
+    return launches
+
+
+def train_gat_unfused(tmp, case):
+    """The unfused GAT training path (``fuse_train=False``, bf16) through
+    the ``Trainer``: two epochs, the loss finite.  Returns the launch
+    counts of the run."""
+    import numpy as np
+    import torch
+    from gnn_bfs_rans_tpu_torch.kernels import _build
+    from gnn_bfs_rans_tpu_torch.models.flow_gnn import ModelConfig
+    from gnn_bfs_rans_tpu_torch.train.data import load_dataset
+    from gnn_bfs_rans_tpu_torch.train.loop import TrainConfig
+    from gnn_bfs_rans_tpu_torch.train.trainer import Trainer
+
+    dataset = load_dataset(case, list(TRAIN_TIMES), with_band=True,
                            band_components=("bias_self",))
     mcfg = ModelConfig(hidden_dim=HIDDEN, num_layers=LAYERS, layer_type="GAT",
                        heads=HEADS, backend="pallas", dropout=DROPOUT,
-                       compute_dtype="bfloat16")
+                       compute_dtype="bfloat16", fuse_train=False)
+    t = time.time()
+    _build.reset_launches()     # the unfused GAT training path starts here
+    tr = Trainer(dataset, mcfg, TrainConfig(lr=1e-3, epochs=2, save_every=2),
+                 output_dir=tmp / "train_gat_unfused",
+                 log_fn=lambda *a: None, device="cuda")
+    tr.initialize()
+    hist = tr.train()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)  # ... and ends here
+    log(f"train GAT fuse_train=False bf16: 2 epochs in {time.time() - t:.1f} "
+        f"s, losses {hist['train_loss']}, launches {launches}")
+    if not np.isfinite(hist["train_loss"]).all():
+        raise AssertionError("unfused GAT training gave a non-finite loss")
+    return launches
+
+
+def step_times(tmp, case, label, **model):
+    """Host-clock and profiler times of one train step (batch 1)."""
+    from gnn_bfs_rans_tpu_torch.graph.band import LAYER_COMPONENTS
+    from gnn_bfs_rans_tpu_torch.models.flow_gnn import ModelConfig
+    from gnn_bfs_rans_tpu_torch.train.data import load_dataset
+    from gnn_bfs_rans_tpu_torch.train.loop import TrainConfig, train_step
+    from gnn_bfs_rans_tpu_torch.train.trainer import Trainer
+
+    mcfg = ModelConfig(**{**dict(hidden_dim=HIDDEN, heads=HEADS,
+                                 backend="pallas", dropout=DROPOUT), **model})
+    dataset = load_dataset(case, list(TRAIN_TIMES), with_band=True,
+                           band_components=LAYER_COMPONENTS[mcfg.layer_type])
     tcfg = TrainConfig(lr=1e-3)
-    tr = Trainer(dataset, mcfg, tcfg, output_dir=tmp / "timing",
+    tr = Trainer(dataset, mcfg, tcfg, output_dir=tmp / f"timing_{label}",
                  log_fn=lambda *a: None, device="cuda")
     batch = tr.targets[:1]
 
@@ -773,12 +1038,11 @@ def train(tmp):
                           tcfg, tr.generator)
 
     host = host_time_ms(step)
-    device_us = profile_forward(step, "train step")
-    log(f"train step bf16 {LAYERS}x{HIDDEN}x{HEADS}h N {tr.graph.n_nodes} "
-        f"dropout {DROPOUT}: host clock median {host[1]:.4f} ms (quartiles "
-        f"{host[0]:.4f}, {host[2]:.4f}; 20 steps), device time (profiler "
-        f"sum) {'not measured' if device_us is None else f'{device_us / 1e3:.4f} ms'}")
-    return launches
+    device_us = profile_forward(step, f"train step {label}")
+    log(f"train step {label} N {tr.graph.n_nodes} dropout {DROPOUT}: host "
+        f"clock median {host[1]:.4f} ms (quartiles {host[0]:.4f}, "
+        f"{host[2]:.4f}; 20 steps), device time (profiler sum) "
+        f"{'not measured' if device_us is None else f'{device_us / 1e3:.4f} ms'}")
 
 
 def main() -> int:
@@ -794,9 +1058,12 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from gnn_bfs_rans_tpu_torch.foam import (FoamCase, drifting_box_fields,
+                                             generate_box_case)
+    from gnn_bfs_rans_tpu_torch.graph.build import build_graph
     from gnn_bfs_rans_tpu_torch.infer import load_graph
-    from gnn_bfs_rans_tpu_torch.foam import generate_box_case
     from gnn_bfs_rans_tpu_torch.kernels import _build
+    from gnn_bfs_rans_tpu_torch.models.flow_gnn import ModelConfig
 
     t0 = time.time()
     libs = _build.build_all()
@@ -825,7 +1092,14 @@ def main() -> int:
         for mode in ("float32", "mixed", "bfloat16"):
             rows[("epi", mode)] = check_epilogue(mode, n_pad, n_valid, gen)
         t1 = time.time()
-        serve_launches = serve(tmp, gen)
+        case = tmp / "case"
+        info = generate_box_case(case, 400, 30, 1)
+        serve_launches = {}
+        gat_cfg = ModelConfig(hidden_dim=HIDDEN, num_layers=LAYERS,
+                              layer_type="GAT", heads=HEADS, backend="pallas",
+                              compute_dtype="bfloat16")
+        serve_launches["gat"] = serve(tmp, case, info, gat_cfg,
+                                      f"gat{LAYERS}x{HIDDEN}-bf16", gen)
         log(f"serving phase: {time.time() - t1:.1f} s, launches "
             f"{serve_launches}")
 
@@ -847,9 +1121,66 @@ def main() -> int:
         for dt in ("float32", "bfloat16", "mixed"):
             compare_train_step(graphs[400], dt)
         log(f"training kernel phases: {time.time() - t1:.1f} s")
+
+        # row 8 on the GCN and GIN planes: the 400×30 box (W 3) and a box
+        # whose RCM bandwidth lies in (128, 256] (W 5)
         t1 = time.time()
-        launches = train(tmp)
-        log(f"training phase: {time.time() - t1:.1f} s")
+        spmm_graphs = {}
+        for nx, ny, window in ((400, 30, 3), (200, 150, 5)):
+            path = case if nx == 400 else tmp / f"box{nx}x{ny}"
+            if nx != 400:
+                generate_box_case(path, nx, ny, 1)
+            g = build_graph(FoamCase(path).load_mesh(), with_band=True)
+            if g.band is None or g.band.gcn.shape[1] != window:
+                raise AssertionError(f"box {nx}x{ny}: expected a W {window} "
+                                     "band")
+            spmm_graphs[nx] = g = g.to("cuda")
+            for plane in ("gcn", "adj"):
+                for dt in ("float32", "bfloat16"):
+                    rows[("spmm", nx, plane, dt)] = check_spmm(
+                        g, plane, dt, gen, measure=nx == 400)
+        # row 4 on both GAT bands
+        for nx in (163, 400):
+            for dt in ("float32", "bfloat16"):
+                for rate in (0.0, DROPOUT):
+                    rows[("gatm", nx, dt, rate)] = check_gat_mean(
+                        graphs[nx], dt, rate, gen,
+                        measure=nx == 400 and dt == "bfloat16")
+        log(f"rows 8 and 4: {time.time() - t1:.1f} s")
+
+        # GCN (the default config, f32, and bf16) and GIN serving, 6×256
+        t1 = time.time()
+        serve_launches["gcn"] = serve(tmp, case, info, ModelConfig(),
+                                      "gcn6x256-f32", gen)
+        serve(tmp, case, info, ModelConfig(compute_dtype="bfloat16"),
+              "gcn6x256-bf16", gen)
+        serve_launches["gin"] = serve(
+            tmp, case, info,
+            ModelConfig(layer_type="GIN", compute_dtype="bfloat16"),
+            "gin6x256-bf16", gen)
+        log(f"GCN / GIN serving: {time.time() - t1:.1f} s")
+
+        # one train step, kernels vs plain versions
+        t1 = time.time()
+        full = spmm_graphs[400]
+        for dt in ("float32", "bfloat16", "mixed"):
+            compare_train_step(full, dt, "gcn6x256", layer_type="GCN",
+                               num_layers=GCN_LAYERS)
+        compare_train_step(full, "float32", "gin6x256", layer_type="GIN",
+                           num_layers=GCN_LAYERS)
+        compare_train_step(full, "bfloat16", "gat4x256-unfused",
+                           fuse_train=False)
+        log(f"GCN / GIN / unfused GAT train steps: {time.time() - t1:.1f} s")
+
+        t1 = time.time()
+        train_case = tmp / "train_case"
+        train_info = generate_box_case(train_case, 400, 30, 1,
+                                       time_dirs=TRAIN_TIMES,
+                                       time_field_fn=drifting_box_fields)
+        launches = train(tmp, train_case, train_info)
+        launches_gcn = train_default(tmp, train_case, train_info)
+        launches_gatm = train_gat_unfused(tmp, train_case)
+        log(f"training phases: {time.time() - t1:.1f} s")
 
     gat = {k: v for k, v in rows[("gat_train", 400, "bfloat16")].items()}
     kernels = [
@@ -876,14 +1207,29 @@ def main() -> int:
              source="gnn_bfs_rans_tpu_torch/csrc/fold_project_bwd.cu",
              replaces="gnn_bfs_rans_tpu/kernels/banded_bwd.py:202",
              launches=launches.get("fold_project_bwd", 0), **rows["row6"]),
+        # the GCN training path (the CLI's default model, f32)
+        dict(name="banded_spmm", route="cuda",
+             source="gnn_bfs_rans_tpu_torch/csrc/banded_spmm.cu",
+             replaces="gnn_bfs_rans_tpu/kernels/banded.py:217",
+             launches=launches_gcn.get("banded_spmm", 0),
+             **rows[("spmm", 400, "gcn", "float32")]),
+        # the unfused GAT training path (bf16, dropout 0.1)
+        dict(name="banded_gat_mean", route="cuda",
+             source="gnn_bfs_rans_tpu_torch/csrc/banded_gat.cu",
+             replaces="gnn_bfs_rans_tpu/kernels/banded.py:499",
+             launches=launches_gatm.get("banded_gat_mean", 0),
+             **rows[("gatm", 400, "bfloat16", DROPOUT)]),
     ]
     for k in kernels:
         if k["launches"] <= 0:
-            raise AssertionError(f"{k['name']} never launched on the "
+            raise AssertionError(f"{k['name']} never launched on its "
                                  "training path")
-    for name in ("banded_gat_mean_fused", "fused_epilogue_fwd"):
-        if serve_launches.get(name, 0) <= 0:
-            raise AssertionError(f"{name} never launched on the serving path")
+    for path, name in (("gat", "banded_gat_mean_fused"),
+                       ("gat", "fused_epilogue_fwd"),
+                       ("gcn", "banded_spmm"), ("gin", "banded_spmm")):
+        if serve_launches[path].get(name, 0) <= 0:
+            raise AssertionError(f"{name} never launched on the {path} "
+                                 "serving path")
     log(f"total: {time.time() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

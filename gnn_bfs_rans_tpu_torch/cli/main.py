@@ -4,9 +4,11 @@ subcommands.
 ``python -m gnn_bfs_rans_tpu_torch train|infer [flags]`` take the flags of
 the JAX package's subcommands (``gnn_bfs_rans_tpu/cli/main.py:27-76,
 455-527``) plus ``--device`` (``cuda`` by default; ``cpu`` runs the
-kernels' plain versions).  ``train`` defaults to the ported path
-(``--layer_type GAT --backend pallas``); its ``--epoch_block`` > 1 and the
-JAX trainer's ``--progress`` bar and ``--no_aot`` cache are not ported.
+kernels' plain versions).  ``train`` defaults to the JAX CLI's model
+(``--layer_type GCN``, 6 layers, hidden 256) on the ported backend
+(``--backend pallas``, the banded kernels: the port has no dense path);
+its ``--epoch_block`` > 1 and the JAX trainer's ``--progress`` bar and
+``--no_aot`` cache are not ported.
 The other subcommands are not ported yet.
 """
 
@@ -117,9 +119,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_dir", type=str, default="checkpoints")
     p.add_argument("--hidden_dim", type=int, default=256)
     p.add_argument("--num_layers", type=int, default=6)
-    p.add_argument("--layer_type", type=str, default="GAT",
+    p.add_argument("--layer_type", type=str, default="GCN",
                    choices=["GCN", "GAT", "GIN", "Transformer"],
-                   help="GAT is the ported layer type")
+                   help="GCN, GAT and GIN are ported; Transformer raises")
     p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--lr", type=float, default=3e-4)

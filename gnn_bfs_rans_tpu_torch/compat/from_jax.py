@@ -12,6 +12,11 @@ leaf by leaf.  Layouts:
 * GAT ``conv_i/lin/kernel`` is ``W [F, H·C]`` → ``convs.i.lin.weight``
   ``[H·C, F]``; ``att_src`` / ``att_dst`` ``[1, H, C]`` and ``bias`` ``[C]``
   carry as they are;
+* GCN ``conv_i/lin/kernel`` → ``convs.i.lin.weight`` and ``conv_i/bias`` →
+  ``convs.i.bias``;
+* GIN ``conv_i/mlp_0`` and ``conv_i/mlp_1`` (``kernel``, ``bias``) →
+  ``convs.i.nn.0`` and ``convs.i.nn.2`` (PyG's ``Sequential(Linear, ReLU,
+  Linear)``);
 * ``bn_i`` ``scale`` / ``bias`` and ``batch_stats`` ``mean`` / ``var`` →
   ``norms.i.weight`` / ``bias`` / ``running_mean`` / ``running_var``.
 """
@@ -22,6 +27,18 @@ import numpy as np
 import torch
 
 from ..models.flow_gnn import ModelConfig
+
+
+PORTED = ("GCN", "GAT", "GIN")
+# GIN's flax MLP layer → the port's Sequential index
+GIN_MLP = {"mlp_0": "nn.0", "mlp_1": "nn.2"}
+
+
+def _check(config: ModelConfig) -> None:
+    if config.layer_type not in PORTED:
+        raise NotImplementedError(
+            f"layer_type {config.layer_type!r} is not ported yet (GCN, GAT "
+            "and GIN are)")
 
 
 def _t(a) -> torch.Tensor:
@@ -35,17 +52,20 @@ def _linear(sd: dict, name: str, p: dict) -> None:
 
 def state_dict_from_flax(params: dict, batch_stats: dict,
                          config: ModelConfig) -> dict[str, torch.Tensor]:
-    if config.layer_type != "GAT":
-        raise NotImplementedError(
-            f"layer_type {config.layer_type!r} is not ported yet (GAT only)")
+    _check(config)
     sd: dict[str, torch.Tensor] = {}
     _linear(sd, "input_proj", params["input_proj"])
     for i in range(config.num_layers):
         conv = params[f"conv_{i}"]
-        sd[f"convs.{i}.lin.weight"] = _t(conv["lin"]["kernel"]).t().contiguous()
-        sd[f"convs.{i}.att_src"] = _t(conv["att_src"])
-        sd[f"convs.{i}.att_dst"] = _t(conv["att_dst"])
-        sd[f"convs.{i}.bias"] = _t(conv["bias"])
+        if config.layer_type == "GIN":
+            for flax_name, name in GIN_MLP.items():
+                _linear(sd, f"convs.{i}.{name}", conv[flax_name])
+        else:
+            sd[f"convs.{i}.lin.weight"] = _t(conv["lin"]["kernel"]).t().contiguous()
+            sd[f"convs.{i}.bias"] = _t(conv["bias"])
+        if config.layer_type == "GAT":
+            sd[f"convs.{i}.att_src"] = _t(conv["att_src"])
+            sd[f"convs.{i}.att_dst"] = _t(conv["att_dst"])
         if config.use_batch_norm and config.norm_type == "batch":
             bn, st = params[f"bn_{i}"], batch_stats[f"bn_{i}"]
             sd[f"norms.{i}.weight"] = _t(bn["scale"])
@@ -61,9 +81,7 @@ def flax_tree_from_state_dict(sd: dict, config: ModelConfig
                               ) -> tuple[dict, dict]:
     """(params, batch_stats) numpy trees in the JAX package's layout from a
     port state dict (or a dict of per-parameter gradients)."""
-    if config.layer_type != "GAT":
-        raise NotImplementedError(
-            f"layer_type {config.layer_type!r} is not ported yet (GAT only)")
+    _check(config)
 
     def a(name):
         return sd[name].detach().float().cpu().numpy()
@@ -75,12 +93,16 @@ def flax_tree_from_state_dict(sd: dict, config: ModelConfig
     params = {"input_proj": linear("input_proj")}
     stats = {}
     for i in range(config.num_layers):
-        params[f"conv_{i}"] = {
-            "lin": {"kernel": a(f"convs.{i}.lin.weight").T.copy()},
-            "att_src": a(f"convs.{i}.att_src"),
-            "att_dst": a(f"convs.{i}.att_dst"),
-            "bias": a(f"convs.{i}.bias"),
-        }
+        if config.layer_type == "GIN":
+            conv = {flax_name: linear(f"convs.{i}.{name}")
+                    for flax_name, name in GIN_MLP.items()}
+        else:
+            conv = {"lin": {"kernel": a(f"convs.{i}.lin.weight").T.copy()},
+                    "bias": a(f"convs.{i}.bias")}
+        if config.layer_type == "GAT":
+            conv["att_src"] = a(f"convs.{i}.att_src")
+            conv["att_dst"] = a(f"convs.{i}.att_dst")
+        params[f"conv_{i}"] = conv
         if config.use_batch_norm and config.norm_type == "batch":
             params[f"bn_{i}"] = {"scale": a(f"norms.{i}.weight"),
                                  "bias": a(f"norms.{i}.bias")}

@@ -1,8 +1,12 @@
-// Fused-projection banded GAT forward with head-mean epilogue.
+// Banded GAT forward with head-mean epilogue: fused-projection and unfused.
 //
-// Replaces the TPU kernel gnn_bfs_rans_tpu/kernels/banded.py::
+// Replaces two TPU kernels of gnn_bfs_rans_tpu/kernels/banded.py:
 // banded_gat_mean_fused_fwd (_gat_kernel with fuse_proj=True,
-// mean_heads=True, dropout and emit_z; no emit_stats).  Computes, for
+// mean_heads=True, dropout and emit_z; no emit_stats), entry
+// banded_gat_mean_fused_launch, and banded_gat_fwd with mean_heads=True
+// (the unfused training path's attention on a precomputed z; no
+// emit_stats), entry banded_gat_mean_launch, which runs the attention phase
+// below on the caller's z.  Computes, for
 // every receiver row i of tile t = i / T and every head h,
 //
 //   z      = x · W                          (f32 accumulate, rounded to x's dtype)
@@ -35,6 +39,9 @@
 // Unlike the TPU kernel, z makes one round trip through device memory
 // (N·H·C·dtype bytes: 24.6 MB per layer at the flagship shape in bf16);
 // keeping z on chip, and wgmma/TMA for the projection, are later work.
+// The unfused form (row 4) has no projection: it reads z, the mask, α and
+// writes out (34.3 MB per layer at the flagship shape in bf16), so it is
+// bound by bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -166,15 +173,10 @@ __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK) gat_attention_kernel(
 }
 
 template <typename T>
-int launch(const int8_t* mask, const void* w, const float* alphas,
-           const void* x, void* z, void* out, int n_pad, int f, int heads,
-           int c, int tile, int wcols, float slope, const int* seed,
-           uint32_t thresh, float inv_keep, cudaStream_t stream) {
-  // z = x·W: A = x [n_pad, F] K-contiguous, B = W [F, H·C] N-contiguous
-  cudaError_t err = gemm::matmul<true, false>(
-      static_cast<const T*>(x), f, static_cast<const T*>(w), heads * c,
-      static_cast<T*>(z), heads * c, 0, n_pad, heads * c, f, f, stream);
-  if (err != cudaSuccess) return (int)err;
+int attention(const int8_t* mask, const float* alphas, const void* z,
+              void* out, int n_pad, int heads, int c, int tile, int wcols,
+              float slope, const int* seed, uint32_t thresh, float inv_keep,
+              cudaStream_t stream) {
   dim3 agrid((n_pad + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK,
              (c + COL_CHUNK - 1) / COL_CHUNK);
   const size_t smem = (size_t)ROWS_PER_BLOCK * wcols * (sizeof(int) + sizeof(float));
@@ -184,6 +186,20 @@ int launch(const int8_t* mask, const void* w, const float* alphas,
       mask, alphas, static_cast<const T*>(z), static_cast<T*>(out), n_pad,
       heads, c, tile, wcols, slope, seed, thresh, inv_keep);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const int8_t* mask, const void* w, const float* alphas,
+           const void* x, void* z, void* out, int n_pad, int f, int heads,
+           int c, int tile, int wcols, float slope, const int* seed,
+           uint32_t thresh, float inv_keep, cudaStream_t stream) {
+  // z = x·W: A = x [n_pad, F] K-contiguous, B = W [F, H·C] N-contiguous
+  cudaError_t err = gemm::matmul<true, false>(
+      static_cast<const T*>(x), f, static_cast<const T*>(w), heads * c,
+      static_cast<T*>(z), heads * c, 0, n_pad, heads * c, f, f, stream);
+  if (err != cudaSuccess) return (int)err;
+  return attention<T>(mask, alphas, z, out, n_pad, heads, c, tile, wcols,
+                      slope, seed, thresh, inv_keep, stream);
 }
 
 }  // namespace
@@ -209,6 +225,24 @@ int banded_gat_mean_fused_launch(const int8_t* mask, const void* w,
     return launch<__nv_bfloat16>(mask, w, alphas, x, z, out, n_pad, f, heads,
                                  c, tile, wcols, slope, seed, thresh, inv_keep,
                                  s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The attention alone on a given z [n_pad, heads·c] (row 4, head mean):
+// dtype, seed, thresh and inv_keep as above.
+int banded_gat_mean_launch(const int8_t* mask, const float* alphas,
+                           const void* z, void* out, int n_pad, int heads,
+                           int c, int tile, int wcols, float slope, int dtype,
+                           const int* seed, unsigned int thresh,
+                           float inv_keep, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return attention<float>(mask, alphas, z, out, n_pad, heads, c, tile,
+                            wcols, slope, seed, thresh, inv_keep, s);
+  if (dtype == 1)
+    return attention<__nv_bfloat16>(mask, alphas, z, out, n_pad, heads, c,
+                                    tile, wcols, slope, seed, thresh,
+                                    inv_keep, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -55,6 +55,16 @@ class Band:
         f = self.adj if self.adj is not None else self.gcn
         return f.shape[1] * self.tile
 
+    def transposed(self, name: str) -> torch.Tensor:
+        """The ``name`` plane ('gcn' or 'adj') of Aᵀ for the SpMM's
+        backward, computed at first use and kept with this Band (``to``
+        makes a new Band, which computes its own)."""
+        cache = self.__dict__.setdefault("_transposed", {})
+        if name not in cache:
+            from ..kernels.banded import transpose_band
+            cache[name] = transpose_band(getattr(self, name))
+        return cache[name]
+
     def to(self, device: str | torch.device) -> "Band":
         return dataclasses.replace(self, **{
             name: getattr(self, name).to(device)

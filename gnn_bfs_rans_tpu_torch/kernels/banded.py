@@ -1,19 +1,31 @@
-"""Fused-projection banded GAT: forward kernel, plain version, autograd op.
+"""The banded kernels of the forward: GAT attention and the SpMM.
 
-Counterpart of ``gnn_bfs_rans_tpu/kernels/banded.py::banded_gat_mean_fused``
-(its forward ``banded_gat_mean_fused_fwd``, ``_gat_kernel`` with
-``fuse_proj=True, mean_heads=True``, attention dropout and ``emit_z``) and of
-``banded_gat_mean_fused_wa``, the training op whose custom VJP gives
-(dW, dWa, dx).  The forward kernel is ``csrc/banded_gat.cu``; the backward
-runs ``banded_bwd.banded_gat_bwd`` and ``banded_bwd.fold_project_bwd``.
+* ``banded_gat_mean_fused`` (kernel 1): counterpart of
+  ``gnn_bfs_rans_tpu/kernels/banded.py::banded_gat_mean_fused`` (its
+  forward ``banded_gat_mean_fused_fwd``, ``_gat_kernel`` with
+  ``fuse_proj=True, mean_heads=True``, attention dropout and ``emit_z``),
+  and ``banded_gat_mean_fused_wa``, the training op whose custom VJP gives
+  (dW, dWa, dx).  The backward runs ``banded_bwd.banded_gat_bwd`` and
+  ``banded_bwd.fold_project_bwd``.
+* ``banded_gat_mean`` (row 4): ``banded_gat_fwd`` with ``mean_heads=True``,
+  the attention on a precomputed z of the unfused training path, and
+  ``banded_gat_mean_packed``, its op, whose backward is
+  ``banded_bwd.banded_gat_bwd`` as in ``_gatm_vjp_bwd``.  Kernel 1 and
+  row 4 share ``csrc/banded_gat.cu``.
+* ``banded_spmm`` (row 8): ``banded_spmm_fwd`` / ``banded_spmm``, the GCN
+  and GIN aggregation ``out[t] = Σ_k A[t, k] @ x[t − k0 + k]``, kernel
+  ``csrc/banded_spmm.cu``; its backward is the same kernel on
+  ``transpose_band`` (``_transpose_band``), which the convs compute once
+  per ``Band`` and keep (``Band.transposed``).
+
 Each source's header says what bounds it on the card and how the design
-answers that.
-
-Layouts are the JAX package's: ``bias_self`` int8 ``[n_tiles, T, Wcols]``,
-``w`` ``[F, H·C]``, packed ``alphas`` f32 ``[N, 2H]`` (src | dst), ``x``
-``[N, F]`` → ``[N, C]`` in x's dtype (float32 or bfloat16).  Dropout draws
-from the hash stream of :mod:`.dropout`: tile t's [H·T, Wcols] plane uses
-seed + t, so masks match the JAX package's interpret mode bit for bit.
+answers that.  Layouts are the JAX package's: ``bias_self`` int8
+``[n_tiles, T, Wcols]``, ``w`` ``[F, H·C]``, packed ``alphas`` f32
+``[N, 2H]`` (src | dst), ``x`` ``[N, F]`` → ``[N, C]`` in x's dtype
+(float32 or bfloat16); SpMM planes ``[n_tiles, W, T, T]`` (``gcn`` f32,
+``adj`` bf16).  Dropout draws from the hash stream of :mod:`.dropout`:
+tile t's [H·T, Wcols] plane uses seed + t, so masks match the JAX
+package's interpret mode bit for bit.
 """
 
 from __future__ import annotations
@@ -55,30 +67,15 @@ def attention_keep(seed, n_tiles: int, tile: int, width: int,
     return _drop.hash_bits(seed + t, flat) >= _drop.threshold(rate)
 
 
-def banded_gat_mean_fused_plain(
-    bias_self: torch.Tensor,
-    w: torch.Tensor,
-    alphas: torch.Tensor,
-    x: torch.Tensor,
-    heads: int,
-    negative_slope: float = 0.2,
-    dropout_rate: float = 0.0,
-    seed: torch.Tensor | None = None,
-    emit_z: bool = False,
-):
-    """Plain PyTorch version with the kernel's rounding points.
-
-    Dense over the window like the TPU kernel: masked columns get the
-    additive −1e30 bias and contribute exactly 0 after the exp.  Returns
-    ``out``, or ``(out, z)`` with ``emit_z``.
-    """
+def _attention_plain(bias_self, z, alphas, heads, negative_slope,
+                     dropout_rate, seed):
+    """The head-mean attention on z [N, H·C] with the kernel's rounding
+    points, dense over the window like the TPU kernel: masked columns get
+    the additive −1e30 bias and contribute exactly 0 after the exp."""
     n_tiles, tile, width = bias_self.shape
-    n = x.shape[0]
-    hc = w.shape[1]
+    n, hc = z.shape
     c = hc // heads
-    dt = x.dtype
-    # projection: f32 accumulate, rounded to the primal dtype
-    z = (x.float() @ w.float()).to(dt)
+    dt = z.dtype
     win_z = _windows(z, tile, width).reshape(n_tiles, width, heads, c)
     win_a = _windows(alphas[:, :heads], tile, width)          # [n, Wc, H]
     a_dst = alphas[:, heads:].reshape(n_tiles, tile, heads)
@@ -90,7 +87,7 @@ def banded_gat_mean_fused_plain(
     inv = 1.0 / e.sum(dim=2, keepdim=True).clamp_min(1e-16)  # [n, T, 1, H]
     if dropout_rate > 0:
         keep = attention_keep(seed.long(), n_tiles, tile, width, heads,
-                              dropout_rate, x.device)
+                              dropout_rate, z.device)
         e = torch.where(keep, e * inv_keep(dropout_rate), 0.0)
     if dt == torch.bfloat16:
         e = e.to(dt).float()          # the probability plane the matmul sees
@@ -99,8 +96,52 @@ def banded_gat_mean_fused_plain(
         o = torch.einsum("ntw,nwc->ntc", e[..., h], win_z[:, :, h].float())
         o = o * inv[:, :, 0, h:h + 1]
         acc = o if acc is None else acc + o
-    out = (acc * (1.0 / heads)).reshape(n, c).to(dt)
+    return (acc * (1.0 / heads)).reshape(n, c).to(dt)
+
+
+def banded_gat_mean_fused_plain(
+    bias_self: torch.Tensor,
+    w: torch.Tensor,
+    alphas: torch.Tensor,
+    x: torch.Tensor,
+    heads: int,
+    negative_slope: float = 0.2,
+    dropout_rate: float = 0.0,
+    seed: torch.Tensor | None = None,
+    emit_z: bool = False,
+):
+    """Plain PyTorch version with the kernel's rounding points.  Returns
+    ``out``, or ``(out, z)`` with ``emit_z``."""
+    # projection: f32 accumulate, rounded to the primal dtype
+    z = (x.float() @ w.float()).to(x.dtype)
+    out = _attention_plain(bias_self, z, alphas, heads, negative_slope,
+                           dropout_rate, seed)
     return (out, z) if emit_z else out
+
+
+def _check_attention(bias_self, alphas, like, n, hc, heads):
+    """The attention kernel's conditions on the band mask and the packed α,
+    for an [n, ·] operand ``like`` (x or z) and H·C = ``hc``."""
+    n_tiles, tile, width = bias_self.shape
+    for name, t in (("bias_self", bias_self), ("alphas", alphas),
+                    ("operand", like)):
+        if t.device != like.device:
+            raise ValueError(f"{name} is on {t.device}, not {like.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if bias_self.dtype != torch.int8 or alphas.dtype != torch.float32:
+        raise TypeError("bias_self must be int8 and alphas float32")
+    if (n != n_tiles * tile or hc % heads or alphas.shape != (n, 2 * heads)
+            or width < tile or (width - tile) % 2):
+        raise ValueError(
+            f"shape mismatch: bias_self {tuple(bias_self.shape)}, alphas "
+            f"{tuple(alphas.shape)}, {n} rows, H·C {hc}, heads {heads}")
+    if (hc // heads) % 4:
+        raise ValueError("the attention kernel moves 4 columns per access: "
+                         "C must be a multiple of 4")
+    if 8 * width * 8 > 48 * 1024:
+        raise ValueError(f"window width {width} exceeds the kernel's "
+                         "shared-memory budget (768 columns)")
 
 
 def banded_gat_mean_fused(
@@ -121,42 +162,26 @@ def banded_gat_mean_fused(
         return banded_gat_mean_fused_plain(bias_self, w, alphas, x, heads,
                                            negative_slope, dropout_rate, seed,
                                            emit_z)
-    n_tiles, tile, width = bias_self.shape
+    _, tile, width = bias_self.shape
     n, f = x.shape
     hc = w.shape[1]
     c = hc // heads
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    for name, t in (("bias_self", bias_self), ("w", w), ("alphas", alphas)):
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
+    _check_attention(bias_self, alphas, x, n, hc, heads)
+    if w.device != x.device or not w.is_contiguous():
+        raise ValueError(f"w must be contiguous on {x.device}")
     if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype:
         raise TypeError(f"x and w must share float32 or bfloat16, got "
                         f"{x.dtype} / {w.dtype}")
-    if bias_self.dtype != torch.int8 or alphas.dtype != torch.float32:
-        raise TypeError("bias_self must be int8 and alphas float32")
-    if (n != n_tiles * tile or w.shape[0] != f or hc != heads * c
-            or alphas.shape != (n, 2 * heads) or width < tile
-            or (width - tile) % 2):
-        raise ValueError(
-            f"shape mismatch: bias_self {tuple(bias_self.shape)}, w "
-            f"{tuple(w.shape)}, alphas {tuple(alphas.shape)}, x "
-            f"{tuple(x.shape)}, heads {heads}")
-    if c % 4:
-        raise ValueError("the attention kernel moves 4 columns per access: "
-                         "C must be a multiple of 4")
+    if w.shape[0] != f:
+        raise ValueError(f"shape mismatch: w {tuple(w.shape)}, x "
+                         f"{tuple(x.shape)}")
     if x.dtype == torch.bfloat16 and (
             f % 8 or hc % 8 or x.data_ptr() % 16 or w.data_ptr() % 16):
         raise ValueError("the bf16 projection loads 16-byte chunks: F and "
                          "H·C must be multiples of 8 and x, w 16-byte "
                          "aligned")
-    if 8 * width * 8 > 48 * 1024:
-        raise ValueError(f"window width {width} exceeds the kernel's "
-                         "shared-memory budget (768 columns)")
     seed = _drop.check_seed(seed, dropout_rate, x.device)
     lib = _build.bind(
         KERNEL, "banded_gat_mean_fused_launch",
@@ -217,3 +242,179 @@ def banded_gat_mean_fused_wa(bias_self, w, wa, x, heads,
     ``wa`` is the packed [F, 2H] α factor (W·amat) in x's dtype."""
     return _GatMeanFusedWa.apply(bias_self, w, wa, x.contiguous(), heads,
                                  negative_slope, dropout_rate, seed)
+
+
+# ------------------------------------------------------------------ row 4
+def banded_gat_mean_plain(bias_self, z, alphas, heads, negative_slope=0.2,
+                          dropout_rate=0.0, seed=None):
+    """Plain PyTorch version of :func:`banded_gat_mean`."""
+    return _attention_plain(bias_self, z, alphas, heads, negative_slope,
+                            dropout_rate, seed)
+
+
+def banded_gat_mean(bias_self: torch.Tensor, z: torch.Tensor,
+                    alphas: torch.Tensor, heads: int,
+                    negative_slope: float = 0.2, dropout_rate: float = 0.0,
+                    seed: torch.Tensor | None = None) -> torch.Tensor:
+    """Head-mean banded GAT attention on a given z [N, H·C] → [N, C] in z's
+    dtype: plain version for CPU tensors, the CUDA kernel for CUDA tensors
+    (or a raise).  ``seed``: [1] int32 on z's device when
+    ``dropout_rate > 0``."""
+    if z.device.type == "cpu":
+        return banded_gat_mean_plain(bias_self, z, alphas, heads,
+                                     negative_slope, dropout_rate, seed)
+    if z.device.type != "cuda":
+        raise ValueError(f"unsupported device {z.device}")
+    _, tile, width = bias_self.shape
+    n, hc = z.shape
+    c = hc // heads
+    _check_attention(bias_self, alphas, z, n, hc, heads)
+    if z.dtype not in _DTYPE_CODE:
+        raise TypeError(f"z must be float32 or bfloat16, got {z.dtype}")
+    if z.data_ptr() % 16:
+        raise ValueError("the attention kernel reads z in 4-column accesses: "
+                         "z must be 16-byte aligned")
+    seed = _drop.check_seed(seed, dropout_rate, z.device)
+    lib = _build.bind(
+        KERNEL, "banded_gat_mean_launch",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint,
+           ctypes.c_float, ctypes.c_void_p])
+    out = torch.empty((n, c), dtype=z.dtype, device=z.device)
+    rc = lib.banded_gat_mean_launch(
+        bias_self.data_ptr(), alphas.data_ptr(), z.data_ptr(), out.data_ptr(),
+        n, heads, c, tile, width, negative_slope, _DTYPE_CODE[z.dtype],
+        None if seed is None else seed.data_ptr(),
+        _drop.threshold(dropout_rate),
+        inv_keep(dropout_rate) if seed is not None else 1.0,
+        torch.cuda.current_stream(z.device).cuda_stream)
+    _build.check(lib, rc, "banded_gat_mean")
+    _build.LAUNCHES["banded_gat_mean"] += 1
+    return out
+
+
+class _GatMeanPacked(torch.autograd.Function):
+    """``banded_gat_mean_packed``: cotangents (dz, dα) from
+    ``banded_bwd.banded_gat_bwd`` (``_gatm_vjp_bwd``); the band and the
+    seed get none."""
+
+    @staticmethod
+    def forward(ctx, bias_self, z, alphas, heads, negative_slope,
+                dropout_rate, seed):
+        ctx.save_for_backward(bias_self, z, alphas, seed)
+        ctx.args = (heads, negative_slope, dropout_rate)
+        return banded_gat_mean(bias_self, z, alphas, heads, negative_slope,
+                               dropout_rate, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .banded_bwd import banded_gat_bwd
+
+        bias_self, z, alphas, seed = ctx.saved_tensors
+        heads, negative_slope, dropout_rate = ctx.args
+        dz, da = banded_gat_bwd(bias_self, z, alphas,
+                                g.to(z.dtype).contiguous(), heads,
+                                negative_slope, dropout_rate, seed)
+        return None, dz, da, None, None, None, None
+
+
+def banded_gat_mean_packed(bias_self, z, alphas, heads, negative_slope=0.2,
+                           dropout_rate=0.0, seed=None):
+    """Differentiable head-mean banded GAT on z [N, H·C] and the packed f32
+    α [N, 2H]; the unfused training path (``fuse_train=False``)."""
+    return _GatMeanPacked.apply(bias_self, z.contiguous(),
+                                alphas.contiguous(), heads, negative_slope,
+                                dropout_rate, seed)
+
+
+# ------------------------------------------------------------------ row 8
+def transpose_band(band: torch.Tensor) -> torch.Tensor:
+    """The band plane of Aᵀ: block (t, k) is block (t − k0 + k, W − 1 − k)ᵀ
+    of A, zero where that tile lies outside the band (``_transpose_band``).
+    Plain torch, as the JAX package leaves it to XLA."""
+    n_tiles, window = band.shape[:2]
+    k0 = window // 2
+    pad = band.new_zeros((k0, *band.shape[1:]))
+    padded = torch.cat([pad, band, pad])
+    ks = torch.arange(window, device=band.device)
+    src = padded[torch.arange(n_tiles, device=band.device)[:, None] + ks,
+                 window - 1 - ks]                         # [n_tiles, W, T, T]
+    return src.transpose(-1, -2).contiguous()
+
+
+def banded_spmm_plain(band_coeff: torch.Tensor,
+                      x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: the dense window product in f32 (the einsum of
+    the JAX package's ``banded_spmm_ref``), rounded once to x's dtype."""
+    n_tiles, window, tile, _ = band_coeff.shape
+    win = _windows(x.float(), tile, window * tile)       # [n, W·T, F]
+    a = band_coeff.float().transpose(1, 2).reshape(n_tiles, tile,
+                                                   window * tile)
+    return torch.einsum("ntw,nwf->ntf", a, win).reshape(x.shape).to(x.dtype)
+
+
+def banded_spmm_fwd(band_coeff: torch.Tensor,
+                    x: torch.Tensor) -> torch.Tensor:
+    """out = BandMatrix(band_coeff) @ x in x's dtype: plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors (or a raise)."""
+    if x.device.type == "cpu":
+        return banded_spmm_plain(band_coeff, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    n_tiles, window, tile, tile2 = band_coeff.shape
+    n, f = x.shape
+    if band_coeff.device != x.device:
+        raise ValueError(f"band_coeff is on {band_coeff.device}, x on "
+                         f"{x.device}")
+    if not (band_coeff.is_contiguous() and x.is_contiguous()):
+        raise ValueError("band_coeff and x must be contiguous")
+    if band_coeff.dtype not in _DTYPE_CODE or x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"band_coeff and x must be float32 or bfloat16, got "
+                        f"{band_coeff.dtype} / {x.dtype}")
+    if n != n_tiles * tile or tile2 != tile or window % 2 == 0:
+        raise ValueError(f"shape mismatch: band_coeff "
+                         f"{tuple(band_coeff.shape)}, x {tuple(x.shape)}")
+    if f % 4 or x.data_ptr() % 16:
+        raise ValueError("the SpMM kernel moves 4 columns per access: F must "
+                         "be a multiple of 4 and x 16-byte aligned")
+    lib = _build.bind("banded_spmm", "banded_spmm_launch",
+                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                      + [ctypes.c_void_p])
+    out = torch.empty_like(x)
+    rc = lib.banded_spmm_launch(
+        band_coeff.data_ptr(), x.data_ptr(), out.data_ptr(), n, f, tile,
+        window, _DTYPE_CODE[band_coeff.dtype], _DTYPE_CODE[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, "banded_spmm")
+    _build.LAUNCHES["banded_spmm"] += 1
+    return out
+
+
+class _BandedSpmm(torch.autograd.Function):
+    """``banded_spmm``: dx = Aᵀ·g, the same kernel on the transposed band;
+    the band gets no cotangent."""
+
+    @staticmethod
+    def forward(ctx, band_coeff, x, transposed):
+        ctx.save_for_backward(band_coeff)
+        ctx.transposed = transposed
+        return banded_spmm_fwd(band_coeff, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (band_coeff,) = ctx.saved_tensors
+        at = (transpose_band(band_coeff) if ctx.transposed is None
+              else ctx.transposed())
+        return None, banded_spmm_fwd(at, g.contiguous()), None
+
+
+def banded_spmm(band_coeff: torch.Tensor, x: torch.Tensor,
+                transposed=None) -> torch.Tensor:
+    """Differentiable banded SpMM: ``band_coeff`` [n_tiles, W, T, T] (f32
+    or bf16) times x [n_tiles·T, F] (f32 or bf16) → x's shape and dtype.
+
+    ``transposed``: a callable that returns the plane of Aᵀ, called by the
+    backward only (the convs pass ``Band.transposed``, which keeps it:
+    transposing costs about four SpMMs on the card); without it the
+    backward transposes per call, as the JAX package does."""
+    return _BandedSpmm.apply(band_coeff, x.contiguous(), transposed)

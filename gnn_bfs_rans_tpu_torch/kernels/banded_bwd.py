@@ -7,7 +7,9 @@
   f32.  Kernel: ``csrc/banded_gat_bwd.cu``.  The TPU kernel emits
   per-window dz partials for ``fold_project_bwd`` to fold; the CUDA kernel
   gathers each sender's dz row from its receivers and emits dz rows, with
-  one rounding instead of two (a few bf16 ulps apart in bf16).
+  one rounding instead of two (a few bf16 ulps apart in bf16).  It is
+  the backward of both kernel 1's op and row 4's (``banded_gat_mean_packed``,
+  the JAX package's ``_gatm_vjp_bwd``).
 * ``fold_project_bwd`` replaces ``banded_bwd.py::fold_project_bwd``
   (``with_bias=False``): dx = dz·Wᵀ in x's dtype and dW = xᵀ·dz in f32, both
   in the kernel's own body.  Kernel: ``csrc/fold_project_bwd.cu``.  Here it

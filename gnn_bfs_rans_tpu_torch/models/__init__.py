@@ -1,1 +1,1 @@
-"""FlowGNN on the banded GAT path."""
+"""FlowGNN on the banded path: GCN, GAT and GIN convolutions."""

@@ -1,38 +1,132 @@
-"""GAT convolution on the banded kernel path.
+"""GCN, GAT and GIN convolutions on the banded kernel path.
 
-Counterpart of ``gnn_bfs_rans_tpu/models/convs.py::GATConv``, fused-
-projection path only (``convs.py:137-190``): additive attention
-LeakyReLU(α_dst[i] + α_src[j]) with self-loops, softmax over each receiver's
-senders, head mean (``concat=False``), plus the conv bias.  The projection
-z = x·W happens inside the kernel; the packed attention logits factor
-through W as α = x·(W·amat), one [N, 2H] f32 product.  Training runs the
-differentiable op ``banded_gat_mean_fused_wa`` (α inside the op, attention
-dropout in the kernel, the JAX package's ``fuse_train`` path).  The
-unfused, segment and dense paths, and the GCN, GIN and Transformer convs,
-are not ported yet.
+Counterparts of ``gnn_bfs_rans_tpu/models/convs.py``'s ``GCNConv``,
+``GATConv`` and ``GINConv`` with ``backend='pallas'`` on a banded graph:
 
-Parameters keep PyG's ``GATConv`` names and layouts (``lin.weight``
-[H·C, F], ``att_src``/``att_dst`` [1, H, C], ``bias`` [C]); they stay
-float32 and are cast to the compute dtype where the JAX module casts them.
+* ``GCNConv`` (``convs.py:67-108``): ``h = x·W`` (no bias), then the
+  normalized aggregation ``D̂^-1/2 (A+I) D̂^-1/2 h`` as ``banded_spmm`` on
+  the band's ``gcn`` plane, plus the bias in h's dtype;
+* ``GINConv`` (``convs.py:334-363``, ``train_eps=False``):
+  ``MLP(x + Σ_nbr x)`` with the sum as ``banded_spmm`` on the ``adj``
+  plane and the reference's 2-layer MLP;
+* ``GATConv`` (``convs.py:111-312``, ``concat=False``): additive attention
+  LeakyReLU(α_dst[i] + α_src[j]) with self-loops, softmax over each
+  receiver's senders, head mean, plus the bias.  In eval, and in training
+  with ``fuse_train``, the projection z = x·W happens inside the kernel and
+  the packed logits factor through W as α = x·(W·amat), one [N, 2H] f32
+  product (``banded_gat_mean_fused`` / ``banded_gat_mean_fused_wa``, the
+  latter with attention dropout in the kernel).  Training with
+  ``fuse_train=False`` runs the unfused path: z = x·W in the compute dtype,
+  α = z·amat in f32, then ``banded_gat_mean_packed`` on z.
+
+The dense products stay ``torch.matmul``: in the JAX package they are XLA
+products outside any Pallas kernel.  The segment and dense backends, the
+concat GAT and the Transformer conv are not ported yet; a graph without the
+band plane a conv needs raises.
+
+Parameters keep PyG's names and layouts (GCN ``lin.weight`` [F, F] and
+``bias``; GAT ``lin.weight`` [H·C, F], ``att_src``/``att_dst`` [1, H, C],
+``bias`` [C]; GIN ``nn.0`` and ``nn.2``, the Linear layers of
+``Sequential(Linear, ReLU, Linear)``); they stay float32 and are cast to
+the compute dtype where the JAX modules cast them.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
 
 from ..graph.structs import Graph
-from ..kernels.banded import banded_gat_mean_fused, banded_gat_mean_fused_wa
+from ..kernels.banded import (
+    banded_gat_mean_fused,
+    banded_gat_mean_fused_wa,
+    banded_gat_mean_packed,
+    banded_spmm,
+)
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """flax ``Dense(dtype=...)``: inputs, kernel and bias cast to the compute
+    dtype (x's when None), product then bias add, each rounded there."""
+    dt = x.dtype if dtype is None else dtype
+    y = x.to(dt) @ layer.weight.t().to(dt)
+    return y if layer.bias is None else y + layer.bias.to(dt)
+
+
+@torch.no_grad()
+def lecun_init_(layer: nn.Linear, generator: torch.Generator) -> None:
+    """The JAX modules' ``_lecun_linear`` init: variance_scaling(1/3,
+    fan_in, uniform) = uniform ±1/√fan_in, zero bias."""
+    f = layer.weight.shape[1]
+    layer.weight.uniform_(-f ** -0.5, f ** -0.5, generator=generator)
+    if layer.bias is not None:
+        layer.bias.zero_()
+
+
+def _plane(graph: Graph, name: str, conv: str) -> torch.Tensor:
+    """The band plane ``name`` a conv aggregates over, or a raise."""
+    plane = None if graph.band is None else getattr(graph.band, name)
+    if plane is None:
+        raise NotImplementedError(
+            f"{conv} needs the banded adjacency (graph.band.{name}); this "
+            "graph has none — the dense and segment paths are not ported "
+            "yet")
+    return plane
+
+
+class GCNConv(nn.Module):
+    def __init__(self, features: int):
+        super().__init__()
+        self.lin = nn.utils.skip_init(nn.Linear, features, features,
+                                      bias=False)
+        self.bias = nn.Parameter(torch.empty(features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        lecun_init_(self.lin, generator)
+        with torch.no_grad():
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor, graph: Graph) -> torch.Tensor:
+        gcn = _plane(graph, "gcn", "GCNConv")
+        h = dense(self.lin, x)
+        out = banded_spmm(gcn, h, functools.partial(graph.band.transposed,
+                                                    "gcn"))
+        # the bias in the compute dtype, as the JAX module adds it
+        return out + self.bias.to(h.dtype)
+
+
+class GINConv(nn.Module):
+    def __init__(self, features: int):
+        super().__init__()
+        lin = functools.partial(nn.utils.skip_init, nn.Linear)
+        self.nn = nn.Sequential(lin(features, features), nn.ReLU(),
+                                lin(features, features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        lecun_init_(self.nn[0], generator)
+        lecun_init_(self.nn[2], generator)
+
+    def forward(self, x: torch.Tensor, graph: Graph) -> torch.Tensor:
+        adj = _plane(graph, "adj", "GINConv")
+        agg = banded_spmm(adj, x, functools.partial(graph.band.transposed,
+                                                    "adj"))
+        h = x + agg                        # (1 + eps)·x + Σ_nbr x, eps = 0
+        h = torch.relu(dense(self.nn[0], h))
+        return dense(self.nn[2], h)
 
 
 class GATConv(nn.Module):
     def __init__(self, features: int, heads: int = 4,
-                 negative_slope: float = 0.2, dropout: float = 0.0):
+                 negative_slope: float = 0.2, dropout: float = 0.0,
+                 fuse_train: bool = True):
         super().__init__()
         self.heads = heads
         self.features = features
         self.negative_slope = negative_slope
         self.dropout = dropout
+        self.fuse_train = fuse_train
         self.lin = nn.utils.skip_init(nn.Linear, features, heads * features,
                                       bias=False)
         self.att_src = nn.Parameter(torch.empty(1, heads, features))
@@ -44,8 +138,7 @@ class GATConv(nn.Module):
         """The JAX module's init: variance_scaling(1/3, fan_in, uniform)
         for ``lin`` (fan_in F) and the attention vectors (fan_in H), zero
         bias."""
-        f = self.lin.weight.shape[1]
-        self.lin.weight.uniform_(-f ** -0.5, f ** -0.5, generator=generator)
+        lecun_init_(self.lin, generator)
         for att in (self.att_src, self.att_dst):
             att.uniform_(-self.heads ** -0.5, self.heads ** -0.5,
                          generator=generator)
@@ -55,14 +148,20 @@ class GATConv(nn.Module):
                 seed: torch.Tensor | None = None) -> torch.Tensor:
         """``train``: the differentiable op with attention dropout at
         ``self.dropout``, masked from ``seed`` ([1] int32 on x's device)."""
-        band = graph.band
-        if band is None or band.bias_self is None:
-            raise NotImplementedError(
-                "GATConv needs the banded adjacency (graph.band.bias_self); "
-                "this graph has none — the dense and segment paths are not "
-                "ported yet")
+        mask = _plane(graph, "bias_self", "GATConv")
         H, C = self.heads, self.features
         dt = x.dtype
+        rate = self.dropout if seed is not None else 0.0
+        if train and not self.fuse_train:
+            # unfused: z = x·W, α = z·amat in f32 with amat in z's dtype
+            z = dense(self.lin, x)                             # [N, H·C]
+            z3 = z.float().view(-1, H, C)
+            alphas = torch.cat(
+                [torch.einsum("nhc,hc->nh", z3, att[0].to(dt).float())
+                 for att in (self.att_src, self.att_dst)], dim=1)
+            out = banded_gat_mean_packed(mask, z, alphas, H,
+                                         self.negative_slope, rate, seed)
+            return out + self.bias.to(dt)
         w = self.lin.weight.t().to(dt).contiguous()            # [F, H·C]
         # packed α factor wa = (W·amat) in f32, rounded to x's dtype:
         # wa[:, h] = Σ_c W[:, h·C + c]·att_src[h, c], then the dst half
@@ -71,11 +170,10 @@ class GATConv(nn.Module):
                         torch.einsum("fhc,hc->fh", w3, self.att_dst[0])],
                        dim=1).to(dt)
         if train:
-            rate = self.dropout if seed is not None else 0.0
-            out = banded_gat_mean_fused_wa(band.bias_self, w, wa, x, H,
+            out = banded_gat_mean_fused_wa(mask, w, wa, x, H,
                                            self.negative_slope, rate, seed)
         else:
             alphas = x.float() @ wa.float()                    # [N, 2H] f32
-            out = banded_gat_mean_fused(band.bias_self, w, alphas.contiguous(),
+            out = banded_gat_mean_fused(mask, w, alphas.contiguous(),
                                         x.contiguous(), H, self.negative_slope)
         return out + self.bias.to(dt)

@@ -1,24 +1,27 @@
-"""FlowGNN — the flow-surrogate model, GAT serving path.
+"""FlowGNN — the flow-surrogate model on the banded kernel path.
 
 Counterpart of ``gnn_bfs_rans_tpu/models/flow_gnn.py::FlowGNN``:
-``Linear(3→H)`` input projection, ``L`` blocks of {GAT conv, residual add,
-BatchNorm, ReLU}, and the output MLP ``H→H→H→H/2→out``.  Output layout is
-``[U(3), p, k, epsilon, nut]``.  Dtype rules are the JAX module's
-(``flow_gnn.py:56-66, 108-153``): ``bfloat16`` runs everything but the final
-head in bf16; ``mixed`` runs the convs and the MLP in bf16 on an f32
-residual stream; parameters stay f32.
+``Linear(3→H)`` input projection, ``L`` blocks of {conv, residual add,
+BatchNorm, ReLU}, and the output MLP ``H→H→H→H/2→out``.  The conv is
+``GCNConv``, ``GATConv`` or ``GINConv`` by ``layer_type`` (dispatch as in
+``flow_gnn.py:130-153``; GCN and GIN take no training flag or seed).
+Output layout is ``[U(3), p, k, epsilon, nut]``.  Dtype rules are the JAX
+module's (``flow_gnn.py:56-66, 108-153``): ``bfloat16`` runs everything but
+the final head in bf16; ``mixed`` runs the convs and the MLP in bf16 on an
+f32 residual stream; parameters stay f32.
 
 ``forward(graph, exact_bn=True)`` is the deterministic train-mode forward
 the JAX package's ``make_forward(exact_bn=True)`` runs: batch statistics of
 the input graph through the fused epilogue.  ``forward(graph, train=True,
 generator=g)`` is the training forward (``flow_gnn.py:100-202`` with
-``train=True``): the differentiable GAT op and fused epilogue with their
+``train=True``): the differentiable conv ops and fused epilogue with their
 in-kernel dropout, each layer's kernel seeds and the output MLP's dropout
 masks drawn from the explicit ``g`` (never the global RNG), and the running
 BatchNorm statistics updated.  Without a generator the training forward is
 deterministic (the JAX package's dropout-free train-mode forward of the
-recalibration).  Only ``layer_type='GAT'`` with batch or no normalization is
-ported; the unfused batch-norm epilogue (``fuse_epilogue=False``) is not.
+recalibration).  Batch or no normalization is ported, with the fused
+batch-norm epilogue; the Transformer conv, LayerNorm and the unfused
+epilogue (``fuse_epilogue=False``) are not.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from torch import nn
 
 from ..graph.structs import Graph
 from ..kernels.dropout import draw_seed
-from .convs import GATConv
+from .convs import GATConv, GCNConv, GINConv, dense, lecun_init_
 from .norm import MaskedBatchNorm
 
 FIELD_SLICES = {"U": (0, 3), "p": (3, 4), "k": (4, 5), "epsilon": (5, 6), "nut": (6, 7)}
@@ -68,14 +71,6 @@ class ModelConfig:
         return cls(**{k: v for k, v in d.items() if k in known})
 
 
-def _dense(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
-    """flax ``Dense(dtype=...)``: inputs, kernel and bias cast to the compute
-    dtype, product then bias add, each rounded there."""
-    dt = x.dtype if dtype is None else dtype
-    y = x.to(dt) @ layer.weight.t().to(dt)
-    return y + layer.bias.to(dt)
-
-
 class FlowGNN(nn.Module):
     """Parameters are initialized from ``generator`` (a fixed seed when
     None), never from the global RNG."""
@@ -84,9 +79,10 @@ class FlowGNN(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         cfg = config
-        if cfg.layer_type != "GAT":
+        if cfg.layer_type not in ("GCN", "GAT", "GIN"):
             raise NotImplementedError(
-                f"layer_type {cfg.layer_type!r} is not ported yet (GAT only)")
+                f"layer_type {cfg.layer_type!r} is not ported yet (GCN, GAT "
+                "and GIN are)")
         self.bn = cfg.use_batch_norm and cfg.norm_type == "batch"
         if cfg.use_batch_norm and cfg.norm_type not in ("batch", "none"):
             raise NotImplementedError(
@@ -97,9 +93,13 @@ class FlowGNN(nn.Module):
         h = cfg.hidden_dim
         lin = functools.partial(nn.utils.skip_init, nn.Linear)
         self.input_proj = lin(cfg.input_dim, h)
-        self.convs = nn.ModuleList(
-            GATConv(h, heads=cfg.heads, dropout=cfg.dropout)
-            for _ in range(cfg.num_layers))
+        def conv():
+            if cfg.layer_type == "GAT":
+                return GATConv(h, heads=cfg.heads, dropout=cfg.dropout,
+                               fuse_train=cfg.fuse_train)
+            return GCNConv(h) if cfg.layer_type == "GCN" else GINConv(h)
+
+        self.convs = nn.ModuleList(conv() for _ in range(cfg.num_layers))
         self.norms = nn.ModuleList(
             MaskedBatchNorm(h) for _ in range(cfg.num_layers if self.bn else 0))
         self.out_0 = lin(h, h)
@@ -115,9 +115,7 @@ class FlowGNN(nn.Module):
         zero bias); BatchNorm starts at the identity affine."""
         for layer in (self.input_proj, self.out_0, self.out_1, self.out_2,
                       self.out_3):
-            f = layer.weight.shape[1]
-            layer.weight.uniform_(-f ** -0.5, f ** -0.5, generator=generator)
-            layer.bias.zero_()
+            lecun_init_(layer, generator)
         for conv in self.convs:
             conv.reset_parameters(generator)
 
@@ -129,10 +127,6 @@ class FlowGNN(nn.Module):
             raise NotImplementedError(
                 "batch statistics without the fused epilogue "
                 "(fuse_epilogue=False) are not ported yet")
-        if train and not cfg.fuse_train:
-            raise NotImplementedError(
-                "the unfused GAT training path (fuse_train=False) is not "
-                "ported yet")
         rate = cfg.dropout if (train and generator is not None) else 0.0
         mixed = cfg.compute_dtype == "mixed"
         dtype = torch.bfloat16 if cfg.compute_dtype in ("bfloat16", "mixed") \
@@ -142,13 +136,16 @@ class FlowGNN(nn.Module):
         def seed():
             return draw_seed(generator, dev) if rate > 0 else None
 
-        x = _dense(self.input_proj, graph.node_feat, dtype)
+        x = dense(self.input_proj, graph.node_feat, dtype)
         if mixed:
             # f32 residual stream; convs see bf16, their outputs rejoin in f32
             x = x.float()
         for i, conv in enumerate(self.convs):
             x_in = x.to(torch.bfloat16) if mixed else x
-            x_new = conv(x_in, graph, train=train, seed=seed())
+            if cfg.layer_type == "GAT":
+                x_new = conv(x_in, graph, train=train, seed=seed())
+            else:
+                x_new = conv(x_in, graph)
             if mixed:
                 x_new = x_new.float()
             if self.bn and train:
@@ -162,13 +159,13 @@ class FlowGNN(nn.Module):
             if self.bn:
                 x = self.norms[i](x)
             x = self._dropout(torch.relu(x), rate, generator)
-        h = torch.relu(_dense(self.out_0, x, dtype))
+        h = torch.relu(dense(self.out_0, x, dtype))
         h = self._dropout(h, rate, generator)
-        h = torch.relu(_dense(self.out_1, h, dtype))
+        h = torch.relu(dense(self.out_1, h, dtype))
         h = self._dropout(h, rate, generator)
-        h = torch.relu(_dense(self.out_2, h, dtype))
+        h = torch.relu(dense(self.out_2, h, dtype))
         # the final head always runs in float32
-        return _dense(self.out_3, h.float(), None)
+        return dense(self.out_3, h.float(), None)
 
     @staticmethod
     def _dropout(h: torch.Tensor, rate: float,

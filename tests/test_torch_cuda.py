@@ -7,6 +7,7 @@ imports no JAX, so it runs on a machine that has only PyTorch:
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -17,8 +18,15 @@ from gnn_bfs_rans_tpu_torch.graph.band import build_band
 from gnn_bfs_rans_tpu_torch.infer import predict_case
 from gnn_bfs_rans_tpu_torch.kernels import _build
 from gnn_bfs_rans_tpu_torch.kernels.banded import (
+    banded_gat_mean,
     banded_gat_mean_fused,
     banded_gat_mean_fused_plain,
+    banded_gat_mean_packed,
+    banded_gat_mean_plain,
+    banded_spmm,
+    banded_spmm_fwd,
+    banded_spmm_plain,
+    transpose_band,
 )
 from gnn_bfs_rans_tpu_torch.kernels.banded_bwd import (
     banded_gat_bwd,
@@ -267,14 +275,18 @@ def test_epilogue_backward_matches_plain(card, mode, rate):
         _close(t.grad, ref, 1e-4 if ref.dtype == torch.float32 else 2e-2)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "mixed"])
-def test_train_step_card_matches_cpu(card, tmp_path, dtype):
+# a conv bias that feeds the BatchNorm (GCN and GAT ``bias``, GIN's last
+# MLP layer): its gradient is zero in exact arithmetic, rounding noise here
+_FEEDS_BN = re.compile(r"convs\.\d+\.(nn\.2\.)?bias")
+
+
+def _train_step_card_vs_cpu(card, tmp_path, cfg):
+    """One train step of ``cfg`` on the 336-cell case, card vs CPU."""
     from gnn_bfs_rans_tpu_torch.infer import load_graph
 
     generate_box_case(tmp_path / "case", 24, 14, 1)
-    graph = load_graph(tmp_path / "case")
-    cfg = ModelConfig(hidden_dim=64, num_layers=2, layer_type="GAT", heads=2,
-                      backend="pallas", compute_dtype=dtype, dropout=0.0)
+    graph = load_graph(tmp_path / "case", cfg.layer_type)
+    dtype = cfg.compute_dtype
     tcfg = TrainConfig(lr=1e-3)
     targets = torch.randn(2, graph.n_pad, 7,
                           generator=torch.Generator().manual_seed(6))
@@ -307,8 +319,7 @@ def test_train_step_card_matches_cpu(card, tmp_path, dtype):
         for k, ref in g_f32.items():
             own = (g_cpu[k] - ref).norm().item()
             dist = (g_card[k] - ref).norm().item()
-            scale = g_norm if k.startswith("convs.") and k.endswith(".bias") \
-                else ref.norm().item()
+            scale = g_norm if _FEEDS_BN.fullmatch(k) else ref.norm().item()
             assert dist <= 1.5 * own + 1e-4 * scale, (k, dist, own)
     if dtype == "float32":
         # f32 in other summation orders through 2 layers and back: an entry
@@ -318,7 +329,7 @@ def test_train_step_card_matches_cpu(card, tmp_path, dtype):
         # the attention vectors) is measured against 1e-3 of the largest one
         floor = 1e-3 * max(g.abs().max().item() for g in g_cpu.values())
         for k in g_cpu:
-            if k.startswith("convs.") and k.endswith(".bias"):
+            if _FEEDS_BN.fullmatch(k):
                 continue   # zero gradient up to rounding: Adam moves ±lr
             _close(g_card[k], g_cpu[k], 1e-3, floor)
             # Adam's first step is lr·g/(|g| + ε): it moves each entry by
@@ -328,3 +339,107 @@ def test_train_step_card_matches_cpu(card, tmp_path, dtype):
             firm = g_cpu[k].abs() >= max(1e-6, 1e-2 * g_cpu[k].abs().max().item())
             torch.testing.assert_close(p_card[k][firm], p_cpu[k][firm],
                                        rtol=1e-4, atol=1e-3 * tcfg.lr)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "mixed"])
+def test_train_step_card_matches_cpu(card, tmp_path, dtype):
+    _train_step_card_vs_cpu(card, tmp_path, ModelConfig(
+        hidden_dim=64, num_layers=2, layer_type="GAT", heads=2,
+        backend="pallas", compute_dtype=dtype, dropout=0.0))
+
+
+@pytest.mark.parametrize("layer,dtype", [
+    ("GCN", "float32"), ("GCN", "bfloat16"), ("GCN", "mixed"),
+    ("GIN", "float32"), ("GAT-unfused", "bfloat16")])
+def test_train_step_card_matches_cpu_other_convs(card, tmp_path, layer,
+                                                 dtype):
+    extra = dict(layer_type="GAT", heads=2, fuse_train=False) \
+        if layer == "GAT-unfused" else dict(layer_type=layer)
+    _build.reset_launches()
+    _train_step_card_vs_cpu(card, tmp_path, ModelConfig(
+        hidden_dim=64, num_layers=2, backend="pallas", compute_dtype=dtype,
+        dropout=0.0, **extra))
+    want = "banded_gat_mean" if layer == "GAT-unfused" else "banded_spmm"
+    # forward and backward of each layer (GCN, GIN) or the forward (GAT)
+    assert _build.LAUNCHES[want] == (2 if layer == "GAT-unfused" else 4)
+
+
+def _spmm_band(n, width, seed=0):
+    """The GCN and GIN planes of random symmetric edges, |s − r| < width."""
+    rng = np.random.default_rng(seed)
+    i, j = np.triu_indices(n, 1)
+    keep = (((j - i) < width) & (rng.random(i.size) < 0.05)) | ((j - i) == 1)
+    s = np.concatenate([i[keep], j[keep]]).astype(np.int32)
+    r = np.concatenate([j[keep], i[keep]]).astype(np.int32)
+    mask = np.arange(n) < n - 37            # a few padding rows
+    keep = mask[s] & mask[r]
+    s, r = s[keep], r[keep]
+    deg = np.bincount(r, minlength=n).astype(np.float32)
+    return build_band(s, r, n, mask, deg, tile=128, components=("adj", "gcn"))
+
+
+# width 60 → W 3; width 200 → W 5
+@pytest.mark.parametrize("width,window", [(60, 3), (200, 5)])
+@pytest.mark.parametrize("plane", ["gcn", "adj"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_spmm_kernel_matches_plain(card, width, window, plane, dtype):
+    n, f = 640, 64
+    band = _spmm_band(n, width)
+    a = getattr(band, plane).to(card)
+    assert a.shape[1] == window
+    gen = torch.Generator().manual_seed(7)
+    dt = getattr(torch, dtype)
+    x = torch.randn(n, f, generator=gen).to(card, dt)
+    g = torch.randn(n, f, generator=gen).to(card, dt)
+    _build.reset_launches()
+    out = banded_spmm_fwd(a, x)
+    xl = x.clone().requires_grad_()
+    banded_spmm(a, xl).backward(g)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["banded_spmm"] == 3
+    assert out.dtype == dt and xl.grad.dtype == dt
+    # f32: exact f32 products summed in another order; bf16 x: the f32 sum
+    # rounds once to bf16 on both sides, an order change may flip it
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    _close(out, banded_spmm_plain(a, x), tol)
+    _close(xl.grad, banded_spmm_plain(transpose_band(a), g), tol)
+
+
+def test_spmm_kernel_rejects_bad_input(card):
+    a = _spmm_band(256, 60).gcn.to(card)
+    x = torch.zeros(256, 64, device=card)
+    with pytest.raises(TypeError):
+        banded_spmm_fwd(a, x.half())
+    with pytest.raises(ValueError):
+        banded_spmm_fwd(a, x[:128])
+    with pytest.raises(ValueError):
+        banded_spmm_fwd(a, torch.zeros(256, 6, device=card))
+    with pytest.raises(ValueError):
+        banded_spmm_fwd(a.cpu(), x)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("width", [60, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gat_mean_kernel_and_op_match_plain(card, width, dtype, rate):
+    n, heads, c = 512, 4, 64
+    gen = torch.Generator().manual_seed(8)
+    dt = getattr(torch, dtype)
+    z = (0.5 * torch.randn(n, heads * c, generator=gen)).to(card, dt)
+    alphas = torch.randn(n, 2 * heads, generator=gen).to(card)
+    g = torch.randn(n, c, generator=gen).to(card, dt)
+    mask = _band(n, width).to(card)
+    seed = _seed(card) if rate else None
+    args = (mask, z, alphas, heads, 0.2, rate, seed)
+    _build.reset_launches()
+    out = banded_gat_mean(*args)
+    zl, al = z.clone().requires_grad_(), alphas.clone().requires_grad_()
+    banded_gat_mean_packed(mask, zl, al, heads, 0.2, rate, seed).backward(g)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["banded_gat_mean"] == 2
+    assert _build.LAUNCHES["banded_gat_bwd"] == 1
+    _close(out, banded_gat_mean_plain(*args), KTOL[dtype])
+    ref_dz, ref_da = banded_gat_bwd_plain(mask, z, alphas, g, heads, 0.2,
+                                          rate, seed)
+    _close(zl.grad, ref_dz, KTOL[dtype])
+    _close(al.grad, ref_da, 1e-4 if dtype == "float32" else 1e-2)

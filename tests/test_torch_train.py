@@ -8,7 +8,8 @@
 * the BN recalibration statistics against ``make_exact_stats_fn``;
 * the ``Trainer`` for 2 epochs through ``python -m gnn_bfs_rans_tpu_torch
   train``: its checkpoint serves through the port's ``infer`` and
-  ``--resume`` continues from it; what is not ported raises.
+  ``--resume`` continues from it; what is not ported raises.  The unfused
+  GAT step (``fuse_train=False``) is held in ``test_torch_train_gcn_gin.py``.
 
 Small sizes: a 336-cell generated case with three snapshots, hidden 32,
 4 heads (H·C 128), 2 layers.
@@ -294,7 +295,7 @@ def _train_argv(case_path, out, epochs, *extra):
     return ["train", "--case_path", str(case_path), "--time_dirs", *TIMES,
             "--output_dir", str(out), "--hidden_dim", "32", "--num_layers",
             "2", "--epochs", str(epochs), "--save_every", "1", "--lr", "3e-3",
-            "--device", "cpu", *extra]
+            "--layer_type", "GAT", "--device", "cpu", *extra]
 
 
 def test_trainer_checkpoint_serves_and_resumes(case, tmp_path):
@@ -351,9 +352,8 @@ def test_unported_paths_raise(case, tmp_path):
         cli_main(_train_argv(path, tmp_path / "a", 1, "--backend", "dense"))
     with pytest.raises(NotImplementedError):
         cli_main(_train_argv(path, tmp_path / "b", 1, "--epoch_block", "2"))
-    cfg = ModelConfig(**{**CFG, "fuse_train": False})
-    with pytest.raises(NotImplementedError):
-        FlowGNN(cfg)(load_graph(path), train=True)
+    with pytest.raises(NotImplementedError, match="Transformer"):
+        FlowGNN(ModelConfig(**{**CFG, "layer_type": "Transformer"}))
     if not torch.cuda.is_available():
         # the card is the default device: no silent fall back to the CPU
         with pytest.raises(RuntimeError, match="CUDA"):
