@@ -59,20 +59,34 @@ Phases (any failure raises and exits non-zero):
     (bf16) for 2 epochs through the ``Trainer``; then the train steps'
     host-clock time, device time (torch.profiler's device sum), breakdown
     by kernel and the card's idle share;
-13. print the kernel table as one JSON line, then the result line.
+13. row 9, ``banded_transformer_fwd`` (CUDA), against its plain version on
+    the Transformer bands of both boxes (Wcols 256 and 384) at F 256, H 4,
+    C 256, f32 and bf16: no conditioning, the geo form (the boxes' own
+    geometric features) and the generic edge form (a band built from
+    random features), each with the head mean and concat; row 11,
+    ``banded_transformer_geo_mean_fused`` (CUDA), against its plain version
+    in f32 and bf16; SDPA on pre-windowed k/v timed beside row 9;
+14. Transformer serving through ``infer`` as in phase 4: 4×256 bf16 (geo,
+    ``--bn_exact off|on``), f32, ``fuse_eval`` (row 11 in eval, row 9 under
+    ``--bn_exact on``), without edge features, and 8×256 bf16 (the depth of
+    ``BASELINE.json`` config 4);
+15. print the kernel table as one JSON line, then the result line.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times per
 call: ten calls captured in one CUDA graph and replayed, so host launch
 overhead does not enter them; the eager per-call time is printed beside
 them.  ``launches`` counts each wrapper's launches on its training path
 (phase 12: the flagship GAT's for rows 1, 2, 3, 5, 6; the GCN run's for
-row 8; the unfused GAT run's for row 4).
+row 8; the unfused GAT run's for row 4); rows 9 and 11 count theirs on
+the Transformer serving path (the 4×256 bf16 ``--bn_exact off`` run and
+the ``fuse_eval`` run).
 
 Needs no network; builds into ``gnn_bfs_rans_tpu_torch/build`` and writes
 scratch files only under the temporary directory.
 """
 
 import contextlib
+import dataclasses
 import json
 import re
 import subprocess
@@ -89,6 +103,12 @@ HIDDEN, HEADS, LAYERS = 256, 4, 4
 GAT_TOL = {"float32": 1e-4, "bfloat16": 1e-2}    # × max |plain output|
 EPI_TOL = {"float32": 1e-5, "bfloat16": 1e-2, "mixed": 1e-5}
 SERVE_TOL = 5e-2                                  # × max |plain field|
+# or, for the bf16 Transformer cells, whose roundings compound with depth
+# (a field of a random 8-layer model may sit near 0: p reads max 0.008,
+# where 5e-2 of its own size is 4e-4): the kernels' fields no further (max
+# abs) from the plain versions' f32 forward of the same weights than this
+# multiple of the plain bf16 forward's own distance
+SERVE_F32_RATIO = 1.5
 # × max |plain cotangent|: f32 summation order; bf16 one rounding of dz or
 # an output may flip (2^-8 relative) and dx, dW sum such values
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -123,7 +143,17 @@ GCN_EPOCHS = 4
 SPMM_TOL = {"float32": 1e-5, "bfloat16": 1e-2}      # × max |plain output|
 # the conv kernel a layer type launches once per layer and forward
 CONV_KERNEL = {"GAT": "banded_gat_mean_fused", "GCN": "banded_spmm",
-               "GIN": "banded_spmm"}
+               "GIN": "banded_spmm", "Transformer": "banded_transformer_fwd"}
+# the Transformer of BASELINE.json config 4 (8 layers, hidden 256)
+TR_DEEP_LAYERS = 8
+# rows 9 and 11's s, by column group: both dtypes compute it in f32 from
+# the same inputs, so each group is held to S_TOL of its own max (row 11 in
+# bf16 to GAT_TOL: its q and k come from two different bf16 products).  The
+# geo form's direction columns (0-2 of each head) also cancel terms of size
+# max|pos|·max(1/dist) (400 on the 400×30 box) into values ≤ 1: plus
+# S_CANCEL_TOL of that size (measured f32 gap ≤ 2.5e-7 of it)
+S_TOL = 1e-4
+S_CANCEL_TOL = 1e-6
 
 
 def log(*args):
@@ -274,6 +304,9 @@ def plain_versions():
         (banded, "banded_gat_mean_fused", banded.banded_gat_mean_fused_plain),
         (banded, "banded_gat_mean", banded.banded_gat_mean_plain),
         (banded, "banded_spmm_fwd", banded.banded_spmm_plain),
+        (convs, "banded_transformer_fwd", banded.banded_transformer_fwd_plain),
+        (convs, "banded_transformer_geo_mean_fused",
+         banded.banded_transformer_geo_mean_fused_plain),
         (banded_bwd, "banded_gat_bwd", banded_bwd.banded_gat_bwd_plain),
         (banded_bwd, "fold_project_bwd", banded_bwd.fold_project_bwd_plain),
         (norm, "fused_epilogue_fwd", epilogue.fused_epilogue_fwd_plain),
@@ -290,11 +323,14 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
-def serve(tmp, case, info, cfg, label, gen):
+def serve(tmp, case, info, cfg, label, gen, runs=None, f32_ratio=False):
     """Serve a seeded checkpoint of ``cfg`` through ``infer`` with
-    ``--bn_exact off`` and ``on``: launches, outputs, fields against the
-    plain versions, then the forward's times.  Returns the launch counts of
-    the two ``infer`` runs (the serving path)."""
+    ``--bn_exact off`` and ``on``: launches (``runs``: the counts each run
+    must show, by default the conv kernel once per layer and, ``on``, the
+    epilogue twice per layer), outputs, fields against the plain versions
+    (``f32_ratio``: or by SERVE_F32_RATIO), then the forward's times.
+    Returns the launch counts of each ``infer`` run (the serving path), by
+    ``off`` / ``on``."""
     import numpy as np
     import torch
     from gnn_bfs_rans_tpu_torch.cli.main import main as cli_main
@@ -312,12 +348,11 @@ def serve(tmp, case, info, cfg, label, gen):
                     normalizer=norm)
     conv = CONV_KERNEL[cfg.layer_type]
     layers = cfg.num_layers
-    runs = {"off": {conv: layers},
-            "on": {conv: layers, "fused_epilogue_fwd": 2 * layers}}
-    totals = {}
-    _build.reset_launches()           # the serving path starts here
+    runs = runs or {"off": {conv: layers},
+                    "on": {conv: layers, "fused_epilogue_fwd": 2 * layers}}
+    counts = {}
     for bn in ("off", "on"):
-        before = dict(_build.LAUNCHES)
+        _build.reset_launches()       # each serving run starts here
         out = tmp / f"pred_{label}_{bn}"
         rc = cli_main(["infer", "--checkpoint", str(ckpt),
                        "--case_path", str(case), "--output_dir", str(out),
@@ -326,8 +361,7 @@ def serve(tmp, case, info, cfg, label, gen):
         torch.cuda.synchronize()
         if rc != 0:
             raise RuntimeError(f"{label} infer --bn_exact {bn} returned {rc}")
-        moved = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()}
-        moved = {k: v for k, v in moved.items() if v}
+        moved = {k: v for k, v in _build.LAUNCHES.items() if v}
         if moved != runs[bn]:
             raise AssertionError(f"{label} --bn_exact {bn}: launches {moved}, "
                                  f"expected {runs[bn]}")
@@ -338,18 +372,35 @@ def serve(tmp, case, info, cfg, label, gen):
         if pred["U"].shape != (info["n_cells"], 3) or not all(
                 np.isfinite(v).all() for v in pred.values()):
             raise AssertionError(f"bad {label} predictions, --bn_exact {bn}")
-        totals = dict(_build.LAUNCHES)
+        counts[bn] = moved            # ... and ends here
         # the same predictor through the plain versions, on the card
         predictor = Predictor.from_checkpoint(ckpt, exact_bn=bn == "on")
         graph = load_graph(case, cfg.layer_type).to("cuda")
         with plain_versions():
             plain = predictor.predict_fields(graph)
+            plain32 = None
+            if f32_ratio:
+                # the same weights through the plain versions in f32
+                f32 = FlowGNN(dataclasses.replace(cfg,
+                                                  compute_dtype="float32"))
+                f32.load_state_dict(predictor.model.state_dict())
+                predictor.model = f32.eval().to("cuda")
+                plain32 = predictor.predict_fields(graph)
         for k, v in plain.items():
             err = float(np.abs(pred[k] - v).max())
             tol = SERVE_TOL * max(float(np.abs(v).max()), 1e-6)
-            log(f"serve {label} --bn_exact {bn} {k}: max_abs_err vs plain "
-                f"{err:.3e} (tol {tol:.3e})")
-            if not err <= tol:
+            msg = (f"serve {label} --bn_exact {bn} {k}: max_abs_err vs plain "
+                   f"{err:.3e} (tol {tol:.3e})")
+            ok = err <= tol
+            if plain32 is not None:
+                own = float(np.abs(v - plain32[k]).max())
+                dist = float(np.abs(pred[k] - plain32[k]).max())
+                msg += (f"; max abs from the plain f32 forward: kernels "
+                        f"{dist:.3e}, plain {own:.3e} (ratio "
+                        f"{dist / max(own, 1e-30):.2f})")
+                ok = ok or dist <= SERVE_F32_RATIO * own
+            log(msg)
+            if not ok:
                 raise AssertionError(f"{label} --bn_exact {bn} field {k} off "
                                      f"by {err}")
     # forward time and where it goes (after the serving path's counts)
@@ -366,7 +417,7 @@ def serve(tmp, case, info, cfg, label, gen):
             f"clock median {host[1]:.4f} ms (quartiles {host[0]:.4f}, "
             f"{host[2]:.4f}; 20 forwards), device time in a CUDA graph "
             f"{device_ms:.4f} ms")
-    return totals
+    return counts
 
 
 def host_time_ms(fn, reps=20, warmup=3):
@@ -1045,6 +1096,249 @@ def step_times(tmp, case, label, **model):
         f"{'not measured' if device_us is None else f'{device_us / 1e3:.4f} ms'}")
 
 
+def _transformer_inputs(n, dt, gen, extra_qw):
+    import torch
+
+    dev = torch.device("cuda")
+    hc = HEADS * HIDDEN
+    q, k, v = (torch.randn(n, hc, generator=gen).to(dev, dt) for _ in range(3))
+    qw = (torch.randn(n, HEADS * 4, generator=gen).to(dev, dt)
+          if extra_qw else None)
+    return q, k, v, qw
+
+
+def _s_check(band, s, s_ref, rel):
+    """s's max error and limit by column group: the geo form's direction
+    columns (0-2 of each head) against ``rel`` × their max plus
+    S_CANCEL_TOL × max|pos|·max(1/dist), its dist column (3) against
+    ``rel`` × its max; the generic edge form's columns against ``rel`` ×
+    their max.  Returns (ok, text)."""
+    import torch
+
+    d = (s - s_ref).abs()
+    if band.geo is None:
+        groups = [("s", d, s_ref.abs(), 0.0)]
+    else:
+        d4, r4 = d.view(d.shape[0], -1, 4), s_ref.abs().view(d.shape[0], -1, 4)
+        cancel = band.pos.abs().max().item() * band.geo[:, 1].max().item()
+        groups = [("s dir", d4[..., :3], r4[..., :3], S_CANCEL_TOL * cancel),
+                  ("s dist", d4[..., 3], r4[..., 3], 0.0)]
+    ok, text = bool(torch.isfinite(s).all()), []
+    for name, err, ref, extra in groups:
+        err, tol = err.max().item(), rel * ref.max().item() + extra
+        ok = ok and err <= tol
+        text.append(f"{name} {err:.3e} (tol {tol:.3e})")
+    return ok, ", ".join(text)
+
+
+def check_transformer(band, form, mean, dtype_name, gen, measure=False):
+    """Row 9 vs its plain version on one band (``form``: plain, edge or
+    geo); with ``measure`` its times, bound and, for the plain form, the
+    time of SDPA on pre-windowed k/v."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.kernels.banded import (
+        _windows, banded_transformer_fwd, banded_transformer_fwd_plain)
+
+    dt = getattr(torch, dtype_name)
+    mask = band.bias_noself
+    n_tiles, tile, width = mask.shape
+    n, hc = n_tiles * tile, HEADS * HIDDEN
+    q, k, v, qw = _transformer_inputs(n, dt, gen, form != "plain")
+    extra = {}
+    if form == "edge":
+        extra = dict(edge=band.edge, qw=qw)
+    elif form == "geo":
+        extra = dict(geo=band.geo, pos=band.pos, qw=qw)
+    args = (mask, q, k, v, HEADS)
+
+    def run(fn):
+        return fn(*args, mean_heads=mean, **extra)
+
+    got = run(banded_transformer_fwd)
+    ref = run(banded_transformer_fwd_plain)
+    torch.cuda.synchronize()
+    got, ref = (got, ref) if extra else ((got,), (ref,))
+    err, scale = _rel_err(got[0], ref[0])
+    ok = (torch.isfinite(got[0]).all() and err <= GAT_TOL[dtype_name] * scale
+          and got[0].dtype == dt)
+    s_text = ""
+    if extra:
+        s_ok, s_text = _s_check(band, got[1], ref[1], S_TOL)
+        ok = ok and s_ok
+        s_text = ", " + s_text
+    label = (f"row 9 {form} {'mean' if mean else 'concat'} {dtype_name} "
+             f"Wcols {width}")
+    log(f"{label}: max_abs_err {err:.3e} (tol {GAT_TOL[dtype_name]} x "
+        f"{scale:.3e}){s_text}")
+    if not ok:
+        raise AssertionError(f"{label}: out err {err}{s_text}")
+    if not measure:
+        return None
+    ms = graph_time_ms(lambda: run(banded_transformer_fwd))
+    eager_ms = cuda_time_ms(lambda: run(banded_transformer_fwd))
+    plain_ms = graph_time_ms(lambda: run(banded_transformer_fwd_plain), 3, 2)
+    nnz = int(mask.sum().item())
+    isz = q.element_size()
+    # mask, q, k, v, pos and qw read once, the conditioning planes only at
+    # the mask's nonzeros (the kernel reads no other entry of them); out and
+    # s written once; the SIMT work is 2·C operations per sender and head
+    # for the logit and 2·C for the value
+    nbytes = mask.numel() + 3 * n * hc * isz + got[0].numel() * isz
+    if extra:
+        feat = extra.get("geo", extra.get("edge"))
+        nbytes += (nnz * feat.shape[1] * 4 + qw.numel() * isz
+                   + got[1].numel() * 4 + (n * 16 if form == "geo" else 0))
+    bound_ms, bound_by = bound(nbytes, 4 * nnz * hc, H100_FP32_FLOPS)
+    library_ms = None
+    lib_note = ""
+    if form == "plain":
+        # SDPA over each receiver tile's window: q [nt, H, T, C] against
+        # the windowed k/v [nt, H, Wcols, C] with the boolean band mask; the
+        # windowing is not timed.  It gives the concat form; fully masked
+        # (padding) rows are NaN there and are left out of the comparison.
+        qh = q.view(n_tiles, tile, HEADS, HIDDEN).permute(0, 2, 1, 3).contiguous()
+        kw, vw = (_windows(t, tile, width).reshape(n_tiles, width, HEADS,
+                                                   HIDDEN).permute(0, 2, 1, 3)
+                  .contiguous() for t in (k, v))
+        am = mask.bool()[:, None]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def lib():
+            return sdpa(qh, kw, vw, attn_mask=am)
+
+        out_lib = lib().permute(0, 2, 1, 3).reshape(n, hc)
+        ref_concat = banded_transformer_fwd_plain(*args)
+        real = mask.reshape(n, width).sum(1) > 0
+        lib_err, _ = _rel_err(out_lib[real], ref_concat[real])
+        library_ms = graph_time_ms(lib)
+        lib_note = (f" library_ms (SDPA, concat form, windows pre-built) "
+                    f"{library_ms:.4f} (max err vs plain on real rows "
+                    f"{lib_err:.3e})")
+    log(f"{label} N {n} nnz {nnz}: ms {ms:.4f} (eager {eager_ms:.4f}) "
+        f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by})"
+        + lib_note)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def check_transformer_fused(band, dtype_name, gen, measure=False):
+    """Row 11 vs its plain version; with ``measure`` its times and bound."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.kernels.banded import (
+        banded_transformer_geo_mean_fused,
+        banded_transformer_geo_mean_fused_plain)
+
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype_name)
+    mask = band.bias_noself
+    n_tiles, tile, width = mask.shape
+    n, f, hc = n_tiles * tile, HIDDEN, HEADS * HIDDEN
+    x = torch.randn(n, f, generator=gen).to(dev, dt)
+    ws = [(torch.randn(f, hc, generator=gen) * f ** -0.5).to(dev, dt)
+          for _ in range(3)]
+    bs = [(0.1 * torch.randn(hc, generator=gen)).to(dev, dt)
+          for _ in range(3)]
+    w_e = torch.rand(4, HEADS, HIDDEN, generator=gen) - 0.5
+    wblk = (torch.eye(HEADS)[:, None, :, None]
+            * w_e.permute(1, 2, 0)[:, :, None, :]).reshape(hc, HEADS * 4)
+    wblk = wblk.to(dev, dt)
+    args = (mask, band.geo, band.pos, x, *ws, *bs, wblk, HEADS)
+    out, s = banded_transformer_geo_mean_fused(*args)
+    ref, ref_s = banded_transformer_geo_mean_fused_plain(*args)
+    torch.cuda.synchronize()
+    err, scale = _rel_err(out, ref)
+    s_rel = S_TOL if dt == torch.float32 else GAT_TOL[dtype_name]
+    s_ok, s_text = _s_check(band, s, ref_s, s_rel)
+    label = f"row 11 {dtype_name} Wcols {width}"
+    log(f"{label}: max_abs_err {err:.3e} (tol {GAT_TOL[dtype_name]} x "
+        f"{scale:.3e}), {s_text}")
+    if not (torch.isfinite(out).all() and s_ok
+            and err <= GAT_TOL[dtype_name] * scale):
+        raise AssertionError(f"{label}: out err {err}, {s_text}")
+    if not measure:
+        return None
+    ms = graph_time_ms(lambda: banded_transformer_geo_mean_fused(*args))
+    eager_ms = cuda_time_ms(lambda: banded_transformer_geo_mean_fused(*args))
+    plain_ms = graph_time_ms(
+        lambda: banded_transformer_geo_mean_fused_plain(*args), 3, 2)
+    nnz = int(mask.sum().item())
+    isz = x.element_size()
+    # x, the weights, biases, wblk, mask and pos read once, the geo planes
+    # at the mask's nonzeros; out and s written once.  Operations: the
+    # three projections on the tensor cores (bf16) or the SIMT units (f32),
+    # the sparse attention on the SIMT units; the least time is their sum
+    # at each unit's peak
+    nbytes = (n * f * isz + 3 * f * hc * isz + 3 * hc * isz
+              + wblk.numel() * isz + mask.numel() + nnz * 2 * 4
+              + n * 16 + out.numel() * isz + s.numel() * 4)
+    proj_peak = H100_BF16_FLOPS if dt == torch.bfloat16 else H100_FP32_FLOPS
+    t_ops = (6 * n * f * hc / proj_peak + 4 * nnz * hc / H100_FP32_FLOPS) * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                          else (t_ops, "operations"))
+    log(f"{label} N {n}: ms {ms:.4f} (eager {eager_ms:.4f}) plain_ms "
+        f"{plain_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def transformer_phase(tmp, case, info, gen):
+    """Rows 9 and 11 on both boxes, then Transformer serving through
+    ``infer``.  Returns (rows, launch counts by serving run)."""
+    import numpy as np
+    from gnn_bfs_rans_tpu_torch.graph.band import LAYER_COMPONENTS, build_band
+    from gnn_bfs_rans_tpu_torch.infer import load_graph
+    from gnn_bfs_rans_tpu_torch.models.flow_gnn import ModelConfig
+
+    rows = {}
+    for nx in (163, 400):
+        g = load_graph(tmp / f"box{nx}", "Transformer")
+        if g.band.geo is None:
+            raise AssertionError(f"box {nx}: no geo planes")
+        # the generic edge form: the same edges with random features
+        feat = np.random.default_rng(nx).normal(
+            size=(g.n_edges, 4)).astype(np.float32)
+        edge_band = build_band(
+            g.senders.numpy()[: g.n_edges], g.receivers.numpy()[: g.n_edges],
+            g.n_pad, g.node_mask.numpy(), g.in_degree.numpy(),
+            components=LAYER_COMPONENTS["Transformer"], edge_feat=feat,
+            node_pos=g.node_feat.numpy())
+        if edge_band.edge is None or edge_band.geo is not None:
+            raise AssertionError("random features did not take the edge form")
+        geo_band, edge_band = g.band.to("cuda"), edge_band.to("cuda")
+        for form in ("plain", "edge", "geo"):
+            band = edge_band if form == "edge" else geo_band
+            for mean in (True, False):
+                for dt in ("float32", "bfloat16"):
+                    rows[("tr", nx, form, mean, dt)] = check_transformer(
+                        band, form, mean, dt, gen,
+                        measure=(nx == 400 and mean and dt == "bfloat16"
+                                 and form in ("plain", "geo")))
+        for dt in ("float32", "bfloat16"):
+            rows[("trf", nx, dt)] = check_transformer_fused(
+                geo_band, dt, gen, measure=nx == 400 and dt == "bfloat16")
+    base = dict(hidden_dim=HIDDEN, num_layers=LAYERS, layer_type="Transformer",
+                heads=HEADS, backend="pallas", compute_dtype="bfloat16")
+    launches = {}
+    for label, cfg in (
+            ("bf16", base), ("f32", {**base, "compute_dtype": "float32"}),
+            ("bf16-fuse-eval", {**base, "fuse_eval": True}),
+            ("bf16-noedge", {**base, "use_edge_attr": False})):
+        runs = None
+        if cfg.get("fuse_eval"):
+            # row 11 in eval; exact_bn runs in train mode: row 9
+            runs = {"off": {"banded_transformer_geo_mean_fused": LAYERS},
+                    "on": {"banded_transformer_fwd": LAYERS,
+                           "fused_epilogue_fwd": 2 * LAYERS}}
+        launches[label] = serve(tmp, case, info, ModelConfig(**cfg),
+                                f"transformer{LAYERS}x{HIDDEN}-{label}", gen,
+                                runs, f32_ratio=label != "f32")
+    launches["deep"] = serve(
+        tmp, case, info, ModelConfig(**{**base, "num_layers": TR_DEEP_LAYERS}),
+        f"transformer{TR_DEEP_LAYERS}x{HIDDEN}-bf16", gen, f32_ratio=True)
+    return rows, launches
+
+
 def main() -> int:
     import torch
 
@@ -1130,7 +1424,8 @@ def main() -> int:
             path = case if nx == 400 else tmp / f"box{nx}x{ny}"
             if nx != 400:
                 generate_box_case(path, nx, ny, 1)
-            g = build_graph(FoamCase(path).load_mesh(), with_band=True)
+            g = build_graph(FoamCase(path).load_mesh(), with_band=True,
+                          band_components=("adj", "gcn", "bias_self"))
             if g.band is None or g.band.gcn.shape[1] != window:
                 raise AssertionError(f"box {nx}x{ny}: expected a W {window} "
                                      "band")
@@ -1159,6 +1454,13 @@ def main() -> int:
             ModelConfig(layer_type="GIN", compute_dtype="bfloat16"),
             "gin6x256-bf16", gen)
         log(f"GCN / GIN serving: {time.time() - t1:.1f} s")
+
+        # rows 9 and 11; the Transformer served through infer
+        t1 = time.time()
+        tr_rows, tr_launches = transformer_phase(tmp, case, info, gen)
+        rows.update(tr_rows)
+        log(f"Transformer phases: {time.time() - t1:.1f} s, launches "
+            f"{tr_launches}")
 
         # one train step, kernels vs plain versions
         t1 = time.time()
@@ -1219,15 +1521,33 @@ def main() -> int:
              replaces="gnn_bfs_rans_tpu/kernels/banded.py:499",
              launches=launches_gatm.get("banded_gat_mean", 0),
              **rows[("gatm", 400, "bfloat16", DROPOUT)]),
+        # the Transformer serving path (4x256 bf16, --bn_exact off): the
+        # geo head-mean form it runs; library_ms is SDPA on the plain form
+        dict(name="banded_transformer_fwd", route="cuda",
+             source="gnn_bfs_rans_tpu_torch/csrc/banded_transformer.cu",
+             replaces="gnn_bfs_rans_tpu/kernels/banded.py:759",
+             launches=tr_launches["bf16"]["off"].get(
+                 "banded_transformer_fwd", 0),
+             **{**rows[("tr", 400, "geo", True, "bfloat16")],
+                "library_ms": rows[("tr", 400, "plain", True, "bfloat16")][
+                    "library_ms"]}),
+        # the fuse_eval serving path (--bn_exact off)
+        dict(name="banded_transformer_geo_mean_fused", route="cuda",
+             source="gnn_bfs_rans_tpu_torch/csrc/banded_transformer.cu",
+             replaces="gnn_bfs_rans_tpu/kernels/banded.py:1586",
+             launches=tr_launches["bf16-fuse-eval"]["off"].get(
+                 "banded_transformer_geo_mean_fused", 0),
+             **rows[("trf", 400, "bfloat16")]),
     ]
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on its "
-                                 "training path")
+                                 "main path")
     for path, name in (("gat", "banded_gat_mean_fused"),
                        ("gat", "fused_epilogue_fwd"),
                        ("gcn", "banded_spmm"), ("gin", "banded_spmm")):
-        if serve_launches[path].get(name, 0) <= 0:
+        if max(serve_launches[path][bn].get(name, 0)
+               for bn in ("off", "on")) <= 0:
             raise AssertionError(f"{name} never launched on the {path} "
                                  "serving path")
     log(f"total: {time.time() - t0:.1f} s")

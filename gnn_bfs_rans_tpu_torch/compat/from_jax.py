@@ -17,6 +17,9 @@ leaf by leaf.  Layouts:
 * GIN ``conv_i/mlp_0`` and ``conv_i/mlp_1`` (``kernel``, ``bias``) →
   ``convs.i.nn.0`` and ``convs.i.nn.2`` (PyG's ``Sequential(Linear, ReLU,
   Linear)``);
+* Transformer ``conv_i/lin_query|lin_key|lin_value|lin_skip`` (``kernel``,
+  ``bias``) and ``conv_i/lin_edge/kernel`` (``use_edge_attr``) →
+  ``convs.i.<name>.weight`` (transposed) and ``.bias``;
 * ``bn_i`` ``scale`` / ``bias`` and ``batch_stats`` ``mean`` / ``var`` →
   ``norms.i.weight`` / ``bias`` / ``running_mean`` / ``running_var``.
 """
@@ -29,7 +32,8 @@ import torch
 from ..models.flow_gnn import ModelConfig
 
 
-PORTED = ("GCN", "GAT", "GIN")
+PORTED = ("GCN", "GAT", "GIN", "Transformer")
+TRANSFORMER_LINEARS = ("lin_query", "lin_key", "lin_value", "lin_skip")
 # GIN's flax MLP layer → the port's Sequential index
 GIN_MLP = {"mlp_0": "nn.0", "mlp_1": "nn.2"}
 
@@ -37,8 +41,8 @@ GIN_MLP = {"mlp_0": "nn.0", "mlp_1": "nn.2"}
 def _check(config: ModelConfig) -> None:
     if config.layer_type not in PORTED:
         raise NotImplementedError(
-            f"layer_type {config.layer_type!r} is not ported yet (GCN, GAT "
-            "and GIN are)")
+            f"layer_type {config.layer_type!r} is not ported yet (GCN, GAT, "
+            "GIN and Transformer are)")
 
 
 def _t(a) -> torch.Tensor:
@@ -60,6 +64,12 @@ def state_dict_from_flax(params: dict, batch_stats: dict,
         if config.layer_type == "GIN":
             for flax_name, name in GIN_MLP.items():
                 _linear(sd, f"convs.{i}.{name}", conv[flax_name])
+        elif config.layer_type == "Transformer":
+            for name in TRANSFORMER_LINEARS:
+                _linear(sd, f"convs.{i}.{name}", conv[name])
+            if config.use_edge_attr:
+                sd[f"convs.{i}.lin_edge.weight"] = _t(
+                    conv["lin_edge"]["kernel"]).t().contiguous()
         else:
             sd[f"convs.{i}.lin.weight"] = _t(conv["lin"]["kernel"]).t().contiguous()
             sd[f"convs.{i}.bias"] = _t(conv["bias"])
@@ -96,6 +106,12 @@ def flax_tree_from_state_dict(sd: dict, config: ModelConfig
         if config.layer_type == "GIN":
             conv = {flax_name: linear(f"convs.{i}.{name}")
                     for flax_name, name in GIN_MLP.items()}
+        elif config.layer_type == "Transformer":
+            conv = {name: linear(f"convs.{i}.{name}")
+                    for name in TRANSFORMER_LINEARS}
+            if config.use_edge_attr:
+                conv["lin_edge"] = {
+                    "kernel": a(f"convs.{i}.lin_edge.weight").T.copy()}
         else:
             conv = {"lin": {"kernel": a(f"convs.{i}.lin.weight").T.copy()},
                     "bias": a(f"convs.{i}.bias")}

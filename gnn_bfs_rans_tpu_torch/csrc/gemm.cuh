@@ -1,6 +1,6 @@
 // Tiled matrix products for the kernels of this package (header only).
 //
-//   C[m, n] = Σ_k A(m, k) · B(k, n),   f32 accumulate,
+//   C[m, n] = Σ_k A(m, k) · B(k, n) (+ bias[n]),   f32 accumulate,
 //
 // with each operand contiguous along one of its two dimensions:
 //   A_KC: A(m, k) = A[m·lda + k]   else A(m, k) = A[k·lda + m]
@@ -9,7 +9,9 @@
 // dW = xᵀ·dz (fold_project_bwd.cu) without transposed copies.  blockIdx.z splits
 // K into chunks of k_chunk rows; chunk z writes its own output slice at
 // C + z·c_split (the caller folds the slices in a fixed order, so a
-// reduction over K stays deterministic).
+// reduction over K stays deterministic).  An optional f32 bias (one per
+// output column) is added to the f32 sum before the one rounding to C's
+// type (banded_transformer.cu's q/k/v projections).
 //
 // bf16 inputs run on the tensor cores (warp-level mma through nvcuda::wmma,
 // 16×16×16 bf16 fragments): a 128×128 output tile per block, 8 warps as
@@ -43,7 +45,7 @@ template <typename TO, bool A_KC, bool B_KC>
 __global__ void __launch_bounds__(256) gemm_f32_kernel(
     const float* __restrict__ A, int lda, const float* __restrict__ B, int ldb,
     TO* __restrict__ C, int ldc, long long c_split, int M, int N, int K,
-    int k_chunk) {
+    int k_chunk, const float* __restrict__ bias) {
   __shared__ float As[PK][PM];
   __shared__ float Bs[PK][PN];
   const int tid = threadIdx.x;
@@ -96,7 +98,9 @@ __global__ void __launch_bounds__(256) gemm_f32_kernel(
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int gn = n0 + tx + 16 * j;
-      if (gn < N) out[(size_t)gm * ldc + gn] = from_f<TO>(acc[i][j]);
+      if (gn < N)
+        out[(size_t)gm * ldc + gn] =
+            from_f<TO>(bias ? acc[i][j] + bias[gn] : acc[i][j]);
     }
   }
 }
@@ -116,7 +120,8 @@ template <typename TO, bool A_KC, bool B_KC>
 __global__ void __launch_bounds__(256, 2) gemm_bf16_kernel(
     const __nv_bfloat16* __restrict__ A, int lda,
     const __nv_bfloat16* __restrict__ B, int ldb, TO* __restrict__ C, int ldc,
-    long long c_split, int M, int N, int K, int k_chunk) {
+    long long c_split, int M, int N, int K, int k_chunk,
+    const float* __restrict__ bias) {
   using namespace nvcuda;
   using ALayout = typename std::conditional<A_KC, wmma::row_major, wmma::col_major>::type;
   using BLayout = typename std::conditional<B_KC, wmma::col_major, wmma::row_major>::type;
@@ -215,7 +220,8 @@ __global__ void __launch_bounds__(256, 2) gemm_bf16_kernel(
       for (int e = lane; e < 256; e += 32) {
         const int gm = m0 + wm * 64 + i * 16 + e / 16;
         const int gn = n0 + wn * 32 + j * 16 + e % 16;
-        if (gm < M && gn < N) out[(size_t)gm * ldc + gn] = from_f<TO>(cs[e]);
+        if (gm < M && gn < N)
+          out[(size_t)gm * ldc + gn] = from_f<TO>(bias ? cs[e] + bias[gn] : cs[e]);
       }
       __syncwarp();
     }
@@ -227,20 +233,21 @@ __global__ void __launch_bounds__(256, 2) gemm_bf16_kernel(
 template <bool A_KC, bool B_KC, typename TO>
 cudaError_t matmul(const float* A, int lda, const float* B, int ldb, TO* C,
                    int ldc, long long c_split, int M, int N, int K, int k_chunk,
-                   cudaStream_t s) {
+                   cudaStream_t s, const float* bias = nullptr) {
   dim3 grid((N + PN - 1) / PN, (M + PM - 1) / PM, (K + k_chunk - 1) / k_chunk);
-  gemm_f32_kernel<TO, A_KC, B_KC><<<grid, 256, 0, s>>>(A, lda, B, ldb, C, ldc,
-                                                       c_split, M, N, K, k_chunk);
+  gemm_f32_kernel<TO, A_KC, B_KC><<<grid, 256, 0, s>>>(
+      A, lda, B, ldb, C, ldc, c_split, M, N, K, k_chunk, bias);
   return cudaGetLastError();
 }
 
 template <bool A_KC, bool B_KC, typename TO>
 cudaError_t matmul(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B,
                    int ldb, TO* C, int ldc, long long c_split, int M, int N,
-                   int K, int k_chunk, cudaStream_t s) {
+                   int K, int k_chunk, cudaStream_t s,
+                   const float* bias = nullptr) {
   dim3 grid((N + WN - 1) / WN, (M + WM - 1) / WM, (K + k_chunk - 1) / k_chunk);
-  gemm_bf16_kernel<TO, A_KC, B_KC><<<grid, 256, 0, s>>>(A, lda, B, ldb, C, ldc,
-                                                        c_split, M, N, K, k_chunk);
+  gemm_bf16_kernel<TO, A_KC, B_KC><<<grid, 256, 0, s>>>(
+      A, lda, B, ldb, C, ldc, c_split, M, N, K, k_chunk, bias);
   return cudaGetLastError();
 }
 

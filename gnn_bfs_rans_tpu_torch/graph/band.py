@@ -10,11 +10,16 @@ does; the :class:`Band` it returns holds torch tensors.
 * ``gcn``         — [n_tiles, W, T, T] f32 normalized GCN coefficients
 * ``bias_self``   — [n_tiles, T, Wcols] int8 attention mask with self-loops
 * ``bias_noself`` — [n_tiles, T, Wcols] int8 attention mask without them
+* ``edge``        — [n_tiles, D_e, T, Wcols] f32 edge features on the band
+* ``geo``         — [n_tiles, 2, T, Wcols] f32 (dist, 1/dist) planes, 0 off
+  the band and on self-loops, with ``pos`` [n_pad, 4] f32 (xyz, 0): the
+  factorised form of geometric ``[unit dir, dist]`` features
 
 Receiver tile ``t``'s attention window starts at sender row
 ``t·T − (Wcols − T)/2`` (half-tile granular, see the JAX module); rows
 outside ``[0, n_pad)`` are absent and their mask entries are 0.  The
-Transformer's edge/geo planes are not built yet.
+edge-conditioned Transformer reads ``geo`` when the edge features validate
+as geometric (every mesh the system builds) and ``edge`` otherwise.
 """
 
 from __future__ import annotations
@@ -24,15 +29,18 @@ import dataclasses
 import numpy as np
 import torch
 
-ALL_COMPONENTS = ("adj", "gcn", "bias_self", "bias_noself")
+ALL_COMPONENTS = ("adj", "gcn", "bias_self", "bias_noself", "geo", "edge")
+# the tensor fields of a Band that move with it
+_TENSORS = ("adj", "gcn", "bias_self", "bias_noself", "edge", "geo", "pos")
 
-# band components each conv reads (the JAX package's LAYER_COMPONENTS less
-# the Transformer's edge planes)
+# band components each conv reads; with both "geo" and "edge" listed,
+# "geo" is built when the edge features validate as geometric and "edge"
+# otherwise
 LAYER_COMPONENTS = {
     "GCN": ("gcn",),
     "GIN": ("adj",),
     "GAT": ("bias_self",),
-    "Transformer": ("bias_noself",),
+    "Transformer": ("bias_noself", "geo", "edge"),
 }
 
 
@@ -45,11 +53,14 @@ class Band:
     bias_self: torch.Tensor | None
     bias_noself: torch.Tensor | None
     tile: int
+    edge: torch.Tensor | None = None
+    geo: torch.Tensor | None = None
+    pos: torch.Tensor | None = None
 
     @property
     def width_cols(self) -> int:
         """Attention window width in sender columns (Wcols)."""
-        for f in (self.bias_self, self.bias_noself):
+        for f in (self.bias_self, self.bias_noself, self.edge, self.geo):
             if f is not None:
                 return f.shape[-1]
         f = self.adj if self.adj is not None else self.gcn
@@ -68,7 +79,7 @@ class Band:
     def to(self, device: str | torch.device) -> "Band":
         return dataclasses.replace(self, **{
             name: getattr(self, name).to(device)
-            for name in ALL_COMPONENTS if getattr(self, name) is not None
+            for name in _TENSORS if getattr(self, name) is not None
         })
 
 
@@ -81,12 +92,16 @@ def build_band(
     tile: int = 128,
     components: tuple[str, ...] = ALL_COMPONENTS,
     max_window_tiles: int = 5,
+    edge_feat: np.ndarray | None = None,
+    node_pos: np.ndarray | None = None,
 ) -> Band | None:
     """Build the banded adjacency; None if the graph is not band-limited.
 
     The window ``W = 2·k0+1`` full tiles is chosen minimally from the
     tile bandwidth; graphs needing ``W > max_window_tiles`` (or an
     attention window wider than ``max_window_tiles·T``) return None.
+    ``edge_feat`` ([n_edges, D_e], in the order of ``senders``) and
+    ``node_pos`` ([≥ n_nodes, 3]) feed the ``geo`` and ``edge`` planes.
     """
     if n_pad % tile != 0:
         return None
@@ -154,6 +169,19 @@ def build_band(
         bias_noself = np.zeros((n_tiles, tile, width), dtype=np.int8)
         bias_noself[t, row, attn_col] = 1
 
+    geo = pos = None
+    if (edge_feat is not None and node_pos is not None
+            and "geo" in components and edge_feat.shape[1] == 4):
+        geo, pos = _try_build_geo(edge_feat, node_pos, senders, receivers,
+                                  n_pad, n_tiles, width, tile, t, row,
+                                  attn_col)
+
+    edge = None
+    if edge_feat is not None and "edge" in components and geo is None:
+        d_e = edge_feat.shape[1]
+        edge = np.zeros((n_tiles, d_e, tile, width), dtype=np.float32)
+        edge[t, :, row, attn_col] = np.asarray(edge_feat, dtype=np.float32)
+
     def _t(a):
         return None if a is None else torch.from_numpy(a)
 
@@ -165,4 +193,37 @@ def build_band(
         bias_self=_t(bias_self),
         bias_noself=_t(bias_noself),
         tile=tile,
+        edge=_t(edge),
+        geo=_t(geo),
+        pos=_t(pos),
     )
+
+
+def _try_build_geo(edge_feat, node_pos, senders, receivers, n_pad, n_tiles,
+                   width, tile, t, row, attn_col):
+    """The (dist, 1/dist) planes and ``pos``, or (None, None) when the
+    features are not ``[(pos_r − pos_s)/dist, dist]`` of the node positions
+    (the JAX package's check, same arithmetic).  Self-loops store
+    dist = 1/dist = 0: their edge contribution is zero."""
+    ef = np.asarray(edge_feat, dtype=np.float32)
+    pos = np.asarray(node_pos, dtype=np.float32)
+    if pos.shape[0] < n_pad:
+        pos = np.concatenate(
+            [pos, np.zeros((n_pad - pos.shape[0], pos.shape[1]), np.float32)])
+    pos = pos[:n_pad]
+    d = pos[receivers] - pos[senders]
+    dist = np.linalg.norm(d, axis=1)
+    nz = dist > 0
+    recon = np.zeros_like(ef)
+    recon[nz, :3] = d[nz] / dist[nz, None]
+    recon[:, 3] = np.where(nz, dist, 0.0)
+    scale_ref = max(float(np.abs(ef).max()), 1e-12)
+    if not np.allclose(recon, ef, atol=1e-4 * scale_ref + 1e-6):
+        return None, None
+    geo = np.zeros((n_tiles, 2, tile, width), dtype=np.float32)
+    inv = np.where(nz, 1.0 / np.maximum(dist, 1e-30), 0.0).astype(np.float32)
+    geo[t, 0, row, attn_col] = np.where(nz, dist, 0.0).astype(np.float32)
+    geo[t, 1, row, attn_col] = inv
+    pos4 = np.zeros((n_pad, 4), dtype=np.float32)
+    pos4[:, :3] = pos[:, :3]
+    return geo, pos4

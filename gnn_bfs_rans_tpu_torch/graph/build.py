@@ -116,6 +116,9 @@ def build_graph(
             graph.in_degree.numpy(),
             tile=node_align,
             components=comps,
+            edge_feat=(graph.edge_feat.numpy()[: graph.n_edges]
+                       if ("edge" in comps or "geo" in comps) else None),
+            node_pos=graph.node_feat.numpy(),
         )
         if band is not None:
             graph = _dc.replace(graph, band=band)

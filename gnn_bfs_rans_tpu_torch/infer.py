@@ -1,11 +1,13 @@
 """Checkpoint load + predict: the serving path.
 
-Counterpart of ``gnn_bfs_rans_tpu/infer.py``.  Every checkpoint of a
-ported layer type (GCN, GAT, GIN) is served through the banded kernel path,
-whatever ``backend`` its meta records: the JAX package's ``backend='auto'``
-→ ``dense`` rule exists to skip a minutes-long TPU compile that the card
-does not have.  The dense and segment paths, meshes without a band and the
-Transformer are not ported yet and raise.
+Counterpart of ``gnn_bfs_rans_tpu/infer.py``.  Every checkpoint (GCN,
+GAT, GIN, Transformer) is served through the banded kernel path, whatever
+``backend`` its meta records: the JAX package's ``backend='auto'`` →
+``dense`` rule exists to skip a minutes-long TPU compile that the card does
+not have.  ``load_graph`` builds the band planes the layer type reads (the
+Transformer's ``bias_noself`` and its geo planes, or the generic edge
+planes for non-geometric features).  The dense and segment paths and
+meshes without a band are not ported yet and raise.
 """
 
 from __future__ import annotations

@@ -17,6 +17,13 @@
   ``csrc/banded_spmm.cu``; its backward is the same kernel on
   ``transpose_band`` (``_transpose_band``), which the convs compute once
   per ``Band`` and keep (``Band.transposed``).
+* ``banded_transformer_fwd`` (row 9), eval form: ``_transformer_kernel``
+  at rate 0, scaled dot-product attention over ``bias_noself`` with no
+  conditioning, the generic ``edge`` planes or the factorised ``geo``
+  planes, head mean or concat, one entry point with flags; it raises on a
+  gradient or dropout until the backward (row 10) is ported.
+  ``banded_transformer_geo_mean_fused`` (row 11) projects q/k/v in the
+  launch.  Both in ``csrc/banded_transformer.cu``.
 
 Each source's header says what bounds it on the card and how the design
 answers that.  Layouts are the JAX package's: ``bias_self`` int8
@@ -418,3 +425,270 @@ def banded_spmm(band_coeff: torch.Tensor, x: torch.Tensor,
     transposing costs about four SpMMs on the card); without it the
     backward transposes per call, as the JAX package does."""
     return _BandedSpmm.apply(band_coeff, x.contiguous(), transposed)
+
+
+# ------------------------------------------------------------ rows 9, 11
+TRANSFORMER_KERNEL = "banded_transformer"
+_MAX_C = 512    # columns per head: 4 per lane in up to 4 groups of 128
+_MAX_DE = 8     # edge features per edge held in the kernel's registers
+
+
+def banded_transformer_fwd_plain(bias_noself, q, k, v, heads, edge=None,
+                                 qw=None, geo=None, pos=None,
+                                 mean_heads=False):
+    """Plain PyTorch version of row 9's eval form, dense over the window
+    like the TPU kernel (``_transformer_kernel``), with its rounding points:
+    the scale is the Python float 1/√C; the edge term adds
+    ``(qw_d·scale_q)·feat_d`` with ``scale_q`` the scale in q's dtype and
+    the product in f32, the geo term casts qw to f32 before scaling; the
+    probabilities round to v's dtype for the value product, ``s`` sums the
+    unrounded f32 e.  Returns ``out`` ([N, C] with
+    ``mean_heads``, else [N, H·C], in q's dtype), or ``(out, s)`` with
+    ``s`` f32 [N, H·D_e] when conditioned (D_e = 4 for geo)."""
+    n_tiles, tile, width = bias_noself.shape
+    n, hc = q.shape
+    c = hc // heads
+    dt = q.dtype
+    scale = 1.0 / (c ** 0.5)
+    q4 = q.reshape(n_tiles, tile, heads, c).float()
+    win_k = _windows(k, tile, width).reshape(n_tiles, width, heads, c)
+    win_v = _windows(v, tile, width).reshape(n_tiles, width, heads, c)
+    logits = torch.einsum("nthc,nwhc->nhtw", q4, win_k.float()) * scale
+    by_head = lambda a: a.permute(0, 2, 1)[..., None]  # noqa: E731  [n,T,H] → [n,H,T,1]
+    if edge is not None:
+        d_e = edge.shape[1]
+        # qw_d·scale: the weakly typed scalar takes q's dtype; the product
+        # stays f32 (XLA keeps the excess precision of the bf16 multiply)
+        s_dt = float(torch.tensor(scale, dtype=dt))
+        qs = qw.reshape(n_tiles, tile, heads, d_e).float() * s_dt
+        for d in range(d_e):
+            logits = logits + by_head(qs[..., d]) * edge[:, d, None]
+    logits = logits + ((bias_noself.float() - 1.0) * 1e30)[:, None]
+    if geo is not None:
+        qd = qw.reshape(n_tiles, tile, heads, 4).float() * scale
+        pos_c = pos.reshape(n_tiles, tile, 4)
+        pos_w = _windows(pos, tile, width)                     # [n, Wc, 4]
+        qself = (qd * pos_c[:, :, None, :]).sum(-1)            # [n, T, H]
+        qpos = torch.einsum("nthd,nwd->nhtw", qd, pos_w)
+        dist, invd = geo[:, 0, None], geo[:, 1, None]         # [n, 1, T, Wc]
+        logits = logits + (by_head(qself) - qpos) * invd \
+            + by_head(qd[..., 3]) * dist
+    m = logits.amax(-1, keepdim=True).clamp_min(-1e30)
+    e = torch.exp(logits - m)
+    e = torch.where(logits <= -1e29, 0.0, e)
+    inv = 1.0 / e.sum(-1, keepdim=True).clamp_min(1e-16)     # [n, H, T, 1]
+    ep = e.to(dt).float() if dt == torch.bfloat16 else e
+    outs = [torch.einsum("ntw,nwc->ntc", ep[:, h], win_v[:, :, h].float())
+            * inv[:, h] for h in range(heads)]
+    if mean_heads:
+        acc = outs[0]
+        for o in outs[1:]:
+            acc = acc + o
+        out = (acc * (1.0 / heads)).reshape(n, c).to(dt)
+    else:
+        out = torch.stack(outs, 2).reshape(n, hc).to(dt)
+    if geo is not None:
+        ew = e * invd
+        t13 = torch.einsum("nhtw,nwd->nthd", ew, pos_w)
+        t0 = ew.sum(-1).permute(0, 2, 1)[..., None]            # [n, T, H, 1]
+        s3 = (e * dist).sum(-1).permute(0, 2, 1)[..., None]
+        s = torch.cat([(pos_c[:, :, None, :] * t0 - t13)[..., :3], s3], -1)
+        s = s * inv.permute(0, 2, 1, 3)
+        return out, s.reshape(n, heads * 4)
+    if edge is not None:
+        s = torch.stack([(e * edge[:, d, None]).sum(-1) * inv[..., 0]
+                         for d in range(edge.shape[1])], -1)   # [n, H, T, D]
+        return out, s.permute(0, 2, 1, 3).reshape(n, -1)
+    return out
+
+
+def _check_window(bias_noself, n, hc, heads):
+    """The mask's and the head width's conditions, shared by rows 9 and
+    11; returns C."""
+    n_tiles, tile, width = bias_noself.shape
+    if bias_noself.dtype != torch.int8:
+        raise TypeError("bias_noself must be int8")
+    if n != n_tiles * tile or hc % heads or width < tile or (width - tile) % 2:
+        raise ValueError(f"shape mismatch: bias_noself "
+                         f"{tuple(bias_noself.shape)}, N {n}, H·C {hc}, "
+                         f"heads {heads}")
+    c = hc // heads
+    if c % 4 or c > _MAX_C:
+        raise ValueError(f"the kernel moves 4 columns per access and holds "
+                         f"{_MAX_C} per head: C {c} must be a multiple of 4 "
+                         f"and at most {_MAX_C}")
+    if 8 * width * 8 > 48 * 1024:
+        raise ValueError(f"window width {width} exceeds the kernel's "
+                         "shared-memory budget (768 columns)")
+    return c
+
+
+def _check_transformer(bias_noself, q, k, v, heads, extra=()):
+    """Row 9's conditions on the mask and q/k/v (and the f32 ``extra``
+    planes); returns C."""
+    for name, t in (("bias_noself", bias_noself), ("q", q), ("k", k),
+                    ("v", v), *extra):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, not {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must share float32 or bfloat16, got "
+                        f"{q.dtype} / {k.dtype} / {v.dtype}")
+    for name, t in extra:
+        if name != "qw" and t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q/k/v shapes {tuple(q.shape)}/{tuple(k.shape)}/"
+                         f"{tuple(v.shape)}")
+    return _check_window(bias_noself, *q.shape, heads)
+
+
+def _eval_only(name, dropout_rate, *tensors):
+    """Rows 9 and 11 are ported in their eval form only: the backward (row
+    10) and the dropout form come with the Transformer's training path."""
+    if dropout_rate > 0 or (torch.is_grad_enabled()
+                            and any(t.requires_grad for t in tensors)):
+        raise NotImplementedError(
+            f"{name}: only the eval form (no dropout, no gradient) is "
+            "ported; the backward (row 10, banded_transformer_bwd), "
+            "fold_partials (row 7) and the dropout form come next")
+
+
+def banded_transformer_fwd(bias_noself, q, k, v, heads, edge=None, qw=None,
+                           geo=None, pos=None, mean_heads=False,
+                           dropout_rate=0.0):
+    """Row 9's eval form: plain version for CPU tensors, the CUDA kernel
+    for CUDA tensors (or a raise).  Arguments and results as
+    :func:`banded_transformer_fwd_plain`; ``qw`` [N, H·D_e] in q's dtype.
+    A gradient or ``dropout_rate > 0`` raises until row 10 is ported."""
+    _eval_only("banded_transformer_fwd", dropout_rate, q, k, v,
+               *(t for t in (qw,) if t is not None))
+    if q.device.type == "cpu":
+        return banded_transformer_fwd_plain(bias_noself, q, k, v, heads, edge,
+                                            qw, geo, pos, mean_heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    n, hc = q.shape
+    if geo is not None:
+        mode, d_e, feat = 2, 4, geo
+        extra = (("geo", geo), ("pos", pos), ("qw", qw))
+    elif edge is not None:
+        mode, d_e, feat = 1, edge.shape[1], edge
+        extra = (("edge", edge), ("qw", qw))
+    else:
+        mode, d_e, feat, extra = 0, 0, None, ()
+    c = _check_transformer(bias_noself, q, k, v, heads, extra)
+    n_tiles, tile, width = bias_noself.shape
+    if mode:
+        if qw.dtype != q.dtype or qw.shape != (n, heads * d_e):
+            raise ValueError(f"qw must be [{n}, {heads * d_e}] in q's dtype, "
+                             f"got {tuple(qw.shape)} {qw.dtype}")
+        if feat.shape != (n_tiles, d_e if mode == 1 else 2, tile, width):
+            raise ValueError(f"edge/geo plane shape {tuple(feat.shape)}")
+        if mode == 1 and d_e > _MAX_DE:
+            raise ValueError(f"at most {_MAX_DE} edge features, got {d_e}")
+        if mode == 2 and pos.shape != (n, 4):
+            raise ValueError(f"pos must be [{n}, 4], got {tuple(pos.shape)}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the kernel reads q, k and v in 4-column accesses: "
+                         "they must be 16-byte aligned")
+    lib = _build.bind(TRANSFORMER_KERNEL, "banded_transformer_launch",
+                      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+                      + [ctypes.c_float, ctypes.c_void_p])
+    out = torch.empty((n, c if mean_heads else hc), dtype=q.dtype,
+                      device=q.device)
+    s = (torch.empty((n, heads * d_e), dtype=torch.float32, device=q.device)
+         if mode else None)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = lib.banded_transformer_launch(
+        bias_noself.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        ptr(feat), ptr(pos if mode == 2 else None), ptr(qw if mode else None),
+        out.data_ptr(), ptr(s), n, hc, heads, c, tile, width, mode, d_e,
+        int(mean_heads), _DTYPE_CODE[q.dtype], 1.0 / (c ** 0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, rc, "banded_transformer_fwd")
+    _build.LAUNCHES["banded_transformer_fwd"] += 1
+    return (out, s) if mode else out
+
+
+def banded_transformer_geo_mean_fused_plain(bias_noself, geo_band, pos, x,
+                                            wq, wk, wv, bq, bk, bv, wblk,
+                                            heads):
+    """Plain PyTorch version of row 11: q/k/v = x·W + b (f32 accumulate,
+    the bias in x's dtype added in f32, one rounding to x's dtype), qw =
+    q·wblk kept in f32, then row 9's geo-mean attention."""
+    dt = x.dtype
+    q, k, v = ((x.float() @ w.float() + b.float()).to(dt)
+               for w, b in ((wq, bq), (wk, bk), (wv, bv)))
+    qw = q.float() @ wblk.float()
+    return banded_transformer_fwd_plain(bias_noself, q, k, v, heads, qw=qw,
+                                        geo=geo_band, pos=pos,
+                                        mean_heads=True)
+
+
+def banded_transformer_geo_mean_fused(bias_noself, geo_band, pos, x, wq, wk,
+                                      wv, bq, bk, bv, wblk, heads):
+    """Row 11: row 9's geo head-mean form with the q/k/v (and
+    qw = q·wblk) projections in the launch → (out [N, C], s [N, H·4]).
+    ``wq``, ``wk``, ``wv`` [F, H·C], ``bq``, ``bk``, ``bv`` [H·C] and
+    ``wblk`` [H·C, H·4] in x's dtype.  Plain version for CPU tensors, the
+    CUDA kernel for CUDA tensors (or a raise)."""
+    args = (bias_noself, geo_band, pos, x, wq, wk, wv, bq, bk, bv, wblk,
+            heads)
+    _eval_only("banded_transformer_geo_mean_fused", 0.0, x, wq, wk, wv, bq,
+               bk, bv, wblk)
+    if x.device.type == "cpu":
+        return banded_transformer_geo_mean_fused_plain(*args)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    n, f = x.shape
+    hc = wq.shape[1]
+    n_tiles, tile, width = bias_noself.shape
+    named = (("bias_noself", bias_noself), ("geo", geo_band), ("pos", pos),
+             ("wq", wq), ("wk", wk), ("wv", wv), ("bq", bq), ("bk", bk),
+             ("bv", bv), ("wblk", wblk), ("x", x))
+    for name, t in named:
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, not {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if geo_band.dtype != torch.float32 or pos.dtype != torch.float32:
+        raise TypeError("geo and pos must be float32")
+    if x.dtype not in _DTYPE_CODE or any(t.dtype != x.dtype
+                                         for _, t in named[3:]):
+        raise TypeError("x, the weights and the biases must share float32 "
+                        "or bfloat16")
+    c = _check_window(bias_noself, n, hc, heads)
+    if (any(w.shape != (f, hc) for w in (wq, wk, wv))
+            or any(b.shape != (hc,) for b in (bq, bk, bv))
+            or wblk.shape != (hc, heads * 4)
+            or geo_band.shape != (n_tiles, 2, tile, width)
+            or pos.shape != (n, 4)):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w "
+                         f"{tuple(wq.shape)}, wblk {tuple(wblk.shape)}, geo "
+                         f"{tuple(geo_band.shape)}, pos {tuple(pos.shape)}, "
+                         f"heads {heads}")
+    if any(t.data_ptr() % 16 for t in (x, wq, wk, wv, wblk)) or (
+            x.dtype == torch.bfloat16 and (f % 8 or hc % 8)):
+        raise ValueError("the projection loads 16-byte chunks: F and H·C "
+                         "must be multiples of 8 (bf16) and x, the weights "
+                         "16-byte aligned")
+    # the projections land in one [N, 3·H·C] buffer, q | k | v per row
+    qkv = torch.empty((n, 3 * hc), dtype=x.dtype, device=x.device)
+    bias = torch.cat([bq, bk, bv]).float()    # exact: b widens to f32
+    lib = _build.bind(TRANSFORMER_KERNEL,
+                      "banded_transformer_geo_mean_fused_launch",
+                      [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+                      + [ctypes.c_float, ctypes.c_void_p])
+    out = torch.empty((n, c), dtype=x.dtype, device=x.device)
+    s = torch.empty((n, heads * 4), dtype=torch.float32, device=x.device)
+    rc = lib.banded_transformer_geo_mean_fused_launch(
+        bias_noself.data_ptr(), x.data_ptr(), wq.data_ptr(), wk.data_ptr(),
+        wv.data_ptr(), bias.data_ptr(), wblk.data_ptr(), geo_band.data_ptr(),
+        pos.data_ptr(), qkv.data_ptr(), out.data_ptr(), s.data_ptr(), n, f,
+        heads, c, tile, width, _DTYPE_CODE[x.dtype], 1.0 / (c ** 0.5),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, "banded_transformer_geo_mean_fused")
+    _build.LAUNCHES["banded_transformer_geo_mean_fused"] += 1
+    return out, s

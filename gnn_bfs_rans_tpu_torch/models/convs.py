@@ -1,4 +1,4 @@
-"""GCN, GAT and GIN convolutions on the banded kernel path.
+"""GCN, GAT, GIN and Transformer convolutions on the banded kernel path.
 
 Counterparts of ``gnn_bfs_rans_tpu/models/convs.py``'s ``GCNConv``,
 ``GATConv`` and ``GINConv`` with ``backend='pallas'`` on a banded graph:
@@ -18,17 +18,35 @@ Counterparts of ``gnn_bfs_rans_tpu/models/convs.py``'s ``GCNConv``,
   latter with attention dropout in the kernel).  Training with
   ``fuse_train=False`` runs the unfused path: z = x·W in the compute dtype,
   α = z·amat in f32, then ``banded_gat_mean_packed`` on z.
+* ``TransformerConv`` (``convs.py:366-618``), eval form: q, k, v = x·W + b,
+  scaled dot-product attention over each receiver's senders (no
+  self-loops) on the band's ``bias_noself`` mask, the head mean (or
+  concat), plus ``lin_skip(x)``.  Edge-conditioned (``edge_dim``): the
+  logit edge term factors through ``qw = q·W_e`` per head and the value
+  edge term through ``s``, the attention-weighted raw edge features, which
+  W_e projects outside the kernel; on a band with the geometric ``geo``
+  planes (every mesh the system builds) the factorised geo form runs, else
+  the generic ``edge`` form.  With ``fuse_eval`` (and a deterministic
+  forward) the geo head-mean path projects q/k/v inside the launch
+  (``banded_transformer_geo_mean_fused``, row 11); otherwise row 9 runs on
+  dense q/k/v.  The JAX package's eval routes the geo head-mean path
+  through ``banded_transformer_geo_mean_projgrad``, whose forward is the
+  same on weights extracted as ``lin(eye) − lin(0)``; the port uses the
+  weights themselves (the branch exists for the backward).  Training raises
+  until the backward (row 10) is ported.
 
 The dense products stay ``torch.matmul``: in the JAX package they are XLA
-products outside any Pallas kernel.  The segment and dense backends, the
-concat GAT and the Transformer conv are not ported yet; a graph without the
-band plane a conv needs raises.
+products outside any Pallas kernel.  The segment and dense backends and the
+concat GAT are not ported yet; a graph without the band plane a conv needs
+raises.
 
 Parameters keep PyG's names and layouts (GCN ``lin.weight`` [F, F] and
 ``bias``; GAT ``lin.weight`` [H·C, F], ``att_src``/``att_dst`` [1, H, C],
 ``bias`` [C]; GIN ``nn.0`` and ``nn.2``, the Linear layers of
-``Sequential(Linear, ReLU, Linear)``); they stay float32 and are cast to
-the compute dtype where the JAX modules cast them.
+``Sequential(Linear, ReLU, Linear)``; Transformer ``lin_query``,
+``lin_key``, ``lin_value`` [H·C, F] with bias, ``lin_edge`` [H·C, D_e]
+without, ``lin_skip`` [C or H·C, F] with bias); they stay float32 and are
+cast to the compute dtype where the JAX modules cast them.
 """
 
 from __future__ import annotations
@@ -44,6 +62,8 @@ from ..kernels.banded import (
     banded_gat_mean_fused_wa,
     banded_gat_mean_packed,
     banded_spmm,
+    banded_transformer_fwd,
+    banded_transformer_geo_mean_fused,
 )
 
 
@@ -177,3 +197,85 @@ class GATConv(nn.Module):
             out = banded_gat_mean_fused(mask, w, alphas.contiguous(),
                                         x.contiguous(), H, self.negative_slope)
         return out + self.bias.to(dt)
+
+
+class TransformerConv(nn.Module):
+    def __init__(self, features: int, heads: int = 4, concat: bool = False,
+                 edge_dim: int | None = None, fuse_eval: bool = False):
+        super().__init__()
+        self.heads = heads
+        self.features = features
+        self.concat = concat
+        self.edge_dim = edge_dim
+        self.fuse_eval = fuse_eval
+        hc = heads * features
+        lin = functools.partial(nn.utils.skip_init, nn.Linear)
+        self.lin_query = lin(features, hc)
+        self.lin_key = lin(features, hc)
+        self.lin_value = lin(features, hc)
+        self.lin_edge = (lin(edge_dim, hc, bias=False)
+                         if edge_dim is not None else None)
+        self.lin_skip = lin(features, hc if concat else features)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for layer in (self.lin_query, self.lin_key, self.lin_value,
+                      self.lin_edge, self.lin_skip):
+            if layer is not None:
+                lecun_init_(layer, generator)
+
+    def forward(self, x: torch.Tensor, graph: Graph,
+                fused_ok: bool = True) -> torch.Tensor:
+        """Eval form.  ``fused_ok``: the forward is deterministic (the JAX
+        module's ``deterministic``), so ``fuse_eval`` may take row 11; the
+        ``exact_bn`` forward passes False, as the JAX package runs it in
+        train mode."""
+        mask = _plane(graph, "bias_noself", "TransformerConv")
+        H, C = self.heads, self.features
+        dt = x.dtype
+        band = graph.band
+        if self.edge_dim is not None:
+            d_e = self.edge_dim
+            if band.geo is None and band.edge is None:
+                raise NotImplementedError(
+                    "the edge-conditioned TransformerConv needs the band's "
+                    "geo or edge planes; this graph has neither")
+            # W_e = lin_edge(I) in the compute dtype, [D_e, H, C]
+            w_e = self.lin_edge.weight.t().to(dt).view(d_e, H, C)
+            # block-diagonal [H·C, H·D_e]: qw[n, h·D + d] = q_h · w_e[d, h]
+            w_blk = (torch.eye(H, device=x.device)[:, None, :, None]
+                     * w_e.float().permute(1, 2, 0)[:, :, None, :]
+                     ).reshape(H * C, H * d_e).to(dt)
+            if (band.geo is not None and self.fuse_eval and fused_ok
+                    and not self.concat):
+                ws = [m.weight.t().to(dt).contiguous() for m in
+                      (self.lin_query, self.lin_key, self.lin_value)]
+                bs = [m.bias.to(dt) for m in
+                      (self.lin_query, self.lin_key, self.lin_value)]
+                out, s = banded_transformer_geo_mean_fused(
+                    mask, band.geo, band.pos, x.contiguous(), *ws, *bs, w_blk,
+                    H)
+            else:
+                q, k, v = (dense(m, x) for m in
+                           (self.lin_query, self.lin_key, self.lin_value))
+                qw = (q.float() @ w_blk.float()).to(dt)
+                cond = (dict(geo=band.geo, pos=band.pos)
+                        if band.geo is not None else dict(edge=band.edge))
+                out, s = banded_transformer_fwd(
+                    mask, q, k, v, H, qw=qw, mean_heads=not self.concat,
+                    **cond)
+            if self.concat:
+                out = out.view(-1, H, C) + torch.einsum(
+                    "nhd,dhc->nhc", s.view(-1, H, d_e), w_e.float()
+                ).to(out.dtype)
+                out = out.reshape(-1, H * C)
+            else:
+                # Σ_h p·e_ij / H as one [N, H·D_e] @ [H·D_e, C] product
+                w_flat = w_e.permute(1, 0, 2).reshape(H * d_e, C)
+                edge_term = (s @ w_flat.float()) * (1.0 / H)
+                out = out + edge_term.to(out.dtype)
+        else:
+            q, k, v = (dense(m, x) for m in
+                       (self.lin_query, self.lin_key, self.lin_value))
+            out = banded_transformer_fwd(mask, q, k, v, H,
+                                         mean_heads=not self.concat)
+        return out + dense(self.lin_skip, x)

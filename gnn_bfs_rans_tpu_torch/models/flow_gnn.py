@@ -3,8 +3,10 @@
 Counterpart of ``gnn_bfs_rans_tpu/models/flow_gnn.py::FlowGNN``:
 ``Linear(3→H)`` input projection, ``L`` blocks of {conv, residual add,
 BatchNorm, ReLU}, and the output MLP ``H→H→H→H/2→out``.  The conv is
-``GCNConv``, ``GATConv`` or ``GINConv`` by ``layer_type`` (dispatch as in
-``flow_gnn.py:130-153``; GCN and GIN take no training flag or seed).
+``GCNConv``, ``GATConv``, ``GINConv`` or ``TransformerConv`` by
+``layer_type`` (dispatch as in ``flow_gnn.py:130-153``; GCN and GIN take no
+training flag or seed; the Transformer is edge-conditioned with
+``use_edge_attr`` and takes ``fuse_eval``).
 Output layout is ``[U(3), p, k, epsilon, nut]``.  Dtype rules are the JAX
 module's (``flow_gnn.py:56-66, 108-153``): ``bfloat16`` runs everything but
 the final head in bf16; ``mixed`` runs the convs and the MLP in bf16 on an
@@ -20,8 +22,10 @@ masks drawn from the explicit ``g`` (never the global RNG), and the running
 BatchNorm statistics updated.  Without a generator the training forward is
 deterministic (the JAX package's dropout-free train-mode forward of the
 recalibration).  Batch or no normalization is ported, with the fused
-batch-norm epilogue; the Transformer conv, LayerNorm and the unfused
-epilogue (``fuse_epilogue=False``) are not.
+batch-norm epilogue; LayerNorm and the unfused epilogue
+(``fuse_epilogue=False``) are not.  The Transformer serves (eval and
+``exact_bn``) and its BatchNorm recalibrates (a train-mode forward with no
+gradient and no dropout), but does not train: its backward is not ported.
 """
 
 from __future__ import annotations
@@ -35,9 +39,12 @@ from torch import nn
 
 from ..graph.structs import Graph
 from ..kernels.dropout import draw_seed
-from .convs import GATConv, GCNConv, GINConv, dense, lecun_init_
+from .convs import (GATConv, GCNConv, GINConv, TransformerConv, dense,
+                    lecun_init_)
 from .norm import MaskedBatchNorm
 
+# the edge features every graph of the system carries: [unit dir xyz, dist]
+EDGE_DIM = 4
 FIELD_SLICES = {"U": (0, 3), "p": (3, 4), "k": (4, 5), "epsilon": (5, 6), "nut": (6, 7)}
 
 
@@ -79,10 +86,8 @@ class FlowGNN(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         cfg = config
-        if cfg.layer_type not in ("GCN", "GAT", "GIN"):
-            raise NotImplementedError(
-                f"layer_type {cfg.layer_type!r} is not ported yet (GCN, GAT "
-                "and GIN are)")
+        if cfg.layer_type not in ("GCN", "GAT", "GIN", "Transformer"):
+            raise ValueError(f"unknown layer_type {cfg.layer_type!r}")
         self.bn = cfg.use_batch_norm and cfg.norm_type == "batch"
         if cfg.use_batch_norm and cfg.norm_type not in ("batch", "none"):
             raise NotImplementedError(
@@ -97,6 +102,11 @@ class FlowGNN(nn.Module):
             if cfg.layer_type == "GAT":
                 return GATConv(h, heads=cfg.heads, dropout=cfg.dropout,
                                fuse_train=cfg.fuse_train)
+            if cfg.layer_type == "Transformer":
+                return TransformerConv(
+                    h, heads=cfg.heads, concat=False,
+                    edge_dim=EDGE_DIM if cfg.use_edge_attr else None,
+                    fuse_eval=cfg.fuse_eval)
             return GCNConv(h) if cfg.layer_type == "GCN" else GINConv(h)
 
         self.convs = nn.ModuleList(conv() for _ in range(cfg.num_layers))
@@ -127,6 +137,16 @@ class FlowGNN(nn.Module):
             raise NotImplementedError(
                 "batch statistics without the fused epilogue "
                 "(fuse_epilogue=False) are not ported yet")
+        if (cfg.layer_type == "Transformer" and train
+                and (generator is not None or torch.is_grad_enabled())):
+            raise NotImplementedError(
+                "training the Transformer is not ported yet: its backward "
+                "(row 10, banded_transformer_bwd), fold_partials (row 7) "
+                "and its attention dropout come next")
+        if (cfg.layer_type == "Transformer" and cfg.use_edge_attr
+                and graph.edge_feat.shape[1] != EDGE_DIM):
+            raise ValueError(f"the Transformer takes {EDGE_DIM} edge "
+                             f"features, got {graph.edge_feat.shape[1]}")
         rate = cfg.dropout if (train and generator is not None) else 0.0
         mixed = cfg.compute_dtype == "mixed"
         dtype = torch.bfloat16 if cfg.compute_dtype in ("bfloat16", "mixed") \
@@ -144,6 +164,10 @@ class FlowGNN(nn.Module):
             x_in = x.to(torch.bfloat16) if mixed else x
             if cfg.layer_type == "GAT":
                 x_new = conv(x_in, graph, train=train, seed=seed())
+            elif cfg.layer_type == "Transformer":
+                # the JAX package runs exact_bn (and the recalibration) in
+                # train mode, where fuse_eval does not apply
+                x_new = conv(x_in, graph, fused_ok=not (train or exact_bn))
             else:
                 x_new = conv(x_in, graph)
             if mixed:

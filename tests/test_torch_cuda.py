@@ -15,6 +15,7 @@ import torch
 
 from gnn_bfs_rans_tpu_torch.foam import box_fields, generate_box_case
 from gnn_bfs_rans_tpu_torch.graph.band import build_band
+from gnn_bfs_rans_tpu_torch.graph.build import compute_edge_features
 from gnn_bfs_rans_tpu_torch.infer import predict_case
 from gnn_bfs_rans_tpu_torch.kernels import _build
 from gnn_bfs_rans_tpu_torch.kernels.banded import (
@@ -26,6 +27,10 @@ from gnn_bfs_rans_tpu_torch.kernels.banded import (
     banded_spmm,
     banded_spmm_fwd,
     banded_spmm_plain,
+    banded_transformer_fwd,
+    banded_transformer_fwd_plain,
+    banded_transformer_geo_mean_fused,
+    banded_transformer_geo_mean_fused_plain,
     transpose_band,
 )
 from gnn_bfs_rans_tpu_torch.kernels.banded_bwd import (
@@ -443,3 +448,163 @@ def test_gat_mean_kernel_and_op_match_plain(card, width, dtype, rate):
                                           rate, seed)
     _close(zl.grad, ref_dz, KTOL[dtype])
     _close(al.grad, ref_da, 1e-4 if dtype == "float32" else 1e-2)
+
+
+def _tr_band(n, width, geometric, seed=0):
+    """bias_noself with geo planes (features of random positions) or the
+    generic edge planes (random features); the last 37 rows are padding
+    with no senders."""
+    rng = np.random.default_rng(seed)
+    i, j = np.triu_indices(n, 1)
+    keep = (((j - i) < width) & (rng.random(i.size) < 0.05)) | ((j - i) == 1)
+    s = np.concatenate([i[keep], j[keep]]).astype(np.int32)
+    r = np.concatenate([j[keep], i[keep]]).astype(np.int32)
+    real = np.arange(n) < n - 37
+    keep = real[s] & real[r]
+    s, r = s[keep], r[keep]
+    pos = rng.random((n, 3)).astype(np.float32)
+    feat = (compute_edge_features(pos.astype(np.float64), s, r) if geometric
+            else rng.normal(size=(s.size, 4)).astype(np.float32))
+    deg = np.bincount(r, minlength=n).astype(np.float32)
+    band = build_band(s, r, n, real, deg, tile=128,
+                      components=("bias_noself", "geo", "edge"),
+                      edge_feat=feat, node_pos=pos)
+    assert (band.geo is not None) == geometric
+    return band, ~real
+
+
+def _check_s(band, s, s_ref, rel):
+    """s by column group, each within ``rel`` of its own max: the geo
+    form's direction columns (0-2 of each head) cancel terms of size
+    max|pos|·max(1/dist) into values ≤ 1 and get 1e-6 of that size on top
+    (f32 summation order); its dist column (3) and the edge form's columns
+    do not cancel."""
+    d, r = (s - s_ref).abs(), s_ref.abs()
+    groups = [(d, r, 0.0)]
+    if band.geo is not None:
+        d, r = d.view(s.shape[0], -1, 4), r.view(s.shape[0], -1, 4)
+        cancel = band.pos.abs().max().item() * band.geo[:, 1].max().item()
+        groups = [(d[..., :3], r[..., :3], 1e-6 * cancel),
+                  (d[..., 3], r[..., 3], 0.0)]
+    for err, ref, extra in groups:
+        err, tol = err.max().item(), rel * ref.max().item() + extra
+        assert err <= tol, (err, tol)
+
+
+# width 60 → Wcols 256, width 100 → Wcols 384
+@pytest.mark.parametrize("width", [60, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", ["plain", "edge", "geo"])
+def test_transformer_kernel_matches_plain(card, form, dtype, width):
+    n, heads, c = 512, 4, 64
+    band, pad = _tr_band(n, width, geometric=form != "edge")
+    band = band.to(card)
+    gen = torch.Generator().manual_seed(9)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(n, heads * c, generator=gen).to(card, dt)
+               for _ in range(3))
+    extra = {}
+    if form == "edge":
+        extra = dict(edge=band.edge)
+    elif form == "geo":
+        extra = dict(geo=band.geo, pos=band.pos)
+    if extra:
+        extra["qw"] = torch.randn(n, heads * 4, generator=gen).to(card, dt)
+    for mean in (False, True):
+        _build.reset_launches()
+        got = banded_transformer_fwd(band.bias_noself, q, k, v, heads,
+                                     mean_heads=mean, **extra)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["banded_transformer_fwd"] == 1
+        ref = banded_transformer_fwd_plain(band.bias_noself, q, k, v, heads,
+                                           mean_heads=mean, **extra)
+        got, ref = (got, ref) if extra else ((got,), (ref,))
+        assert got[0].dtype == dt and got[0].shape == ref[0].shape
+        # out: f32 summation order (and the geo logits' cancellation);
+        # bf16 one rounding of the probability or the output may flip
+        _close(got[0], ref[0], 1e-4 if dtype == "float32" else 1e-2)
+        if extra:   # s: f32 from the same inputs in both dtypes
+            _check_s(band, got[1], ref[1], 1e-4)
+        for t in got:   # rows with no sender: exactly 0
+            assert (t[torch.from_numpy(pad).to(card)] == 0).all()
+
+
+@pytest.mark.parametrize("width", [60, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_transformer_fused_kernel_matches_plain(card, dtype, width):
+    n, heads, c, f = 512, 4, 64, 64
+    band, pad = _tr_band(n, width, geometric=True, seed=1)
+    band = band.to(card)
+    gen = torch.Generator().manual_seed(10)
+    dt = getattr(torch, dtype)
+    x = torch.randn(n, f, generator=gen).to(card, dt)
+    ws = [(torch.randn(f, heads * c, generator=gen) * f ** -0.5).to(card, dt)
+          for _ in range(3)]
+    bs = [(0.1 * torch.randn(heads * c, generator=gen)).to(card, dt)
+          for _ in range(3)]
+    w_e = torch.randn(4, heads, c, generator=gen) * 0.5
+    wblk = (torch.eye(heads)[:, None, :, None] * w_e.permute(1, 2, 0)[:, :, None, :]
+            ).reshape(heads * c, heads * 4).to(card, dt)
+    args = (band.bias_noself, band.geo, band.pos, x, *ws, *bs, wblk, heads)
+    _build.reset_launches()
+    out, s = banded_transformer_geo_mean_fused(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["banded_transformer_geo_mean_fused"] == 1
+    ref, ref_s = banded_transformer_geo_mean_fused_plain(*args)
+    assert out.dtype == dt and s.dtype == torch.float32
+    # the projections: f32 in other orders; bf16 one rounding of q/k/v may
+    # flip, and the attention follows
+    _close(out, ref, 1e-4 if dtype == "float32" else 2e-2)
+    _check_s(band, s, ref_s, 1e-4 if dtype == "float32" else 2e-2)
+    padding = torch.from_numpy(pad).to(card)
+    assert (out[padding] == 0).all() and (s[padding] == 0).all()
+
+
+def test_transformer_kernels_reject_bad_input(card):
+    band, _ = _tr_band(256, 60, geometric=True)
+    band = band.to(card)
+    q = torch.zeros(256, 128, device=card)
+    with pytest.raises(TypeError):
+        banded_transformer_fwd(band.bias_noself, q, q.bfloat16(), q, 2)
+    with pytest.raises(ValueError):        # C 6 is not a multiple of 4
+        banded_transformer_fwd(band.bias_noself, q[:, :12].contiguous(),
+                               q[:, :12].contiguous(),
+                               q[:, :12].contiguous(), 2)
+    with pytest.raises(ValueError):
+        banded_transformer_fwd(band.bias_noself.cpu(), q, q, q, 2)
+    with pytest.raises(ValueError):        # qw of the wrong width
+        banded_transformer_fwd(band.bias_noself, q, q, q, 2, geo=band.geo,
+                               pos=band.pos, qw=torch.zeros(256, 4,
+                                                            device=card))
+
+
+@pytest.mark.parametrize("fuse_eval", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_transformer_predict_case_card_matches_cpu(card, tmp_path, dtype,
+                                                   fuse_eval):
+    info = generate_box_case(tmp_path / "case", 24, 14, 1)
+    cfg = ModelConfig(hidden_dim=64, num_layers=2, layer_type="Transformer",
+                      heads=2, backend="pallas", compute_dtype=dtype,
+                      fuse_eval=fuse_eval)
+    model = FlowGNN(cfg, generator=torch.Generator().manual_seed(2))
+    save_checkpoint(tmp_path / "ckpt", "best", model.state_dict(),
+                    model_config=cfg,
+                    normalizer=FieldNormalizer().fit(
+                        box_fields(info["cell_centers"])))
+    for exact_bn in (False, True):
+        _build.reset_launches()
+        _, got, _ = predict_case(tmp_path / "ckpt", tmp_path / "case",
+                                 exact_bn=exact_bn, device="cuda")
+        # fuse_eval takes row 11 in eval only: exact_bn runs in train mode
+        conv = ("banded_transformer_geo_mean_fused"
+                if fuse_eval and not exact_bn else "banded_transformer_fwd")
+        want_launch = {conv: 2}
+        if exact_bn:
+            want_launch["fused_epilogue_fwd"] = 4
+        assert {k: v for k, v in _build.LAUNCHES.items() if v} == want_launch
+        _, ref, _ = predict_case(tmp_path / "ckpt", tmp_path / "case",
+                                 exact_bn=exact_bn, device="cpu")
+        tol = 1e-4 if dtype == "float32" else 5e-2
+        for k in ref:
+            np.testing.assert_allclose(got[k], ref[k], rtol=tol,
+                                       atol=tol * np.abs(ref[k]).max())

@@ -352,8 +352,14 @@ def test_unported_paths_raise(case, tmp_path):
         cli_main(_train_argv(path, tmp_path / "a", 1, "--backend", "dense"))
     with pytest.raises(NotImplementedError):
         cli_main(_train_argv(path, tmp_path / "b", 1, "--epoch_block", "2"))
+    # the Transformer serves but does not train: its backward is not ported
     with pytest.raises(NotImplementedError, match="Transformer"):
-        FlowGNN(ModelConfig(**{**CFG, "layer_type": "Transformer"}))
+        cli_main(_train_argv(path, tmp_path / "t", 1, "--layer_type",
+                             "Transformer"))
+    port = FlowGNN(ModelConfig(**{**CFG, "layer_type": "Transformer"}))
+    with pytest.raises(NotImplementedError, match="Transformer"):
+        port(load_graph(path, "Transformer"), train=True,
+             generator=torch.Generator().manual_seed(0))
     if not torch.cuda.is_available():
         # the card is the default device: no silent fall back to the CPU
         with pytest.raises(RuntimeError, match="CUDA"):
