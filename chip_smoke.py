@@ -70,16 +70,33 @@ Phases (any failure raises and exits non-zero):
     ``--bn_exact off|on``), f32, ``fuse_eval`` (row 11 in eval, row 9 under
     ``--bn_exact on``), without edge features, and 8×256 bf16 (the depth of
     ``BASELINE.json`` config 4);
-15. print the kernel table as one JSON line, then the result line.
+15. Transformer training (before phase 12, which it shares a case
+    with): row 9 in its dropout form (rate 0.1) and row 10,
+    ``banded_transformer_bwd`` (CUDA), against their plain versions on
+    both Transformer bands, every form (no conditioning, edge, geo; head
+    mean and concat; row 10 with the cotangent of s, rate 0 and 0.1), f32
+    and bf16; row 7, ``fold_partials`` (CUDA), on row 10's partials, with
+    ``index_add_``'s time beside it; row 6's bias form at the projgrad
+    backward's shape and the projection ``transformer_project``; the
+    projgrad op (projection, rows 9, 10, 7, 6) through the kernels vs the
+    plain versions, f32 and bf16, rate 0 and 0.1; one train step of the
+    4×256 Transformer, kernels vs plain versions, in f32, bf16 and mixed;
+    ``python -m gnn_bfs_rans_tpu_torch train --layer_type Transformer``
+    (4×256, bf16, dropout 0.1, geo, 4 epochs): every kernel of the path
+    launched, the loss lower in the last epoch than in the first, the
+    checkpoint served by ``infer``; the no-edge path through the
+    ``Trainer`` (rows 9, 10, 7 launched); the train steps' times at 4×256
+    and 8×256;
+16. print the kernel table as one JSON line, then the result line.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times per
 call: ten calls captured in one CUDA graph and replayed, so host launch
 overhead does not enter them; the eager per-call time is printed beside
 them.  ``launches`` counts each wrapper's launches on its training path
 (phase 12: the flagship GAT's for rows 1, 2, 3, 5, 6; the GCN run's for
-row 8; the unfused GAT run's for row 4); rows 9 and 11 count theirs on
-the Transformer serving path (the 4×256 bf16 ``--bn_exact off`` run and
-the ``fuse_eval`` run).
+row 8; the unfused GAT run's for row 4; phase 15's Transformer run for
+rows 10 and 7); rows 9 and 11 count theirs on the Transformer serving
+path (the 4×256 bf16 ``--bn_exact off`` run and the ``fuse_eval`` run).
 
 Needs no network; builds into ``gnn_bfs_rans_tpu_torch/build`` and writes
 scratch files only under the temporary directory.
@@ -119,7 +136,12 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # gradient (a sum over N = 12,000 rows that largely cancels) by about
 # 1/√N ≈ 1% of its largest entry; a wrong kernel moves it by O(1).
 STEP_LOSS_TOL = {"float32": 1e-5, "bfloat16": 1e-3, "mixed": 1e-3}  # × |loss|
-STEP_TOL_F32 = 3e-2   # × max |plain gradient| per parameter group
+# × max |plain gradient| per parameter group; or, where the plain versions
+# themselves move further on an input moved by one f32 ulp (the rounding
+# floor of that step: one ReLU flip in the last block moves a cancelling
+# group by 3.25e-2 in the Transformer 4×256 without edges on the H100),
+# STEP_F32_RATIO times their worst gap
+STEP_TOL_F32 = 3e-2
 # bf16 and mixed: each group's gradient through the kernels lies no further
 # from the plain versions' f32 gradient (norms) than this multiple of the
 # plain versions' own bf16 (mixed) gradient does, plus 1e-4 of the group's
@@ -146,6 +168,7 @@ CONV_KERNEL = {"GAT": "banded_gat_mean_fused", "GCN": "banded_spmm",
                "GIN": "banded_spmm", "Transformer": "banded_transformer_fwd"}
 # the Transformer of BASELINE.json config 4 (8 layers, hidden 256)
 TR_DEEP_LAYERS = 8
+TR_EPOCHS = 4
 # rows 9 and 11's s, by column group: both dtypes compute it in f32 from
 # the same inputs, so each group is held to S_TOL of its own max (row 11 in
 # bf16 to GAT_TOL: its q and k come from two different bf16 products).  The
@@ -304,11 +327,15 @@ def plain_versions():
         (banded, "banded_gat_mean_fused", banded.banded_gat_mean_fused_plain),
         (banded, "banded_gat_mean", banded.banded_gat_mean_plain),
         (banded, "banded_spmm_fwd", banded.banded_spmm_plain),
-        (convs, "banded_transformer_fwd", banded.banded_transformer_fwd_plain),
+        (banded, "_transformer_fwd", banded.banded_transformer_fwd_plain),
+        (banded, "transformer_project", banded.transformer_project_plain),
         (convs, "banded_transformer_geo_mean_fused",
          banded.banded_transformer_geo_mean_fused_plain),
         (banded_bwd, "banded_gat_bwd", banded_bwd.banded_gat_bwd_plain),
         (banded_bwd, "fold_project_bwd", banded_bwd.fold_project_bwd_plain),
+        (banded_bwd, "banded_transformer_bwd",
+         banded_bwd.banded_transformer_bwd_plain),
+        (banded_bwd, "fold_partials", banded_bwd.fold_partials_plain),
         (norm, "fused_epilogue_fwd", epilogue.fused_epilogue_fwd_plain),
         (epilogue, "_forward", epilogue._forward_plain),
         (epilogue, "fused_epilogue_bwd", epilogue.fused_epilogue_bwd_plain),
@@ -706,38 +733,56 @@ def epilogue_dropout_keys(itemsize):
         epilogue.pick_block = pick
 
 
-def compare_train_step(graph, dtype_name, label="gat4x256", **overrides):
+def compare_train_step(graph, dtype_name, label="gat4x256", model_seed=1,
+                       **overrides):
     """One step's loss and gradients, kernels vs plain versions, from the
     same seeded parameters and dropout masks; bf16 and mixed are also held
     against the plain versions' f32 step on those masks.  ``overrides``:
-    ModelConfig fields over the flagship GAT's."""
+    ModelConfig fields over the flagship GAT's.  In f32 it also reads what
+    the gap is made of: each block's output (the epilogue's
+    dropout(relu(BN(·)))) through kernels and plain versions, how far apart
+    they lie and how many of their ReLUs take the other branch (the
+    dropout masks are the same), and the same gaps between the plain
+    versions on the input and on the input moved by one f32 ulp (no kernel
+    on either side: what rounding alone does to this step)."""
     import torch
+    from gnn_bfs_rans_tpu_torch.models.convs import dense
     from gnn_bfs_rans_tpu_torch.models.flow_gnn import FlowGNN, ModelConfig
     from gnn_bfs_rans_tpu_torch.train.loop import TrainConfig, batch_loss
 
     targets = torch.randn(1, graph.n_pad, 7,
                           generator=torch.Generator().manual_seed(9)).cuda()
 
-    def step(dt, plain, itemsize=None):
+    def step(dt, plain, itemsize=None, g=graph):
         cfg = ModelConfig(**{**dict(
             hidden_dim=HIDDEN, num_layers=LAYERS, layer_type="GAT",
             heads=HEADS, backend="pallas", dropout=DROPOUT,
             compute_dtype=dt), **overrides})
-        model = FlowGNN(cfg, generator=torch.Generator().manual_seed(1)).cuda()
+        model = FlowGNN(cfg, generator=torch.Generator().manual_seed(
+            model_seed)).cuda()
         gen = torch.Generator(device="cuda").manual_seed(5)
+        taps = []
+        for norm in model.norms:
+            def tap(*a, _fwd=norm.train_forward, **k):
+                y = _fwd(*a, **k)
+                taps.append(y.detach().float())
+                return y
+            norm.train_forward = tap
         with contextlib.ExitStack() as ctx:
             if plain:
                 ctx.enter_context(plain_versions())
             if itemsize:
                 ctx.enter_context(epilogue_dropout_keys(itemsize))
-            loss = batch_loss(model(graph, train=True, generator=gen),
-                              targets, graph, TrainConfig())
+            loss = batch_loss(model(g, train=True, generator=gen),
+                              targets, g, TrainConfig())
             loss.backward()
+            with torch.no_grad():    # out_0's input to its ReLU
+                taps.append(dense(model.out_0, taps[-1]).float())
         return loss.item(), {k: p.grad.float() for k, p in
-                             model.named_parameters()}
+                             model.named_parameters()}, taps
 
-    loss_k, g_k = step(dtype_name, False)
-    loss_p, g_p = step(dtype_name, True)
+    loss_k, g_k, taps_k = step(dtype_name, False)
+    loss_p, g_p, taps_p = step(dtype_name, True)
     log(f"train step {label} {dtype_name}: loss kernels {loss_k:.7f} plain "
         f"{loss_p:.7f}")
     if not (abs(loss_k - loss_p) <= STEP_LOSS_TOL[dtype_name] * abs(loss_p)
@@ -745,25 +790,46 @@ def compare_train_step(graph, dtype_name, label="gat4x256", **overrides):
         raise AssertionError(f"train step {label} {dtype_name}: loss "
                              f"{loss_k} vs {loss_p}")
     if dtype_name == "float32":
+        feat = graph.node_feat
+        sign = torch.randint(0, 2, feat.shape, generator=torch.Generator()
+                             .manual_seed(11)).to(feat.device) * 2 - 1
+        moved = dataclasses.replace(graph,
+                                    node_feat=feat * (1 + sign * 2.0 ** -23))
+        _, g_e, taps_e = step(dtype_name, True, g=moved)
+        for i, (yk, yp, ye) in enumerate(zip(taps_k, taps_p, taps_e)):
+            where = f"block {i}" if i < len(taps_p) - 1 else "out_0"
+            log(f"  {where} forward: max gap kernels "
+                f"{(yk - yp).abs().max().item() / yp.abs().max().item():.3e} "
+                f"plain on the moved input "
+                f"{(ye - yp).abs().max().item() / yp.abs().max().item():.3e} "
+                f"(× max |y|); ReLUs on the other branch: kernels "
+                f"{int(((yk > 0) != (yp > 0)).sum())}, plain on the moved "
+                f"input {int(((ye > 0) != (yp > 0)).sum())} of {yp.numel()}")
         g_max = max(v.abs().max().item() for v in g_p.values())
-        worst = 0.0
+        worst = worst_e = 0.0
         for name in g_p:
             err, scale = _rel_err(g_k[name], g_p[name])
+            err_e, _ = _rel_err(g_e[name], g_p[name])
             log(f"  grad {name}: max relative gap "
-                f"{err / max(scale, 1e-30):.3e} (max |g| {scale:.3e})")
+                f"{err / max(scale, 1e-30):.3e} (max |g| {scale:.3e}; plain "
+                f"on the moved input {err_e / max(scale, 1e-30):.3e})")
             # a conv bias feeds BatchNorm: its gradient is zero in exact
             # arithmetic, rounding noise on both sides; groups whose
             # gradient nearly cancels are measured against 1e-3 of the
             # largest gradient
             floor = g_max if _zero_grad(name) else 1e-3 * g_max
             worst = max(worst, err / max(scale, floor))
-        if worst > STEP_TOL_F32:
+            worst_e = max(worst_e, err_e / max(scale, floor))
+        limit = max(STEP_TOL_F32, STEP_F32_RATIO * worst_e)
+        log(f"train step {label} f32: worst gradient gap kernels {worst:.3e}, "
+            f"plain on the moved input {worst_e:.3e} (limit {limit:.3e})")
+        if worst > limit:
             raise AssertionError(f"train step {label} f32: gradient gap "
-                                 f"{worst}")
+                                 f"{worst} > {limit}")
         return worst
     # the f32 step on the same masks: the mixed residual stream is f32, so
     # only bf16 rows key the epilogue's stream otherwise
-    _, g_f = step("float32", True, 2 if dtype_name == "bfloat16" else None)
+    _, g_f, _ = step("float32", True, 2 if dtype_name == "bfloat16" else None)
     g_norm = max(v.norm().item() for v in g_f.values())
     worst = 0.0
     for name in g_p:
@@ -788,14 +854,20 @@ def compare_train_step(graph, dtype_name, label="gat4x256", **overrides):
                 f"train step {label} {dtype_name} {name}: kernels {dist} "
                 f"from the f32 step > {STEP_F32_RATIO} x plain {own}")
         worst = max(worst, dist / max(own, 1e-30))
+    log(f"train step {label} {dtype_name}: largest ratio {worst:.3f} (limit "
+        f"{STEP_F32_RATIO})")
     return worst
 
 
 def _zero_grad(name):
-    """A conv bias that feeds the BatchNorm (GCN and GAT ``bias``, GIN's
-    last MLP layer): its gradient is zero in exact arithmetic and rounding
-    noise in any other."""
-    return re.fullmatch(r"convs\.\d+\.(nn\.2\.)?bias", name) is not None
+    """A conv bias whose gradient is zero in exact arithmetic and rounding
+    noise in any other: one that feeds the BatchNorm (GCN and GAT ``bias``,
+    GIN's last MLP layer, the Transformer's ``lin_skip``), and the
+    Transformer's key bias, which shifts every logit of a row alike (the
+    value bias is real under attention dropout, where the kept
+    probabilities do not sum to 1)."""
+    return re.fullmatch(r"convs\.\d+\.((nn\.2\.)?bias|lin_(key|skip)\.bias)",
+                        name) is not None
 
 
 def train(tmp, case, info):
@@ -1131,10 +1203,12 @@ def _s_check(band, s, s_ref, rel):
     return ok, ", ".join(text)
 
 
-def check_transformer(band, form, mean, dtype_name, gen, measure=False):
+def check_transformer(band, form, mean, dtype_name, gen, measure=False,
+                      rate=0.0):
     """Row 9 vs its plain version on one band (``form``: plain, edge or
-    geo); with ``measure`` its times, bound and, for the plain form, the
-    time of SDPA on pre-windowed k/v."""
+    geo), at attention dropout ``rate``; with ``measure`` its times, bound
+    and, for the plain form at rate 0, the time of SDPA on pre-windowed
+    k/v."""
     import torch
     from gnn_bfs_rans_tpu_torch.kernels.banded import (
         _windows, banded_transformer_fwd, banded_transformer_fwd_plain)
@@ -1150,6 +1224,9 @@ def check_transformer(band, form, mean, dtype_name, gen, measure=False):
     elif form == "geo":
         extra = dict(geo=band.geo, pos=band.pos, qw=qw)
     args = (mask, q, k, v, HEADS)
+    if rate:
+        extra.update(dropout_rate=rate, seed=torch.tensor(
+            [2024], dtype=torch.int32, device=q.device))
 
     def run(fn):
         return fn(*args, mean_heads=mean, **extra)
@@ -1157,17 +1234,17 @@ def check_transformer(band, form, mean, dtype_name, gen, measure=False):
     got = run(banded_transformer_fwd)
     ref = run(banded_transformer_fwd_plain)
     torch.cuda.synchronize()
-    got, ref = (got, ref) if extra else ((got,), (ref,))
+    got, ref = (got, ref) if form != "plain" else ((got,), (ref,))
     err, scale = _rel_err(got[0], ref[0])
     ok = (torch.isfinite(got[0]).all() and err <= GAT_TOL[dtype_name] * scale
           and got[0].dtype == dt)
     s_text = ""
-    if extra:
+    if form != "plain":
         s_ok, s_text = _s_check(band, got[1], ref[1], S_TOL)
         ok = ok and s_ok
         s_text = ", " + s_text
     label = (f"row 9 {form} {'mean' if mean else 'concat'} {dtype_name} "
-             f"Wcols {width}")
+             f"rate {rate} Wcols {width}")
     log(f"{label}: max_abs_err {err:.3e} (tol {GAT_TOL[dtype_name]} x "
         f"{scale:.3e}){s_text}")
     if not ok:
@@ -1184,14 +1261,14 @@ def check_transformer(band, form, mean, dtype_name, gen, measure=False):
     # s written once; the SIMT work is 2·C operations per sender and head
     # for the logit and 2·C for the value
     nbytes = mask.numel() + 3 * n * hc * isz + got[0].numel() * isz
-    if extra:
+    if form != "plain":
         feat = extra.get("geo", extra.get("edge"))
         nbytes += (nnz * feat.shape[1] * 4 + qw.numel() * isz
                    + got[1].numel() * 4 + (n * 16 if form == "geo" else 0))
     bound_ms, bound_by = bound(nbytes, 4 * nnz * hc, H100_FP32_FLOPS)
     library_ms = None
     lib_note = ""
-    if form == "plain":
+    if form == "plain" and not rate:
         # SDPA over each receiver tile's window: q [nt, H, T, C] against
         # the windowed k/v [nt, H, Wcols, C] with the boolean band mask; the
         # windowing is not timed.  It gives the concat form; fully masked
@@ -1284,13 +1361,14 @@ def check_transformer_fused(band, dtype_name, gen, measure=False):
 
 def transformer_phase(tmp, case, info, gen):
     """Rows 9 and 11 on both boxes, then Transformer serving through
-    ``infer``.  Returns (rows, launch counts by serving run)."""
+    ``infer``.  Returns (rows, launch counts by serving run, the generic
+    edge bands by box)."""
     import numpy as np
     from gnn_bfs_rans_tpu_torch.graph.band import LAYER_COMPONENTS, build_band
     from gnn_bfs_rans_tpu_torch.infer import load_graph
     from gnn_bfs_rans_tpu_torch.models.flow_gnn import ModelConfig
 
-    rows = {}
+    rows, edge_bands = {}, {}
     for nx in (163, 400):
         g = load_graph(tmp / f"box{nx}", "Transformer")
         if g.band.geo is None:
@@ -1306,6 +1384,7 @@ def transformer_phase(tmp, case, info, gen):
         if edge_band.edge is None or edge_band.geo is not None:
             raise AssertionError("random features did not take the edge form")
         geo_band, edge_band = g.band.to("cuda"), edge_band.to("cuda")
+        edge_bands[nx] = edge_band
         for form in ("plain", "edge", "geo"):
             band = edge_band if form == "edge" else geo_band
             for mean in (True, False):
@@ -1336,7 +1415,381 @@ def transformer_phase(tmp, case, info, gen):
     launches["deep"] = serve(
         tmp, case, info, ModelConfig(**{**base, "num_layers": TR_DEEP_LAYERS}),
         f"transformer{TR_DEEP_LAYERS}x{HIDDEN}-bf16", gen, f32_ratio=True)
-    return rows, launches
+    return rows, launches, edge_bands
+
+
+def check_transformer_bwd(band, form, mean, dtype_name, rate, gen,
+                          measure=False):
+    """Row 10 vs its plain version on one band, with the cotangent of s
+    when conditioned, at dropout ``rate``; with ``measure`` its times and
+    bound, and row 7's on its dk partials.  Returns (row 10, row 7) rows
+    (None when not measured)."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.kernels.banded_bwd import (
+        banded_transformer_bwd, banded_transformer_bwd_plain)
+
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype_name)
+    mask = band.bias_noself
+    n_tiles, tile, width = mask.shape
+    n, hc = n_tiles * tile, HEADS * HIDDEN
+    q, k, v, qw = _transformer_inputs(n, dt, gen, form != "plain")
+    extra = {}
+    if form == "edge":
+        extra = dict(edge=band.edge, qw=qw)
+    elif form == "geo":
+        extra = dict(geo=band.geo, pos=band.pos, qw=qw)
+    if form != "plain":
+        extra["gs"] = torch.randn(n, HEADS * 4, generator=gen).to(dev)
+    g = torch.randn(n, HIDDEN if mean else hc, generator=gen).to(dev, dt)
+    seed = torch.tensor([2025], dtype=torch.int32, device=dev)
+    args = (mask, q, k, v, g, HEADS)
+    kw = dict(mean_expand=mean, dropout_rate=rate,
+              seed=seed if rate else None, **extra)
+    got = banded_transformer_bwd(*args, **kw)
+    ref = banded_transformer_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    label = (f"row 10 {form} {'mean' if mean else 'concat'} {dtype_name} "
+             f"rate {rate} Wcols {width}")
+    texts, ok, errs = [], True, []
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        err, scale = _rel_err(a, b)
+        errs.append(err)
+        ok = ok and bool(torch.isfinite(a).all()) and a.dtype == dt \
+            and err <= BWD_TOL[dtype_name] * scale
+        texts.append(f"{name} {err:.3e} (tol {BWD_TOL[dtype_name]} x "
+                     f"{scale:.3e})")
+    if form != "plain":
+        # dqw is f32 from the same inputs, in the layout of s
+        s_ok, s_text = _s_check(band, got[3], ref[3],
+                                S_TOL if dt == torch.float32 else 1e-3)
+        ok = ok and s_ok
+        texts.append("dqw: " + s_text)
+    log(f"{label}: " + ", ".join(texts))
+    if not ok:
+        raise AssertionError(f"{label}: " + ", ".join(texts))
+    if not measure:
+        return None, None
+    ms = graph_time_ms(lambda: banded_transformer_bwd(*args, **kw))
+    eager_ms = cuda_time_ms(lambda: banded_transformer_bwd(*args, **kw))
+    plain_ms = graph_time_ms(lambda: banded_transformer_bwd_plain(*args, **kw),
+                             3, 2)
+    nnz = int(mask.sum().item())
+    isz = q.element_size()
+    # inputs read once (mask, q, k, v, g, qw, gs, pos, the planes at the
+    # nonzeros); dq, the two partial arrays and dqw written once.  The f32
+    # SIMT work per nonzero and head: the logit, dp, dq, dk and dv products,
+    # 2·C operations each (the kernel forms the logit and dp twice)
+    nbytes = (mask.numel() + 3 * n * hc * isz + g.numel() * isz
+              + n * hc * isz + 2 * got[1].numel() * isz)
+    if form != "plain":
+        feat = extra.get("geo", extra.get("edge"))
+        nbytes += (nnz * feat.shape[1] * 4 + qw.numel() * isz
+                   + 2 * extra["gs"].numel() * 4
+                   + (n * 16 if form == "geo" else 0))
+    bound_ms, bound_by = bound(nbytes, 10 * nnz * hc, H100_FP32_FLOPS)
+    log(f"{label} N {n} nnz {nnz}: ms {ms:.4f} (eager {eager_ms:.4f}) "
+        f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by})")
+    row10 = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return row10, check_fold(got[1], tile)
+
+
+def check_fold(part, tile):
+    """Row 7 vs its plain version on row 10's dk partials, its times and
+    bound, and the time of one ``index_add_`` of the flattened partials
+    onto their sender rows (in the partials' dtype: it accumulates there,
+    where row 7 sums in f32 and rounds once)."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.kernels.banded_bwd import (
+        fold_partials, fold_partials_plain)
+
+    n_tiles, w_sub, sub, feat = part.shape
+    n = n_tiles * tile
+    got = fold_partials(part, tile)
+    ref = fold_partials_plain(part, tile)
+    torch.cuda.synchronize()
+    err, scale = _rel_err(got, ref)
+    # the same f32 sums in the same order, one rounding: equal in f32, one
+    # bf16 rounding may flip
+    tol = 0.0 if part.dtype == torch.float32 else 2.0 ** -8
+    if not (torch.isfinite(got).all() and err <= tol * scale):
+        raise AssertionError(f"row 7 fold_partials: max err {err} vs "
+                             f"{tol} x {scale}")
+    ms = graph_time_ms(lambda: fold_partials(part, tile))
+    plain_ms = graph_time_ms(lambda: fold_partials_plain(part, tile), 3, 2)
+    pad = (w_sub * sub - tile) // 2
+    rows = (torch.arange(n_tiles, device=part.device)[:, None] * tile - pad
+            + torch.arange(w_sub * sub, device=part.device)[None, :]).reshape(-1)
+    rows = torch.where((rows >= 0) & (rows < n), rows, n)
+    flat = part.reshape(-1, feat)
+    dest = torch.zeros(n + 1, feat, dtype=part.dtype, device=part.device)
+
+    def lib():
+        return dest.zero_().index_add_(0, rows, flat)
+
+    lib_err, _ = _rel_err(lib()[:n], ref)
+    library_ms = graph_time_ms(lib)
+    # the partials read once, the rows written once; one add per element
+    nbytes = part.numel() * part.element_size() + n * feat * got.element_size()
+    bound_ms, bound_by = bound(nbytes, part.numel(), H100_FP32_FLOPS)
+    log(f"row 7 fold_partials {tuple(part.shape)} {part.dtype}: "
+        f"max_abs_err {err:.3e} ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        f"library_ms (zero_ + index_add_) {library_ms:.4f} (max err vs plain "
+        f"{lib_err:.3e}) bound_ms {bound_ms:.5f} ({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def check_project_bias(n, dtype_name, gen):
+    """Row 6's bias form at the projgrad backward's shape (dz [N, 3·H·C]
+    against [Wq | Wk | Wv], x [N, F]) and the projection (q|k|v = x·W + b,
+    qw = q·wblk) against their plain versions; times of the bias form."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.kernels.banded import (
+        transformer_project, transformer_project_plain)
+    from gnn_bfs_rans_tpu_torch.kernels.banded_bwd import (
+        fold_project_bwd, fold_project_bwd_plain)
+
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype_name)
+    f, hc3 = HIDDEN, 3 * HEADS * HIDDEN
+    x = torch.randn(n, f, generator=gen).to(dev, dt)
+    w = (torch.randn(f, hc3, generator=gen) * f ** -0.5).to(dev, dt)
+    b = (0.1 * torch.randn(hc3, generator=gen)).to(dev)
+    wblk = (torch.randn(hc3 // 3, HEADS * 4, generator=gen) * 0.1).to(dev, dt)
+    qkv, qw = transformer_project(x, w, b, wblk)
+    ref_qkv, _ = transformer_project_plain(x, w, b, wblk)
+    ref_qw = (qkv[:, :hc3 // 3].float() @ wblk.float()).to(dt)
+    dz = torch.randn(n, hc3, generator=gen).to(dev, dt)
+    got = fold_project_bwd(dz, x, w, with_bias=True)
+    ref = fold_project_bwd_plain(dz, x, w, with_bias=True)
+    torch.cuda.synchronize()
+    # the projection: f32 summation order, or one bf16 rounding (2^-8)
+    ptol = 1e-5 if dt == torch.float32 else 2.0 ** -7
+    texts, ok = [], True
+    for name, a, r, tol in (("qkv", qkv, ref_qkv, ptol), ("qw", qw, ref_qw, ptol),
+                            ("dx", got[0], ref[0], BWD_TOL[dtype_name]),
+                            ("dW", got[1], ref[1], BWD_TOL["float32"]),
+                            ("db", got[2], ref[2], 1e-5)):
+        err, scale = _rel_err(a, r)
+        ok = ok and bool(torch.isfinite(a).all()) and err <= tol * scale
+        texts.append(f"{name} {err:.3e} (tol {tol} x {scale:.3e})")
+    label = f"row 6 bias form and the projection {dtype_name} N {n}"
+    log(f"{label}: " + ", ".join(texts))
+    if not ok:
+        raise AssertionError(f"{label}: " + ", ".join(texts))
+    ms = graph_time_ms(lambda: fold_project_bwd(dz, x, w, with_bias=True))
+    plain_ms = graph_time_ms(
+        lambda: fold_project_bwd_plain(dz, x, w, with_bias=True), 3, 2)
+    wt = w.t()
+    lib_ms = graph_time_ms(lambda: (dz @ wt, x.t() @ dz, dz.sum(0)))
+    proj_ms = graph_time_ms(lambda: transformer_project(x, w, b, wblk))
+    isz = x.element_size()
+    peak = H100_BF16_FLOPS if dt == torch.bfloat16 else H100_FP32_FLOPS
+    b6 = bound(dz.numel() * isz + 2 * x.numel() * isz + w.numel() * isz
+               + (f + 1) * hc3 * 4, 4 * n * f * hc3, peak)
+    log(f"row 6 fold_project_bwd bias form {dtype_name} dz [{n}, {hc3}]: ms "
+        f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms (2 x torch.matmul + "
+        f"sum) {lib_ms:.4f} bound_ms {b6[0]:.5f} ({b6[1]}); projection "
+        f"transformer_project ms {proj_ms:.4f}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b6[0],
+                bound_by=b6[1])
+
+
+def check_projgrad(band, dtype_name, rate, gen):
+    """The projgrad op (projection, rows 9, 10, 7 and 6) at the flagship
+    width through the kernels and through the plain versions on the card:
+    out, s and every cotangent within BWD_TOL of each one's max (dbk, zero
+    in exact arithmetic, of the largest cotangent's)."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.kernels.banded import (
+        banded_transformer_geo_mean_projgrad)
+
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype_name)
+    mask = band.bias_noself
+    n, f, hc = mask.shape[0] * mask.shape[1], HIDDEN, HEADS * HIDDEN
+    x = torch.randn(n, f, generator=gen).to(dev, dt)
+    ws = [(torch.randn(f, hc, generator=gen) * f ** -0.5).to(dev, dt)
+          for _ in range(3)]
+    bs = [(0.1 * torch.randn(hc, generator=gen)).to(dev, dt) for _ in range(3)]
+    w_e = torch.rand(4, HEADS, HIDDEN, generator=gen) - 0.5
+    wblk = (torch.eye(HEADS)[:, None, :, None]
+            * w_e.permute(1, 2, 0)[:, :, None, :]).reshape(hc, HEADS * 4)
+    wblk = wblk.to(dev, dt)
+    g = torch.randn(n, HIDDEN, generator=gen).to(dev, dt)
+    gs = torch.randn(n, HEADS * 4, generator=gen).to(dev)
+    seed = torch.tensor([99], dtype=torch.int32, device=dev) if rate else None
+    results = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_()
+                  for t in (x, *ws, *bs, wblk)]
+        with plain_versions() if plain else contextlib.nullcontext():
+            out, s = banded_transformer_geo_mean_projgrad(
+                mask, band.geo, band.pos, *leaves, HEADS, rate, seed)
+            torch.autograd.backward((out, s), (g, gs))
+        results.append(([out.detach(), s.detach()],
+                        [t.grad for t in leaves]))
+    torch.cuda.synchronize()
+    (fwd_k, g_k), (fwd_p, g_p) = results
+    top = max(t.float().abs().max().item() for t in g_p)
+    texts, ok = [], True
+    names = ("out", "dx", "dWq", "dWk", "dWv", "dbq", "dbk", "dbv", "dwblk")
+    for name, a, b in zip(names, [fwd_k[0], *g_k], [fwd_p[0], *g_p]):
+        err, scale = _rel_err(a, b)
+        scale = top if name == "dbk" else scale
+        ok = ok and bool(torch.isfinite(a).all()) \
+            and err <= BWD_TOL[dtype_name] * scale
+        texts.append(f"{name} {err:.2e}/{scale:.2e}")
+    label = f"projgrad op {dtype_name} rate {rate} Wcols {mask.shape[-1]}"
+    log(f"{label}, max_abs_err/scale: " + ", ".join(texts))
+    if not ok:
+        raise AssertionError(f"{label}: " + ", ".join(texts))
+
+
+def train_transformer(tmp, case, info):
+    """``train --layer_type Transformer`` (4×256, bf16, dropout 0.1,
+    geo edge-conditioned), the loss must fall and the checkpoint serve;
+    then the no-edge path through the ``Trainer``.  Returns the launch
+    counts of both runs."""
+    import json as _json
+
+    import numpy as np
+    import torch
+    from gnn_bfs_rans_tpu_torch.cli.main import main as cli_main
+    from gnn_bfs_rans_tpu_torch.kernels import _build
+    from gnn_bfs_rans_tpu_torch.models.flow_gnn import ModelConfig
+    from gnn_bfs_rans_tpu_torch.train.data import load_dataset
+    from gnn_bfs_rans_tpu_torch.train.loop import TrainConfig
+    from gnn_bfs_rans_tpu_torch.train.trainer import Trainer
+
+    out = tmp / "train_transformer"
+    argv = ["train", "--case_path", str(case), "--time_dirs", *TRAIN_TIMES,
+            "--output_dir", str(out), "--layer_type", "Transformer",
+            "--hidden_dim", str(HIDDEN), "--num_layers", str(LAYERS),
+            "--epochs", str(TR_EPOCHS), "--save_every", str(TR_EPOCHS),
+            "--lr", "1e-3", "--dropout", str(DROPOUT), "--compute_dtype",
+            "bfloat16", "--device", "cuda"]
+    t = time.time()
+    _build.reset_launches()    # the Transformer training path starts here
+    rc = cli_main(argv)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)  # ... and ends here
+    log(f"train (Transformer 4x256 bf16, geo): {TR_EPOCHS} epochs in "
+        f"{time.time() - t:.1f} s, launches {launches}")
+    if rc != 0:
+        raise RuntimeError(f"train returned {rc}")
+    losses = _json.loads((out / "training_history.json").read_text())[
+        "train_loss"]
+    log(f"train losses (Transformer) {losses}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"Transformer training did not lower the loss: "
+                             f"{losses}")
+    meta = _json.loads((out / f"epoch_{TR_EPOCHS}.meta.json").read_text())
+    if not (meta["model_config"]["layer_type"] == "Transformer"
+            and meta.get("bn_recalibrated")):
+        raise AssertionError(f"bad Transformer checkpoint meta: {meta}")
+    pred = tmp / "train_transformer_pred"
+    rc = cli_main(["infer", "--checkpoint", str(out), "--case_path",
+                   str(case), "--output_dir", str(pred), "--reference_time",
+                   "100", "--device", "cuda"])
+    if rc != 0:
+        raise RuntimeError(f"infer of the Transformer checkpoint returned {rc}")
+    fields = dict(np.load(pred / "predictions.npz"))
+    if fields["U"].shape != (info["n_cells"], 3) or not all(
+            np.isfinite(v).all() for v in fields.values()):
+        raise AssertionError("bad predictions from the Transformer checkpoint")
+    comp = _json.loads((pred / "comparison.json").read_text())
+    log(f"served the trained Transformer: U mae {comp['U']['mae']:.4e}, "
+        f"p mae {comp['p']['mae']:.4e}")
+    # the no-edge path: rows 9, 10 and 7 (the projections stay dense)
+    dataset = load_dataset(case, list(TRAIN_TIMES), with_band=True,
+                           band_components=("bias_noself",))
+    mcfg = ModelConfig(hidden_dim=HIDDEN, num_layers=LAYERS,
+                       layer_type="Transformer", heads=HEADS,
+                       backend="pallas", dropout=DROPOUT,
+                       compute_dtype="bfloat16", use_edge_attr=False)
+    t = time.time()
+    _build.reset_launches()    # the no-edge training path starts here
+    tr = Trainer(dataset, mcfg, TrainConfig(lr=1e-3, epochs=2, save_every=2),
+                 output_dir=tmp / "train_transformer_noedge",
+                 log_fn=lambda *a: None, device="cuda")
+    tr.initialize()
+    hist = tr.train()
+    torch.cuda.synchronize()
+    noedge = dict(_build.LAUNCHES)    # ... and ends here
+    log(f"train Transformer without edges bf16: 2 epochs in "
+        f"{time.time() - t:.1f} s, losses {hist['train_loss']}, launches "
+        f"{noedge}")
+    if not np.isfinite(hist["train_loss"]).all():
+        raise AssertionError("no-edge Transformer training: non-finite loss")
+    for what, counts, names in (
+            ("geo", launches, ("transformer_project", "banded_transformer_fwd",
+                               "banded_transformer_bwd", "fold_partials",
+                               "fold_project_bwd", "fused_epilogue_fwd",
+                               "fused_epilogue_bwd")),
+            ("no-edge", noedge, ("banded_transformer_fwd",
+                                 "banded_transformer_bwd", "fold_partials"))):
+        missing = [k for k in names if counts.get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"the {what} Transformer training path never "
+                                 f"launched {missing}")
+    for layers in (LAYERS, TR_DEEP_LAYERS):
+        step_times(tmp, case, f"transformer{layers}x{HIDDEN}-bf16",
+                   layer_type="Transformer", num_layers=layers,
+                   compute_dtype="bfloat16")
+    return launches, noedge
+
+
+def transformer_train_phase(tmp, case, train_info, edge_bands, gen):
+    """Rows 9 (dropout form), 10, 7 and 6 (bias form) and the projgrad op
+    against their plain versions on both Transformer boxes; one train step
+    kernels vs plain; then training.  Returns (rows, launch counts)."""
+    from gnn_bfs_rans_tpu_torch.infer import load_graph
+
+    rows = {}
+    for nx in (163, 400):
+        band = load_graph(tmp / f"box{nx}", "Transformer").band.to("cuda")
+        edge_band = edge_bands[nx]
+        for form in ("plain", "edge", "geo"):
+            b = edge_band if form == "edge" else band
+            for mean in (True, False):
+                for dt in ("float32", "bfloat16"):
+                    measure = (nx == 400 and form == "geo" and mean
+                               and dt == "bfloat16")
+                    row = check_transformer(b, form, mean, dt, gen,
+                                            measure=measure, rate=DROPOUT)
+                    if measure:
+                        rows["tr_drop"] = row
+                    for rate in (0.0, DROPOUT):
+                        r10, r7 = check_transformer_bwd(
+                            b, form, mean, dt, rate, gen,
+                            measure=measure and rate == DROPOUT)
+                        if r10:
+                            rows["row10"], rows["row7"] = r10, r7
+        for dt in ("float32", "bfloat16"):
+            for rate in (0.0, DROPOUT):
+                check_projgrad(band, dt, rate, gen)
+    for dt in ("float32", "bfloat16"):
+        row = check_project_bias(band.bias_noself.shape[0] * band.tile, dt,
+                                 gen)
+        if dt == "bfloat16":
+            rows["row6_bias"] = row
+    graph = load_graph(case, "Transformer").to("cuda")
+    for dt in ("float32", "bfloat16", "mixed"):
+        compare_train_step(graph, dt, "transformer4x256",
+                           layer_type="Transformer")
+    # what the step's gaps are made of: f32 without dropout and without the
+    # geo term, and the mixed step's ratios from a second seeded init
+    compare_train_step(graph, "float32", "transformer4x256-dropout0",
+                       layer_type="Transformer", dropout=0.0)
+    compare_train_step(graph, "float32", "transformer4x256-noedge",
+                       layer_type="Transformer", use_edge_attr=False)
+    compare_train_step(graph, "mixed", "transformer4x256-init2",
+                       model_seed=2, layer_type="Transformer")
+    launches, noedge = train_transformer(tmp, tmp / "train_case", train_info)
+    return rows, launches, noedge
 
 
 def main() -> int:
@@ -1457,7 +1910,8 @@ def main() -> int:
 
         # rows 9 and 11; the Transformer served through infer
         t1 = time.time()
-        tr_rows, tr_launches = transformer_phase(tmp, case, info, gen)
+        tr_rows, tr_launches, edge_bands = transformer_phase(tmp, case, info,
+                                                             gen)
         rows.update(tr_rows)
         log(f"Transformer phases: {time.time() - t1:.1f} s, launches "
             f"{tr_launches}")
@@ -1479,6 +1933,14 @@ def main() -> int:
         train_info = generate_box_case(train_case, 400, 30, 1,
                                        time_dirs=TRAIN_TIMES,
                                        time_field_fn=drifting_box_fields)
+        # rows 9 (dropout form), 10, 7, 6 (bias form); the Transformer
+        # trained through the CLI and without edges through the Trainer
+        trt_rows, launches_tr, launches_tr_noedge = transformer_train_phase(
+            tmp, case, train_info, edge_bands, gen)
+        rows.update(trt_rows)
+        log(f"Transformer training phases: {time.time() - t1:.1f} s")
+
+        t1 = time.time()
         launches = train(tmp, train_case, train_info)
         launches_gcn = train_default(tmp, train_case, train_info)
         launches_gatm = train_gat_unfused(tmp, train_case)
@@ -1538,11 +2000,24 @@ def main() -> int:
              launches=tr_launches["bf16-fuse-eval"]["off"].get(
                  "banded_transformer_geo_mean_fused", 0),
              **rows[("trf", 400, "bfloat16")]),
+        # the Transformer training path (4x256 bf16, dropout 0.1, geo)
+        dict(name="banded_transformer_bwd", route="cuda",
+             source="gnn_bfs_rans_tpu_torch/csrc/banded_transformer_bwd.cu",
+             replaces="gnn_bfs_rans_tpu/kernels/banded_bwd.py:1354",
+             launches=launches_tr.get("banded_transformer_bwd", 0),
+             **rows["row10"]),
+        dict(name="fold_partials", route="cuda",
+             source="gnn_bfs_rans_tpu_torch/csrc/fold_partials.cu",
+             replaces="gnn_bfs_rans_tpu/kernels/banded_bwd.py:86",
+             launches=launches_tr.get("fold_partials", 0), **rows["row7"]),
     ]
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on its "
                                  "main path")
+    if launches_tr_noedge.get("fold_partials", 0) <= 0:
+        raise AssertionError("fold_partials never launched on the no-edge "
+                             "Transformer training path")
     for path, name in (("gat", "banded_gat_mean_fused"),
                        ("gat", "fused_epilogue_fwd"),
                        ("gcn", "banded_spmm"), ("gin", "banded_spmm")):

@@ -6,11 +6,10 @@ the JAX package's subcommands (``gnn_bfs_rans_tpu/cli/main.py:27-76,
 455-527``) plus ``--device`` (``cuda`` by default; ``cpu`` runs the
 kernels' plain versions).  ``train`` defaults to the JAX CLI's model
 (``--layer_type GCN``, 6 layers, hidden 256) on the ported backend
-(``--backend pallas``, the banded kernels: the port has no dense path);
-its ``--epoch_block`` > 1, the Transformer's training (its backward is
-not ported; ``infer`` serves Transformer checkpoints) and the JAX
-trainer's ``--progress`` bar and ``--no_aot`` cache are not ported.
-The other subcommands are not ported yet.
+(``--backend pallas``, the banded kernels: the port has no dense path)
+and trains every layer type.  Its ``--epoch_block`` > 1 and the JAX
+trainer's ``--progress`` bar and ``--no_aot`` cache are not ported.  The
+other subcommands are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,10 +33,6 @@ def cmd_train(args) -> int:
         raise NotImplementedError(
             f"backend {args.backend!r} is not ported yet: the port trains "
             "through the banded kernels (--backend pallas)")
-    if args.layer_type == "Transformer":
-        raise NotImplementedError(
-            "training the Transformer is not ported yet (its backward, "
-            "rows 10 and 7); infer serves Transformer checkpoints")
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     cfg_dict = {k: v for k, v in vars(args).items() if k != "func"}
@@ -125,9 +120,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hidden_dim", type=int, default=256)
     p.add_argument("--num_layers", type=int, default=6)
     p.add_argument("--layer_type", type=str, default="GCN",
-                   choices=["GCN", "GAT", "GIN", "Transformer"],
-                   help="GCN, GAT and GIN train; Transformer raises "
-                        "(its backward is not ported; infer serves it)")
+                   choices=["GCN", "GAT", "GIN", "Transformer"])
     p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--lr", type=float, default=3e-4)

@@ -61,12 +61,6 @@ using band::warp_sum;
 
 constexpr int WARPS = 4;  // rows per block in both passes
 
-struct Drop {
-  const int* seed;  // null: no dropout
-  uint32_t thresh;
-  float inv_keep;
-};
-
 // round(g_i / H) · z_j,h over C, reduced across the warp (every lane gets it)
 template <typename T>
 __device__ __forceinline__ float dot_gz(const T* __restrict__ grow,

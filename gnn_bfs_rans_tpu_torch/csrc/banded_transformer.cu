@@ -1,9 +1,11 @@
-// Banded Transformer attention, eval form: plain, edge-conditioned and
-// factorised geometric; head mean or concat; and the fused-projection form.
+// Banded Transformer attention: plain, edge-conditioned and factorised
+// geometric; head mean or concat; eval and training (attention dropout)
+// forms; the fused-projection eval form; and the projection of the
+// training path's q/k/v.
 //
 // Replaces two TPU kernels of gnn_bfs_rans_tpu/kernels/banded.py:
-// banded_transformer_fwd (_transformer_kernel at dropout_rate 0, every
-// conditioning and head form), entry banded_transformer_launch, and
+// banded_transformer_fwd (_transformer_kernel, every conditioning and head
+// form, with and without dropout), entry banded_transformer_launch, and
 // banded_transformer_geo_mean_fused (_transformer_kernel with fuse_proj,
 // geo, mean_heads), entry banded_transformer_geo_mean_fused_launch.  For
 // every receiver row i of tile t = i / T, each sender s_j = t·T −
@@ -14,13 +16,18 @@
 //         + (qself − qd·pos_j)·invd[i, j] + qd_3·dist[i, j]  geo form,
 //           qd = qw[i, h·4:(h+1)·4]·scale, qself = qd·pos_i
 //   e_j   = exp(l_j − max l),   inv = 1 / max(Σ_j e_j, 1e-16)
-//   out_h = inv · Σ_j round(e_j) · v_j[h]                   (head mean: Σ_h / H)
-//   s_h,d = inv · Σ_j e_j · feat_d[i, j]                    edge form
-//   s_h   = inv · (pos_i·Σ e·invd − Σ e·invd·pos_j, Σ e·dist)  geo form
+//   ẽ_j   = e_j·keep_j/(1 − rate)                           dropout (else e_j)
+//   out_h = inv · Σ_j round(ẽ_j) · v_j[h]                   (head mean: Σ_h / H)
+//   s_h,d = inv · Σ_j ẽ_j · feat_d[i, j]                    edge form
+//   s_h   = inv · (pos_i·Σ ẽ·invd − Σ ẽ·invd·pos_j, Σ ẽ·dist)  geo form
 //
 // with round() the cast of the probability to bf16 when q is bf16 (the TPU
 // kernel's _mm_cast) and scale_q the scale in q's dtype (the product with
-// qw stays f32, as XLA evaluates it).  The geo form is computed in the TPU
+// qw stays f32, as XLA evaluates it).  The denominator is taken before the
+// dropout, and the dropped ẽ feeds both the value product and s
+// (_transformer_kernel's order).  keep_j is draw h of the hash stream
+// seed + t at element i_local·Wcols + j (dropout.cuh), the JAX package's
+// interpret-mode mask.  The geo form is computed in the TPU
 // kernel's order: qself − qd·pos_j and pos_i·t0 − t13 cancel terms of size
 // |pos|·invd into O(1) results, and a different grouping (pos_i − pos_j
 // first) would compute another number than the reference.  A row with no
@@ -37,6 +44,9 @@
 // Unlike the TPU kernel, q/k/v make one round trip through device memory
 // (3·N·H·C·dtype bytes, 73.9 MB per layer at N 12,032, H·C 1,024 in bf16);
 // keeping them on chip, and wgmma/TMA for the projection, are later work.
+// The training path's projection (entry transformer_project_launch) is the
+// same GEMM into the same buffer, then qw = q·wblk rounded to q's dtype, as
+// banded_transformer_geo_mean_projgrad forms them outside its kernel.
 //
 // What bounds it on an H100: the attention is a sparse product.  The band
 // mask holds ~4 senders per row of 256–640 columns; the TPU kernel computes
@@ -56,6 +66,7 @@
 #include <stdint.h>
 
 #include "band_common.cuh"
+#include "dropout.cuh"
 #include "gemm.cuh"
 
 namespace {
@@ -94,7 +105,7 @@ __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK) transformer_kernel(
     T* __restrict__ out,              // [n_pad, C] (mean) or [n_pad, H·C]
     float* __restrict__ s_out,        // [n_pad, H·D] f32 (EDGE, GEO)
     int n_pad, int heads, int C, int tile, int wcols, int edge_dim, int mean,
-    float scale) {
+    float scale, Drop drop) {
   extern __shared__ unsigned char smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row = blockIdx.x * ROWS_PER_BLOCK + warp;
@@ -228,6 +239,16 @@ __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK) transformer_kernel(
     sum = warp_sum(sum);
     __syncwarp();
     const float inv = 1.f / fmaxf(sum, 1e-16f);
+    if (drop.seed != nullptr) {
+      // the dropped ẽ replaces e in the value product and in s
+      const uint32_t sv = (uint32_t)drop.seed[0] + (uint32_t)t;
+      for (int kk = lane; kk < cnt; kk += 32) {
+        const uint32_t flat = (uint32_t)r * (uint32_t)wcols + (uint32_t)idx[kk];
+        pw[kk] = dropout_hash(sv, flat, (uint32_t)h) >= drop.thresh
+                     ? pw[kk] * drop.inv_keep : 0.f;
+      }
+      __syncwarp();
+    }
 
     float acc[MAX_COLS];
 #pragma unroll
@@ -262,7 +283,7 @@ __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK) transformer_kernel(
       }
     }
 
-    // s: the attention-weighted raw features, unrounded e, lanes over senders
+    // s: the attention-weighted raw features, unrounded ẽ, lanes over senders
     if (MODE == EDGE) {
       float* srow = s_out + (size_t)row * heads * d_e + h * d_e;
       for (int d = 0; d < d_e; ++d) {
@@ -321,7 +342,7 @@ template <typename T, int MODE, bool FUSED>
 int attention(const int8_t* mask, const void* q, const void* k, const void* v,
               int ld, const float* feat, const float* pos, const void* qw,
               void* out, float* s, int n_pad, int heads, int c, int tile,
-              int wcols, int edge_dim, int mean, float scale,
+              int wcols, int edge_dim, int mean, float scale, Drop drop,
               cudaStream_t stream) {
   const dim3 grid((n_pad + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK);
   const size_t smem = (size_t)ROWS_PER_BLOCK * wcols * (sizeof(int) + sizeof(float));
@@ -329,7 +350,7 @@ int attention(const int8_t* mask, const void* q, const void* k, const void* v,
       mask, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), ld, feat, pos, static_cast<const T*>(qw),
       static_cast<T*>(out), s, n_pad, heads, c, tile, wcols, edge_dim, mean,
-      scale);
+      scale, drop);
   return (int)cudaGetLastError();
 }
 
@@ -338,20 +359,20 @@ int dispatch(const int8_t* mask, const void* q, const void* k, const void* v,
              int ld, const float* feat, const float* pos, const void* qw,
              void* out, float* s, int n_pad, int heads, int c, int tile,
              int wcols, int mode, int edge_dim, int mean, float scale,
-             cudaStream_t stream) {
+             Drop drop, cudaStream_t stream) {
   switch (mode) {
     case PLAIN:
       return attention<T, PLAIN, false>(mask, q, k, v, ld, feat, pos, qw, out,
                                         s, n_pad, heads, c, tile, wcols,
-                                        edge_dim, mean, scale, stream);
+                                        edge_dim, mean, scale, drop, stream);
     case EDGE:
       return attention<T, EDGE, false>(mask, q, k, v, ld, feat, pos, qw, out,
                                        s, n_pad, heads, c, tile, wcols,
-                                       edge_dim, mean, scale, stream);
+                                       edge_dim, mean, scale, drop, stream);
     case GEO:
       return attention<T, GEO, false>(mask, q, k, v, ld, feat, pos, qw, out,
                                       s, n_pad, heads, c, tile, wcols,
-                                      edge_dim, mean, scale, stream);
+                                      edge_dim, mean, scale, drop, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -376,7 +397,26 @@ int fused(const int8_t* mask, const void* x, const void* wq, const void* wk,
   }
   return attention<T, GEO, true>(mask, base, base + hc, base + 2 * hc, 3 * hc,
                                  geo, pos, wblk, out, s, n_pad, heads, c, tile,
-                                 wcols, 4, 1, scale, stream);
+                                 wcols, 4, 1, scale, Drop{nullptr, 0u, 1.f},
+                                 stream);
+}
+
+template <typename T>
+int project(const void* x, const void* w, const float* bias, const void* wblk,
+            void* qkv, void* qw, int n_pad, int f, int heads, int c,
+            cudaStream_t stream) {
+  const int hc = heads * c;
+  // qkv = x·[Wq | Wk | Wv] + [bq | bk | bv]: A = x [n_pad, F] K-contiguous,
+  // B = W [F, 3·H·C] N-contiguous
+  cudaError_t err = gemm::matmul<true, false>(
+      static_cast<const T*>(x), f, static_cast<const T*>(w), 3 * hc,
+      static_cast<T*>(qkv), 3 * hc, 0, n_pad, 3 * hc, f, f, stream, bias);
+  if (err != cudaSuccess) return (int)err;
+  // qw = q·wblk, rounded to q's dtype: A = q (row stride 3·H·C)
+  return (int)gemm::matmul<true, false>(
+      static_cast<const T*>(qkv), 3 * hc, static_cast<const T*>(wblk),
+      4 * heads, static_cast<T*>(qw), 4 * heads, 0, n_pad, 4 * heads, hc, hc,
+      stream);
 }
 
 }  // namespace
@@ -387,23 +427,27 @@ extern "C" {
 // mode: 0 plain, 1 edge (feat = [nt, edge_dim, T, Wcols]), 2 geo (feat =
 // [nt, 2, T, Wcols], pos [n_pad, 4]); qw [n_pad, heads·D] and s [n_pad,
 // heads·D] f32 for modes 1 and 2.  ld: the row stride of q, k and v.  mean:
-// head mean (out [n_pad, c]) or concat (out [n_pad, heads·c]).  Returns the
-// CUDA error code of the launch (0 on success).
+// head mean (out [n_pad, c]) or concat (out [n_pad, heads·c]).  seed: device
+// pointer to one int32, or null for no dropout.  Returns the CUDA error code
+// of the launch (0 on success).
 int banded_transformer_launch(const int8_t* mask, const void* q, const void* k,
                               const void* v, const float* feat,
                               const float* pos, const void* qw, void* out,
                               float* s, int n_pad, int ld, int heads, int c,
                               int tile, int wcols, int mode, int edge_dim,
-                              int mean, int dtype, float scale, void* stream) {
+                              int mean, int dtype, float scale,
+                              const int* seed, unsigned int thresh,
+                              float inv_keep, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Drop drop{seed, thresh, inv_keep};
   if (dtype == 0)
     return dispatch<float>(mask, q, k, v, ld, feat, pos, qw, out, s, n_pad,
                            heads, c, tile, wcols, mode, edge_dim, mean, scale,
-                           st);
+                           drop, st);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(mask, q, k, v, ld, feat, pos, qw, out, s,
                                    n_pad, heads, c, tile, wcols, mode,
-                                   edge_dim, mean, scale, st);
+                                   edge_dim, mean, scale, drop, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -425,6 +469,23 @@ int banded_transformer_geo_mean_fused_launch(
     return fused<__nv_bfloat16>(mask, x, wq, wk, wv, bias, wblk, geo, pos, qkv,
                                 out, s, n_pad, f, heads, c, tile, wcols, scale,
                                 st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The training path's projection.  x [n_pad, f], w [f, 3·heads·c] (Wq | Wk
+// | Wv), wblk [heads·c, heads·4] in dtype; bias f32 [3·heads·c]; qkv the
+// caller-allocated [n_pad, 3·heads·c] output, qw [n_pad, heads·4] in dtype.
+// Returns the CUDA error code of the launches.
+int transformer_project_launch(const void* x, const void* w, const float* bias,
+                               const void* wblk, void* qkv, void* qw,
+                               int n_pad, int f, int heads, int c, int dtype,
+                               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return project<float>(x, w, bias, wblk, qkv, qw, n_pad, f, heads, c, st);
+  if (dtype == 1)
+    return project<__nv_bfloat16>(x, w, bias, wblk, qkv, qw, n_pad, f, heads,
+                                  c, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,25 +1,33 @@
-// Projection backward of the fused GAT: dx = dz·Wᵀ and dW = xᵀ·dz.
+// Projection backward: dx = dz·Wᵀ, dW = xᵀ·dz and, in the bias form,
+// db = Σ_rows dz.
 //
 // Replaces the TPU kernel gnn_bfs_rans_tpu/kernels/banded_bwd.py::
-// fold_project_bwd (_fold_project_kernel, with_bias=False).  The TPU kernel
-// first folds the attention backward's window partials into dz tiles in
-// VMEM; the port's attention backward (banded_gat_bwd.cu) already emits dz
-// rows, so this kernel is the projection backward over dz.  Both products
-// run in this kernel's own body on the tensor cores in bf16 (gemm.cuh,
-// f32 accumulate; dx rounded to x's dtype) and in true f32 FMA in f32:
+// fold_project_bwd (_fold_project_kernel, with_bias False and True).  The
+// TPU kernel first folds the attention backward's window partials into dz
+// tiles in VMEM; the port's GAT backward (banded_gat_bwd.cu) emits dz rows
+// and its Transformer backward has its partials folded by fold_partials.cu,
+// so this kernel is the projection backward over dz rows.  Both products
+// run in this kernel's own body on the tensor cores in bf16 (gemm.cuh, f32
+// accumulate; dx rounded to x's dtype) and in true f32 FMA in f32:
 //
 //   dx [N, F]  = dz [N, H·C] · W [F, H·C]ᵀ       (one K = H·C slice)
 //   dW [F, H·C] = Σ_z x[K_z]ᵀ · dz[K_z]          (f32)
+//   db [H·C]    = Σ_z Σ_{rows of K_z} dz         (f32, bias form)
 //
 // dW is a reduction over the N rows: blockIdx.z takes one chunk K_z of
 // rows and writes its own f32 slice; fold_splits_kernel then sums the
-// slices in chunk order, so dW is deterministic (no atomics).
+// slices in chunk order, so dW is deterministic (no atomics).  The bias
+// form sums each chunk's dz columns from the dz tiles the dW product
+// already stages (gemm.cuh's colsum), into row F of the chunk's slice, so
+// the same fold gives db.  x may be a column block of a wider buffer (row
+// stride ldx): the Transformer's dwblk = qᵀ·dqw reads q from its q|k|v
+// buffer.
 //
 // What bounds it on an H100: at N 12,032, F 256, H·C 1,024 in bf16 the
 // products are 4·N·F·H·C = 12.6 GFLOP, 12.8 µs at 989 TFLOP/s, against
 // dz 24.6 MB + x 6.2 MB + W 0.5 MB read and dx 6.2 MB + dW 1 MB written,
 // ~38.5 MB, 11.5 µs at 3.35 TB/s: about balanced.  The slices add
-// splits·F·H·C·4 bytes written and read again.
+// splits·(F + 1)·H·C·4 bytes written and read again.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,9 +49,9 @@ __global__ void fold_splits_kernel(const float* __restrict__ part,
 }
 
 template <typename T>
-int launch(const void* dz_, const void* x_, const void* w_, void* dx_,
+int launch(const void* dz_, const void* x_, int ldx, const void* w_, void* dx_,
            float* dw, float* part, int n, int f, int hc, int k_chunk,
-           cudaStream_t s) {
+           int with_bias, cudaStream_t s) {
   const T* dz = static_cast<const T*>(dz_);
   const T* x = static_cast<const T*>(x_);
   const T* w = static_cast<const T*>(w_);
@@ -51,14 +59,17 @@ int launch(const void* dz_, const void* x_, const void* w_, void* dx_,
   cudaError_t err = gemm::matmul<true, true>(dz, hc, w, hc, static_cast<T*>(dx_),
                                              f, 0, n, f, hc, hc, s);
   if (err != cudaSuccess) return (int)err;
-  // dW slices: A(m, k) = x[k·F + m] (M-contiguous), B = dz (N-contiguous)
-  err = gemm::matmul<false, false>(x, f, dz, hc, part, hc, (long long)f * hc,
-                                   f, hc, n, k_chunk, s);
+  // dW slices [F (+1 bias row), H·C]: A(m, k) = x[k·ldx + m] (M-contiguous),
+  // B = dz (N-contiguous)
+  const int rows = f + (with_bias ? 1 : 0);
+  const long long slice = (long long)rows * hc;
+  err = gemm::matmul<false, false>(x, ldx, dz, hc, part, hc, slice, f, hc, n,
+                                   k_chunk, s, nullptr,
+                                   with_bias ? part + (size_t)f * hc : nullptr);
   if (err != cudaSuccess) return (int)err;
   const int splits = (n + k_chunk - 1) / k_chunk;
-  const long long total = (long long)f * hc;
-  fold_splits_kernel<<<(int)((total + 255) / 256 < 1024 ? (total + 255) / 256 : 1024),
-                       256, 0, s>>>(part, dw, splits, total);
+  fold_splits_kernel<<<(int)((slice + 255) / 256 < 1024 ? (slice + 255) / 256 : 1024),
+                       256, 0, s>>>(part, dw, splits, slice);
   return (int)cudaGetLastError();
 }
 
@@ -67,16 +78,20 @@ int launch(const void* dz_, const void* x_, const void* w_, void* dx_,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (dz, x, w and dx share it; dw is f32).
-// part is the caller-allocated [ceil(n / k_chunk), f, hc] f32 scratch.
+// ldx: the row stride of x.  with_bias: dw is [f + 1, hc], its last row db.
+// part is the caller-allocated [ceil(n / k_chunk), f (+1), hc] f32 scratch.
 // Returns the CUDA error code of the launches (0 on success).
-int fold_project_bwd_launch(const void* dz, const void* x, const void* w, void* dx,
-                       float* dw, float* part, int n, int f, int hc,
-                       int k_chunk, int dtype, void* stream) {
+int fold_project_bwd_launch(const void* dz, const void* x, int ldx,
+                            const void* w, void* dx, float* dw, float* part,
+                            int n, int f, int hc, int k_chunk, int with_bias,
+                            int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(dz, x, w, dx, dw, part, n, f, hc, k_chunk, s);
+    return launch<float>(dz, x, ldx, w, dx, dw, part, n, f, hc, k_chunk,
+                         with_bias, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(dz, x, w, dx, dw, part, n, f, hc, k_chunk, s);
+    return launch<__nv_bfloat16>(dz, x, ldx, w, dx, dw, part, n, f, hc,
+                                 k_chunk, with_bias, s);
   return (int)cudaErrorInvalidValue;
 }
 

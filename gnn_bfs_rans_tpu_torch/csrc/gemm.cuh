@@ -11,7 +11,11 @@
 // C + z·c_split (the caller folds the slices in a fixed order, so a
 // reduction over K stays deterministic).  An optional f32 bias (one per
 // output column) is added to the f32 sum before the one rounding to C's
-// type (banded_transformer.cu's q/k/v projections).
+// type (banded_transformer.cu's q/k/v projections).  An optional colsum
+// pointer takes the f32 column sums of B over each chunk's K rows, summed
+// from the B tiles the blocks of the first row of output tiles already
+// stage, chunk z's at colsum + z·c_split (fold_project_bwd.cu's bias
+// gradient db = Σ_rows dz).
 //
 // bf16 inputs run on the tensor cores (warp-level mma through nvcuda::wmma,
 // 16×16×16 bf16 fragments): a 128×128 output tile per block, 8 warps as
@@ -45,7 +49,7 @@ template <typename TO, bool A_KC, bool B_KC>
 __global__ void __launch_bounds__(256) gemm_f32_kernel(
     const float* __restrict__ A, int lda, const float* __restrict__ B, int ldb,
     TO* __restrict__ C, int ldc, long long c_split, int M, int N, int K,
-    int k_chunk, const float* __restrict__ bias) {
+    int k_chunk, const float* __restrict__ bias, float* __restrict__ colsum) {
   __shared__ float As[PK][PM];
   __shared__ float Bs[PK][PN];
   const int tid = threadIdx.x;
@@ -53,6 +57,8 @@ __global__ void __launch_bounds__(256) gemm_f32_kernel(
   const int m0 = blockIdx.y * PM, n0 = blockIdx.x * PN;
   const int kbeg = blockIdx.z * k_chunk;
   const int kend = min(K, kbeg + k_chunk);
+  const bool sums = colsum != nullptr && blockIdx.y == 0 && tid < PN;
+  float csum = 0.f;
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -76,6 +82,10 @@ __global__ void __launch_bounds__(256) gemm_f32_kernel(
                        : 0.f;
     }
     __syncthreads();
+    if (sums) {
+#pragma unroll
+      for (int kk = 0; kk < PK; ++kk) csum += Bs[kk][tid];
+    }
 #pragma unroll
     for (int kk = 0; kk < PK; ++kk) {
       float a[8], b[8];
@@ -90,6 +100,7 @@ __global__ void __launch_bounds__(256) gemm_f32_kernel(
     }
     __syncthreads();
   }
+  if (sums && n0 + tid < N) colsum[(size_t)blockIdx.z * c_split + n0 + tid] = csum;
   TO* out = C + (size_t)blockIdx.z * c_split;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -121,7 +132,7 @@ __global__ void __launch_bounds__(256, 2) gemm_bf16_kernel(
     const __nv_bfloat16* __restrict__ A, int lda,
     const __nv_bfloat16* __restrict__ B, int ldb, TO* __restrict__ C, int ldc,
     long long c_split, int M, int N, int K, int k_chunk,
-    const float* __restrict__ bias) {
+    const float* __restrict__ bias, float* __restrict__ colsum) {
   using namespace nvcuda;
   using ALayout = typename std::conditional<A_KC, wmma::row_major, wmma::col_major>::type;
   using BLayout = typename std::conditional<B_KC, wmma::col_major, wmma::row_major>::type;
@@ -135,6 +146,8 @@ __global__ void __launch_bounds__(256, 2) gemm_bf16_kernel(
   const int m0 = blockIdx.y * WM, n0 = blockIdx.x * WN;
   const int kbeg = blockIdx.z * k_chunk;
   const int kend = min(K, kbeg + k_chunk);
+  const bool sums = colsum != nullptr && blockIdx.y == 0 && tid < WN;
+  float csum = 0.f;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -186,6 +199,11 @@ __global__ void __launch_bounds__(256, 2) gemm_bf16_kernel(
     }
     __syncthreads();
     if (k0 + WK < kend) load(k0 + WK);
+    if (sums) {
+#pragma unroll 8
+      for (int kk = 0; kk < WK; ++kk)
+        csum += __bfloat162float(B_KC ? Bs[tid * B_LD + kk] : Bs[kk * B_LD + tid]);
+    }
 #pragma unroll
     for (int kk = 0; kk < WK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, ALayout> a[4];
@@ -207,6 +225,7 @@ __global__ void __launch_bounds__(256, 2) gemm_bf16_kernel(
     }
     __syncthreads();
   }
+  if (sums && n0 + tid < N) colsum[(size_t)blockIdx.z * c_split + n0 + tid] = csum;
   // each warp stages one 16×16 f32 accumulator at a time to round it on
   // the store
   TO* out = C + (size_t)blockIdx.z * c_split;
@@ -233,10 +252,11 @@ __global__ void __launch_bounds__(256, 2) gemm_bf16_kernel(
 template <bool A_KC, bool B_KC, typename TO>
 cudaError_t matmul(const float* A, int lda, const float* B, int ldb, TO* C,
                    int ldc, long long c_split, int M, int N, int K, int k_chunk,
-                   cudaStream_t s, const float* bias = nullptr) {
+                   cudaStream_t s, const float* bias = nullptr,
+                   float* colsum = nullptr) {
   dim3 grid((N + PN - 1) / PN, (M + PM - 1) / PM, (K + k_chunk - 1) / k_chunk);
   gemm_f32_kernel<TO, A_KC, B_KC><<<grid, 256, 0, s>>>(
-      A, lda, B, ldb, C, ldc, c_split, M, N, K, k_chunk, bias);
+      A, lda, B, ldb, C, ldc, c_split, M, N, K, k_chunk, bias, colsum);
   return cudaGetLastError();
 }
 
@@ -244,10 +264,10 @@ template <bool A_KC, bool B_KC, typename TO>
 cudaError_t matmul(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B,
                    int ldb, TO* C, int ldc, long long c_split, int M, int N,
                    int K, int k_chunk, cudaStream_t s,
-                   const float* bias = nullptr) {
+                   const float* bias = nullptr, float* colsum = nullptr) {
   dim3 grid((N + WN - 1) / WN, (M + WM - 1) / WM, (K + k_chunk - 1) / k_chunk);
   gemm_bf16_kernel<TO, A_KC, B_KC><<<grid, 256, 0, s>>>(
-      A, lda, B, ldb, C, ldc, c_split, M, N, K, k_chunk, bias);
+      A, lda, B, ldb, C, ldc, c_split, M, N, K, k_chunk, bias, colsum);
   return cudaGetLastError();
 }
 

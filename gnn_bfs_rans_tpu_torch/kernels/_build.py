@@ -6,9 +6,10 @@ at first use, and loads with ``ctypes``: the sources expose a plain C
 interface, so no PyTorch header is compiled.  A library is rebuilt when
 its source is newer.  A failed build raises.
 
-``LAUNCHES`` counts launches per kernel wrapper: one count per
-``pallas_call`` site of the TPU kernel it replaces, added only where the
-wrapper launches on the card (never for the plain CPU version).
+``LAUNCHES`` counts launches per kernel wrapper, added only where the
+wrapper launches on the card (never for the plain CPU version): one count
+per ``pallas_call`` site of the TPU kernel it replaces, or per call for
+``transformer_project`` (XLA products in the JAX package).
 """
 
 from __future__ import annotations

@@ -17,22 +17,28 @@
   ``csrc/banded_spmm.cu``; its backward is the same kernel on
   ``transpose_band`` (``_transpose_band``), which the convs compute once
   per ``Band`` and keep (``Band.transposed``).
-* ``banded_transformer_fwd`` (row 9), eval form: ``_transformer_kernel``
-  at rate 0, scaled dot-product attention over ``bias_noself`` with no
-  conditioning, the generic ``edge`` planes or the factorised ``geo``
-  planes, head mean or concat, one entry point with flags; it raises on a
-  gradient or dropout until the backward (row 10) is ported.
-  ``banded_transformer_geo_mean_fused`` (row 11) projects q/k/v in the
-  launch.  Both in ``csrc/banded_transformer.cu``.
+* ``banded_transformer_fwd`` (row 9): ``_transformer_kernel``, scaled
+  dot-product attention over ``bias_noself`` with no conditioning, the
+  generic ``edge`` planes or the factorised ``geo`` planes, head mean or
+  concat, attention dropout on the hash stream (one draw per head), one
+  entry point with flags and one autograd Function whose backward is
+  ``banded_bwd.banded_transformer_bwd`` (row 10) then
+  ``banded_bwd.fold_partials`` (row 7).
+  ``banded_transformer_geo_mean_projgrad``: the training path of the geo
+  head-mean conv, the q/k/v projections inside the op
+  (``transformer_project`` on ``gemm.cuh``), its backward rows 10, 7 and
+  6.  ``banded_transformer_geo_mean_fused`` (row 11) projects q/k/v in the
+  launch, eval only.  Rows 9 and 11 in ``csrc/banded_transformer.cu``.
 
 Each source's header says what bounds it on the card and how the design
 answers that.  Layouts are the JAX package's: ``bias_self`` int8
 ``[n_tiles, T, Wcols]``, ``w`` ``[F, H·C]``, packed ``alphas`` f32
 ``[N, 2H]`` (src | dst), ``x`` ``[N, F]`` → ``[N, C]`` in x's dtype
 (float32 or bfloat16); SpMM planes ``[n_tiles, W, T, T]`` (``gcn`` f32,
-``adj`` bf16).  Dropout draws from the hash stream of :mod:`.dropout`:
-tile t's [H·T, Wcols] plane uses seed + t, so masks match the JAX
-package's interpret mode bit for bit.
+``adj`` bf16).  Dropout draws from the hash stream of :mod:`.dropout`
+with seed + t for tile t: the GAT's [H·T, Wcols] plane in one draw, the
+Transformer's [T, Wcols] plane once per head (draw h), so masks match the
+JAX package's interpret mode bit for bit.
 """
 
 from __future__ import annotations
@@ -433,36 +439,27 @@ _MAX_C = 512    # columns per head: 4 per lane in up to 4 groups of 128
 _MAX_DE = 8     # edge features per edge held in the kernel's registers
 
 
-def banded_transformer_fwd_plain(bias_noself, q, k, v, heads, edge=None,
-                                 qw=None, geo=None, pos=None,
-                                 mean_heads=False):
-    """Plain PyTorch version of row 9's eval form, dense over the window
-    like the TPU kernel (``_transformer_kernel``), with its rounding points:
-    the scale is the Python float 1/√C; the edge term adds
-    ``(qw_d·scale_q)·feat_d`` with ``scale_q`` the scale in q's dtype and
-    the product in f32, the geo term casts qw to f32 before scaling; the
-    probabilities round to v's dtype for the value product, ``s`` sums the
-    unrounded f32 e.  Returns ``out`` ([N, C] with
-    ``mean_heads``, else [N, H·C], in q's dtype), or ``(out, s)`` with
-    ``s`` f32 [N, H·D_e] when conditioned (D_e = 4 for geo)."""
+def _tr_logits(bias_noself, q, k, heads, edge, qw, geo, pos):
+    """The Transformer kernels' logits, dense over the window
+    ([n_tiles, H, T, Wcols], masked columns at −1e30) with their rounding
+    points, and the planes the geo and edge terms use (``_transformer_kernel``
+    and the backward's recompute)."""
     n_tiles, tile, width = bias_noself.shape
     n, hc = q.shape
     c = hc // heads
-    dt = q.dtype
     scale = 1.0 / (c ** 0.5)
     q4 = q.reshape(n_tiles, tile, heads, c).float()
-    win_k = _windows(k, tile, width).reshape(n_tiles, width, heads, c)
-    win_v = _windows(v, tile, width).reshape(n_tiles, width, heads, c)
-    logits = torch.einsum("nthc,nwhc->nhtw", q4, win_k.float()) * scale
-    by_head = lambda a: a.permute(0, 2, 1)[..., None]  # noqa: E731  [n,T,H] → [n,H,T,1]
+    win_k = _windows(k, tile, width).reshape(n_tiles, width, heads, c).float()
+    logits = torch.einsum("nthc,nwhc->nhtw", q4, win_k) * scale
+    planes = {}
     if edge is not None:
         d_e = edge.shape[1]
         # qw_d·scale: the weakly typed scalar takes q's dtype; the product
         # stays f32 (XLA keeps the excess precision of the bf16 multiply)
-        s_dt = float(torch.tensor(scale, dtype=dt))
+        s_dt = float(torch.tensor(scale, dtype=q.dtype))
         qs = qw.reshape(n_tiles, tile, heads, d_e).float() * s_dt
         for d in range(d_e):
-            logits = logits + by_head(qs[..., d]) * edge[:, d, None]
+            logits = logits + _by_head(qs[..., d]) * edge[:, d, None]
     logits = logits + ((bias_noself.float() - 1.0) * 1e30)[:, None]
     if geo is not None:
         qd = qw.reshape(n_tiles, tile, heads, 4).float() * scale
@@ -471,12 +468,57 @@ def banded_transformer_fwd_plain(bias_noself, q, k, v, heads, edge=None,
         qself = (qd * pos_c[:, :, None, :]).sum(-1)            # [n, T, H]
         qpos = torch.einsum("nthd,nwd->nhtw", qd, pos_w)
         dist, invd = geo[:, 0, None], geo[:, 1, None]         # [n, 1, T, Wc]
-        logits = logits + (by_head(qself) - qpos) * invd \
-            + by_head(qd[..., 3]) * dist
+        logits = logits + (_by_head(qself) - qpos) * invd \
+            + _by_head(qd[..., 3]) * dist
+        planes = dict(pos_c=pos_c, pos_w=pos_w, dist=dist, invd=invd)
+    return logits, planes
+
+
+def _by_head(a):
+    """[n, T, H] → [n, H, T, 1]."""
+    return a.permute(0, 2, 1)[..., None]
+
+
+def _softmax_parts(logits):
+    """e (0 on masked columns) and inv = 1/max(Σe, 1e-16) of the kernels."""
     m = logits.amax(-1, keepdim=True).clamp_min(-1e30)
     e = torch.exp(logits - m)
     e = torch.where(logits <= -1e29, 0.0, e)
-    inv = 1.0 / e.sum(-1, keepdim=True).clamp_min(1e-16)     # [n, H, T, 1]
+    return e, 1.0 / e.sum(-1, keepdim=True).clamp_min(1e-16)
+
+
+def _tr_keep(seed, bias_noself, heads, rate):
+    """The attention dropout's [n_tiles, H, T, Wcols] keep mask."""
+    n_tiles, tile, width = bias_noself.shape
+    return _drop.transformer_keep(seed.long(), n_tiles, tile, width, heads,
+                                  rate, bias_noself.device)
+
+
+def banded_transformer_fwd_plain(bias_noself, q, k, v, heads, edge=None,
+                                 qw=None, geo=None, pos=None,
+                                 mean_heads=False, dropout_rate=0.0,
+                                 seed=None):
+    """Plain PyTorch version of row 9, dense over the window like the TPU
+    kernel (``_transformer_kernel``), with its rounding points: the scale
+    is the Python float 1/√C; the edge term adds ``(qw_d·scale_q)·feat_d``
+    with ``scale_q`` the scale in q's dtype and the product in f32, the geo
+    term casts qw to f32 before scaling; the denominator is taken before
+    the dropout, whose dropped e (per-head draws of the hash stream) feeds
+    the value product and ``s``; the probabilities round to v's dtype for
+    the value product, ``s`` sums the unrounded f32 e.  Returns ``out``
+    ([N, C] with ``mean_heads``, else [N, H·C], in q's dtype), or
+    ``(out, s)`` with ``s`` f32 [N, H·D_e] when conditioned (D_e = 4 for
+    geo)."""
+    n_tiles, tile, width = bias_noself.shape
+    n, hc = q.shape
+    c = hc // heads
+    dt = q.dtype
+    logits, planes = _tr_logits(bias_noself, q, k, heads, edge, qw, geo, pos)
+    e, inv = _softmax_parts(logits)                           # inv [n, H, T, 1]
+    if dropout_rate > 0:
+        keep = _tr_keep(seed, bias_noself, heads, dropout_rate)
+        e = torch.where(keep, e * inv_keep(dropout_rate), 0.0)
+    win_v = _windows(v, tile, width).reshape(n_tiles, width, heads, c)
     ep = e.to(dt).float() if dt == torch.bfloat16 else e
     outs = [torch.einsum("ntw,nwc->ntc", ep[:, h], win_v[:, :, h].float())
             * inv[:, h] for h in range(heads)]
@@ -488,10 +530,11 @@ def banded_transformer_fwd_plain(bias_noself, q, k, v, heads, edge=None,
     else:
         out = torch.stack(outs, 2).reshape(n, hc).to(dt)
     if geo is not None:
-        ew = e * invd
+        pos_c, pos_w = planes["pos_c"], planes["pos_w"]
+        ew = e * planes["invd"]
         t13 = torch.einsum("nhtw,nwd->nthd", ew, pos_w)
         t0 = ew.sum(-1).permute(0, 2, 1)[..., None]            # [n, T, H, 1]
-        s3 = (e * dist).sum(-1).permute(0, 2, 1)[..., None]
+        s3 = (e * planes["dist"]).sum(-1).permute(0, 2, 1)[..., None]
         s = torch.cat([(pos_c[:, :, None, :] * t0 - t13)[..., :3], s3], -1)
         s = s * inv.permute(0, 2, 1, 3)
         return out, s.reshape(n, heads * 4)
@@ -503,7 +546,7 @@ def banded_transformer_fwd_plain(bias_noself, q, k, v, heads, edge=None,
 
 
 def _check_window(bias_noself, n, hc, heads):
-    """The mask's and the head width's conditions, shared by rows 9 and
+    """The mask's and the head width's conditions, shared by rows 9, 10 and
     11; returns C."""
     n_tiles, tile, width = bias_noself.shape
     if bias_noself.dtype != torch.int8:
@@ -524,52 +567,39 @@ def _check_window(bias_noself, n, hc, heads):
 
 
 def _check_transformer(bias_noself, q, k, v, heads, extra=()):
-    """Row 9's conditions on the mask and q/k/v (and the f32 ``extra``
-    planes); returns C."""
-    for name, t in (("bias_noself", bias_noself), ("q", q), ("k", k),
-                    ("v", v), *extra):
+    """Rows 9 and 10's conditions on the mask and q/k/v (and the f32
+    ``extra`` planes); returns (C, the row stride q, k and v share: they
+    may be column blocks of one q | k | v buffer)."""
+    for name, t in (("bias_noself", bias_noself), *extra):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, not {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, not {q.device}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k and v must share float32 or bfloat16, got "
                         f"{q.dtype} / {k.dtype} / {v.dtype}")
     for name, t in extra:
-        if name != "qw" and t.dtype != torch.float32:
+        if name not in ("qw", "g") and t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32")
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v shapes {tuple(q.shape)}/{tuple(k.shape)}/"
                          f"{tuple(v.shape)}")
-    return _check_window(bias_noself, *q.shape, heads)
+    ld = q.stride(0)
+    if any(t.stride() != (ld, 1) for t in (q, k, v)) or ld < q.shape[1]:
+        raise ValueError("q, k and v must be row-major with one row stride")
+    if any(t.data_ptr() % 16 for t in (q, k, v)) or ld % 4:
+        raise ValueError("the kernel reads q, k and v in 4-column accesses: "
+                         "they must be 16-byte aligned")
+    return _check_window(bias_noself, *q.shape, heads), ld
 
 
-def _eval_only(name, dropout_rate, *tensors):
-    """Rows 9 and 11 are ported in their eval form only: the backward (row
-    10) and the dropout form come with the Transformer's training path."""
-    if dropout_rate > 0 or (torch.is_grad_enabled()
-                            and any(t.requires_grad for t in tensors)):
-        raise NotImplementedError(
-            f"{name}: only the eval form (no dropout, no gradient) is "
-            "ported; the backward (row 10, banded_transformer_bwd), "
-            "fold_partials (row 7) and the dropout form come next")
-
-
-def banded_transformer_fwd(bias_noself, q, k, v, heads, edge=None, qw=None,
-                           geo=None, pos=None, mean_heads=False,
-                           dropout_rate=0.0):
-    """Row 9's eval form: plain version for CPU tensors, the CUDA kernel
-    for CUDA tensors (or a raise).  Arguments and results as
-    :func:`banded_transformer_fwd_plain`; ``qw`` [N, H·D_e] in q's dtype.
-    A gradient or ``dropout_rate > 0`` raises until row 10 is ported."""
-    _eval_only("banded_transformer_fwd", dropout_rate, q, k, v,
-               *(t for t in (qw,) if t is not None))
-    if q.device.type == "cpu":
-        return banded_transformer_fwd_plain(bias_noself, q, k, v, heads, edge,
-                                            qw, geo, pos, mean_heads)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    n, hc = q.shape
+def _conditioning(edge, qw, geo, pos, q, heads, tile, width):
+    """(mode, D_e, the conditioning plane, the planes to check) of rows 9
+    and 10, with their shape checks."""
+    n = q.shape[0]
     if geo is not None:
         mode, d_e, feat = 2, 4, geo
         extra = (("geo", geo), ("pos", pos), ("qw", qw))
@@ -577,39 +607,227 @@ def banded_transformer_fwd(bias_noself, q, k, v, heads, edge=None, qw=None,
         mode, d_e, feat = 1, edge.shape[1], edge
         extra = (("edge", edge), ("qw", qw))
     else:
-        mode, d_e, feat, extra = 0, 0, None, ()
-    c = _check_transformer(bias_noself, q, k, v, heads, extra)
+        return 0, 0, None, ()
+    if qw.dtype != q.dtype or qw.shape != (n, heads * d_e):
+        raise ValueError(f"qw must be [{n}, {heads * d_e}] in q's dtype, "
+                         f"got {tuple(qw.shape)} {qw.dtype}")
+    if feat.shape != (n // tile, d_e if mode == 1 else 2, tile, width):
+        raise ValueError(f"edge/geo plane shape {tuple(feat.shape)}")
+    if mode == 1 and d_e > _MAX_DE:
+        raise ValueError(f"at most {_MAX_DE} edge features, got {d_e}")
+    if mode == 2 and pos.shape != (n, 4):
+        raise ValueError(f"pos must be [{n}, 4], got {tuple(pos.shape)}")
+    return mode, d_e, feat, extra
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _transformer_fwd(bias_noself, q, k, v, heads, edge=None, qw=None,
+                     geo=None, pos=None, mean_heads=False, dropout_rate=0.0,
+                     seed=None):
+    """Row 9 without its gradient: plain version for CPU tensors, the CUDA
+    kernel for CUDA tensors (or a raise)."""
+    if q.device.type == "cpu":
+        return banded_transformer_fwd_plain(bias_noself, q, k, v, heads, edge,
+                                            qw, geo, pos, mean_heads,
+                                            dropout_rate, seed)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    n, hc = q.shape
     n_tiles, tile, width = bias_noself.shape
-    if mode:
-        if qw.dtype != q.dtype or qw.shape != (n, heads * d_e):
-            raise ValueError(f"qw must be [{n}, {heads * d_e}] in q's dtype, "
-                             f"got {tuple(qw.shape)} {qw.dtype}")
-        if feat.shape != (n_tiles, d_e if mode == 1 else 2, tile, width):
-            raise ValueError(f"edge/geo plane shape {tuple(feat.shape)}")
-        if mode == 1 and d_e > _MAX_DE:
-            raise ValueError(f"at most {_MAX_DE} edge features, got {d_e}")
-        if mode == 2 and pos.shape != (n, 4):
-            raise ValueError(f"pos must be [{n}, 4], got {tuple(pos.shape)}")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("the kernel reads q, k and v in 4-column accesses: "
-                         "they must be 16-byte aligned")
+    mode, d_e, feat, extra = _conditioning(edge, qw, geo, pos, q, heads, tile,
+                                           width)
+    c, ld = _check_transformer(bias_noself, q, k, v, heads, extra)
+    seed = _drop.check_seed(seed, dropout_rate, q.device)
     lib = _build.bind(TRANSFORMER_KERNEL, "banded_transformer_launch",
                       [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
-                      + [ctypes.c_float, ctypes.c_void_p])
+                      + [ctypes.c_float, ctypes.c_void_p, ctypes.c_uint,
+                         ctypes.c_float, ctypes.c_void_p])
     out = torch.empty((n, c if mean_heads else hc), dtype=q.dtype,
                       device=q.device)
     s = (torch.empty((n, heads * d_e), dtype=torch.float32, device=q.device)
          if mode else None)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = lib.banded_transformer_launch(
         bias_noself.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        ptr(feat), ptr(pos if mode == 2 else None), ptr(qw if mode else None),
-        out.data_ptr(), ptr(s), n, hc, heads, c, tile, width, mode, d_e,
-        int(mean_heads), _DTYPE_CODE[q.dtype], 1.0 / (c ** 0.5),
+        _ptr(feat), _ptr(pos if mode == 2 else None),
+        _ptr(qw if mode else None), out.data_ptr(), _ptr(s), n, ld, heads, c,
+        tile, width, mode, d_e, int(mean_heads), _DTYPE_CODE[q.dtype],
+        1.0 / (c ** 0.5), _ptr(seed), _drop.threshold(dropout_rate),
+        inv_keep(dropout_rate) if seed is not None else 1.0,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, "banded_transformer_fwd")
     _build.LAUNCHES["banded_transformer_fwd"] += 1
     return (out, s) if mode else out
+
+
+class _Transformer(torch.autograd.Function):
+    """Row 9 with its backward: row 10 (``banded_bwd.banded_transformer_bwd``)
+    then row 7 (``banded_bwd.fold_partials``) on the dk/dv partials, as the
+    JAX package's ``_tr*_vjp_bwd`` do.  Cotangents (dq, dk, dv, dqw); the
+    mask, the planes and the seed get none."""
+
+    @staticmethod
+    def forward(ctx, bias_noself, q, k, v, qw, edge, geo, pos, heads,
+                mean_heads, dropout_rate, seed):
+        ctx.save_for_backward(bias_noself, q, k, v, qw, edge, geo, pos, seed)
+        ctx.args = (heads, mean_heads, dropout_rate)
+        return _transformer_fwd(bias_noself, q, k, v, heads, edge, qw, geo,
+                                pos, mean_heads, dropout_rate, seed)
+
+    @staticmethod
+    def backward(ctx, g, gs=None):
+        from .banded_bwd import banded_transformer_bwd, fold_partials
+
+        bias_noself, q, k, v, qw, edge, geo, pos, seed = ctx.saved_tensors
+        heads, mean_heads, dropout_rate = ctx.args
+        res = banded_transformer_bwd(
+            bias_noself, q, k, v, g.to(q.dtype).contiguous(), heads, edge=edge,
+            qw=qw, gs=None if gs is None else gs.float().contiguous(),
+            geo=geo, pos=pos, mean_expand=mean_heads,
+            dropout_rate=dropout_rate, seed=seed)
+        tile = bias_noself.shape[1]
+        dk = fold_partials(res[1], tile)
+        dv = fold_partials(res[2], tile)
+        dqw = res[3].to(qw.dtype) if len(res) > 3 else None
+        return (None, res[0], dk, dv, dqw, None, None, None, None, None, None,
+                None)
+
+
+def banded_transformer_fwd(bias_noself, q, k, v, heads, edge=None, qw=None,
+                           geo=None, pos=None, mean_heads=False,
+                           dropout_rate=0.0, seed=None):
+    """Row 9, differentiable (its backward: rows 10 and 7): scaled
+    dot-product attention of q over the senders of each row of
+    ``bias_noself`` [n_tiles, T, Wcols] (no conditioning, the generic
+    ``edge`` planes with ``qw`` [N, H·D_e], or the factorised ``geo``
+    planes with ``pos`` and ``qw`` [N, H·4]), head mean or concat, with
+    attention dropout at ``dropout_rate`` masked from ``seed`` ([1] int32 on
+    q's device).  Plain version for CPU tensors, the CUDA kernels for CUDA
+    tensors (or a raise).  Returns as :func:`banded_transformer_fwd_plain`."""
+    return _Transformer.apply(bias_noself, q, k, v, qw, edge, geo, pos, heads,
+                              mean_heads, dropout_rate, seed)
+
+
+def transformer_project_plain(x, w, b, wblk):
+    """Plain PyTorch version of :func:`transformer_project`."""
+    hc = w.shape[1] // 3
+    qkv = (x.float() @ w.float() + b).to(x.dtype)
+    return qkv, (qkv[:, :hc].float() @ wblk.float()).to(x.dtype)
+
+
+def transformer_project(x, w, b, wblk):
+    """The q/k/v projection of ``banded_transformer_geo_mean_projgrad``:
+    (qkv [N, 3·H·C] = x·w + b, f32 accumulate, the f32 bias added in f32,
+    one rounding to x's dtype; qw = q·wblk [N, H·4], f32 accumulate,
+    rounded to x's dtype).  ``w`` [F, 3·H·C] (Wq | Wk | Wv) and ``wblk``
+    in x's dtype, ``b`` f32.  Plain version for CPU tensors, ``gemm.cuh``
+    on the card (or a raise)."""
+    if x.device.type == "cpu":
+        return transformer_project_plain(x, w, b, wblk)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    n, f = x.shape
+    hc3 = w.shape[1]
+    heads = wblk.shape[1] // 4
+    for name, t in (("w", w), ("b", b), ("wblk", wblk)):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {x.device}")
+    if (x.dtype not in _DTYPE_CODE or w.dtype != x.dtype
+            or wblk.dtype != x.dtype or b.dtype != torch.float32):
+        raise TypeError("x, w and wblk must share float32 or bfloat16; b "
+                        "float32")
+    if (not x.is_contiguous() or w.shape[0] != f or hc3 % 3
+            or b.shape != (hc3,) or wblk.shape != (hc3 // 3, 4 * heads)):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, b {tuple(b.shape)}, wblk "
+                         f"{tuple(wblk.shape)}")
+    if any(t.data_ptr() % 16 for t in (x, w, wblk)) or (
+            x.dtype == torch.bfloat16 and (f % 8 or hc3 % 24)):
+        raise ValueError("the projection loads 16-byte chunks: F and H·C "
+                         "must be multiples of 8 (bf16) and x, w, wblk "
+                         "16-byte aligned")
+    qkv = torch.empty((n, hc3), dtype=x.dtype, device=x.device)
+    qw = torch.empty((n, 4 * heads), dtype=x.dtype, device=x.device)
+    lib = _build.bind(TRANSFORMER_KERNEL, "transformer_project_launch",
+                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                      + [ctypes.c_void_p])
+    rc = lib.transformer_project_launch(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), wblk.data_ptr(),
+        qkv.data_ptr(), qw.data_ptr(), n, f, heads, hc3 // 3 // heads,
+        _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, "transformer_project")
+    _build.LAUNCHES["transformer_project"] += 1
+    return qkv, qw
+
+
+class _TransformerProjgrad(torch.autograd.Function):
+    """``banded_transformer_geo_mean_projgrad``: the q/k/v projections
+    inside the op.  The forward projects q/k/v and qw (rounded once, as the
+    JAX op forms them) and runs row 9; the backward runs row 10, row 6 on
+    the wblk products (dq + dqw·wblkᵀ, dwblk = qᵀ·dqw), row 7 folding the
+    dk/dv partials beside dq into one [N, 3·H·C] cotangent, and row 6's
+    bias form on it against [Wq | Wk | Wv]: dx summed and all three dW and
+    db in one launch.  The JAX package's carry-based in-kernel projection
+    mode is not carried over (the decision recorded in ROADMAP.md)."""
+
+    @staticmethod
+    def forward(ctx, bias_noself, geo, pos, x, wq, wk, wv, bq, bk, bv, wblk,
+                heads, dropout_rate, seed):
+        hc = wq.shape[1]
+        w = torch.cat([wq, wk, wv], 1)
+        qkv, qw = transformer_project(x, w, torch.cat([bq, bk, bv]).float(),
+                                      wblk)
+        out, s = _transformer_fwd(bias_noself, qkv[:, :hc], qkv[:, hc:2 * hc],
+                                  qkv[:, 2 * hc:], heads, qw=qw, geo=geo,
+                                  pos=pos, mean_heads=True,
+                                  dropout_rate=dropout_rate, seed=seed)
+        ctx.save_for_backward(bias_noself, geo, pos, x, w, qkv, qw, wblk, seed)
+        ctx.args = (heads, dropout_rate, wq.dtype, bq.dtype)
+        return out, s
+
+    @staticmethod
+    def backward(ctx, g, gs):
+        from .banded_bwd import (banded_transformer_bwd, fold_partials,
+                                 fold_project_bwd)
+
+        bias_noself, geo, pos, x, w, qkv, qw, wblk, seed = ctx.saved_tensors
+        heads, dropout_rate, w_dt, b_dt = ctx.args
+        hc = w.shape[1] // 3
+        q, k, v = qkv[:, :hc], qkv[:, hc:2 * hc], qkv[:, 2 * hc:]
+        dq, dk_part, dv_part, dqw = banded_transformer_bwd(
+            bias_noself, q, k, v, g.to(q.dtype).contiguous(), heads, qw=qw,
+            gs=gs.float().contiguous(), geo=geo, pos=pos, mean_expand=True,
+            dropout_rate=dropout_rate, seed=seed)
+        # q's cotangent from qw = q·wblk, in q's dtype, and dwblk = qᵀ·dqw
+        dq_w, dwblk = fold_project_bwd(dqw.to(q.dtype), q, wblk)
+        dz = torch.empty((x.shape[0], 3 * hc), dtype=q.dtype,
+                         device=q.device)
+        torch.add(dq, dq_w, out=dz[:, :hc])
+        tile = bias_noself.shape[1]
+        fold_partials(dk_part, tile, out=dz[:, hc:2 * hc])
+        fold_partials(dv_part, tile, out=dz[:, 2 * hc:])
+        dx, dw, db = fold_project_bwd(dz, x, w, with_bias=True)
+        cols = [slice(i * hc, (i + 1) * hc) for i in range(3)]
+        return (None, None, None, dx, *(dw[:, c].to(w_dt) for c in cols),
+                *(db[c].to(b_dt) for c in cols), dwblk.to(wblk.dtype), None,
+                None, None)
+
+
+def banded_transformer_geo_mean_projgrad(bias_noself, geo, pos, x, wq, wk,
+                                         wv, bq, bk, bv, wblk, heads,
+                                         dropout_rate=0.0, seed=None):
+    """The geo head-mean Transformer with the q/k/v projections inside the
+    op (the JAX package's op of that name) → (out [N, C], s [N, H·4]).
+    ``wq``, ``wk``, ``wv`` [F, H·C], ``bq``, ``bk``, ``bv`` [H·C] and the
+    block-diagonal ``wblk`` [H·C, H·4] in x's dtype; attention dropout at
+    ``dropout_rate`` from ``seed``.  Differentiable in x, the weights, the
+    biases and wblk."""
+    return _TransformerProjgrad.apply(bias_noself, geo, pos, x.contiguous(),
+                                      wq, wk, wv, bq, bk, bv,
+                                      wblk.contiguous(), heads, dropout_rate,
+                                      seed)
 
 
 def banded_transformer_geo_mean_fused_plain(bias_noself, geo_band, pos, x,
@@ -636,8 +854,12 @@ def banded_transformer_geo_mean_fused(bias_noself, geo_band, pos, x, wq, wk,
     CUDA kernel for CUDA tensors (or a raise)."""
     args = (bias_noself, geo_band, pos, x, wq, wk, wv, bq, bk, bv, wblk,
             heads)
-    _eval_only("banded_transformer_geo_mean_fused", 0.0, x, wq, wk, wv, bq,
-               bk, bv, wblk)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, wq, wk, wv, bq, bk, bv, wblk)):
+        raise NotImplementedError(
+            "banded_transformer_geo_mean_fused is an eval form (the JAX "
+            "package gives it no gradient or dropout): training takes "
+            "banded_transformer_geo_mean_projgrad")
     if x.device.type == "cpu":
         return banded_transformer_geo_mean_fused_plain(*args)
     if x.device.type != "cuda":

@@ -1,23 +1,34 @@
-"""Banded GAT backward: the attention kernel (row 5), the projection kernel
-(row 6), and their plain versions.
+"""The banded backward kernels (rows 5, 6, 7 and 10) and their plain
+versions.
 
-* ``banded_gat_bwd`` replaces ``gnn_bfs_rans_tpu/kernels/banded_bwd.py::
-  banded_gat_bwd`` (``mean_expand=True``): softmax recompute, dropout
-  replay, softmax VJP → dz [N, H·C] in z's dtype and the packed dα [N, 2H]
-  f32.  Kernel: ``csrc/banded_gat_bwd.cu``.  The TPU kernel emits
-  per-window dz partials for ``fold_project_bwd`` to fold; the CUDA kernel
-  gathers each sender's dz row from its receivers and emits dz rows, with
-  one rounding instead of two (a few bf16 ulps apart in bf16).  It is
-  the backward of both kernel 1's op and row 4's (``banded_gat_mean_packed``,
-  the JAX package's ``_gatm_vjp_bwd``).
-* ``fold_project_bwd`` replaces ``banded_bwd.py::fold_project_bwd``
-  (``with_bias=False``): dx = dz·Wᵀ in x's dtype and dW = xᵀ·dz in f32, both
-  in the kernel's own body.  Kernel: ``csrc/fold_project_bwd.cu``.  Here it
-  takes dz rows, so its fold is that of dW's per-block partials.
+* ``banded_gat_bwd`` (row 5) replaces ``gnn_bfs_rans_tpu/kernels/
+  banded_bwd.py::banded_gat_bwd`` (``mean_expand=True``): softmax
+  recompute, dropout replay, softmax VJP → dz [N, H·C] in z's dtype and the
+  packed dα [N, 2H] f32.  Kernel: ``csrc/banded_gat_bwd.cu``.  The TPU
+  kernel emits per-window dz partials for ``fold_project_bwd`` to fold; the
+  CUDA kernel gathers each sender's dz row from its receivers and emits dz
+  rows, with one rounding instead of two (a few bf16 ulps apart in bf16).
+  It is the backward of both kernel 1's op and row 4's
+  (``banded_gat_mean_packed``, the JAX package's ``_gatm_vjp_bwd``).
+* ``fold_project_bwd`` (row 6) replaces ``banded_bwd.py::fold_project_bwd``
+  (``with_bias`` False and True): dx = dz·Wᵀ in x's dtype, dW = xᵀ·dz and
+  db = Σ_rows dz in f32, all in the kernel's own body.  Kernel:
+  ``csrc/fold_project_bwd.cu``.  Here it takes dz rows (the GAT's from
+  row 5, the Transformer's folded by row 7).
+* ``banded_transformer_bwd`` (row 10) replaces ``banded_bwd.py::
+  banded_transformer_bwd`` in its partials mode (``raw_kv_partials``):
+  dq [N, H·C] in q's dtype, the dk/dv window partials [n_tiles, W_sub,
+  sub, H·C] in k's / v's dtype and dqw [N, H·D_e] f32, every conditioning
+  (none, edge, geo), head-mean or concat cotangent, with or without the
+  cotangent of s, dropout replayed.  Kernel:
+  ``csrc/banded_transformer_bwd.cu``.
+* ``fold_partials`` (row 7) replaces ``banded_bwd.py::fold_partials``: the
+  window partials folded into [N, F] rows (``combine_partials`` is its
+  plain version).  Kernel: ``csrc/fold_partials.cu``.
 
 The port runs one backward at every size; the TPU package's carry-based
-direct-dz mode (``project_x``/``alpha_wa``, engaged above 64 MB of dz) is
-not carried over.
+modes (the GAT's direct-dz ``project_x``/``alpha_wa`` above 64 MB of dz,
+the Transformer's in-kernel projection at H·C ≥ 128) are not carried over.
 """
 
 from __future__ import annotations
@@ -28,7 +39,9 @@ import torch
 
 from . import _build
 from . import dropout as _drop
-from .banded import _DTYPE_CODE, _windows, attention_keep, inv_keep
+from .banded import (_DTYPE_CODE, _by_head, _check_transformer,
+                     _conditioning, _ptr, _softmax_parts, _tr_keep,
+                     _tr_logits, _windows, attention_keep, inv_keep)
 
 
 def _mm_round(v: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -139,10 +152,12 @@ def banded_gat_bwd(bias_self, z, alphas, g, heads, negative_slope=0.2,
     return dz, da
 
 
-def fold_project_bwd_plain(dz, x, w):
-    """(dx, dW): dx = dz·Wᵀ rounded to x's dtype, dW = xᵀ·dz in f32."""
+def fold_project_bwd_plain(dz, x, w, with_bias=False):
+    """(dx, dW[, db]): dx = dz·Wᵀ rounded to x's dtype, dW = xᵀ·dz and
+    db = Σ_rows dz in f32."""
     dx = (dz.float() @ w.float().t()).to(x.dtype)
-    return dx, x.float().t() @ dz.float()
+    dw = x.float().t() @ dz.float()
+    return (dx, dw, dz.float().sum(0)) if with_bias else (dx, dw)
 
 
 def _k_chunk(n: int, f: int, hc: int) -> int:
@@ -155,12 +170,13 @@ def _k_chunk(n: int, f: int, hc: int) -> int:
     return cdiv(cdiv(n, splits), 32) * 32
 
 
-def fold_project_bwd(dz, x, w):
-    """Projection backward of z = x·W from dz rows: (dx [N, F] in x's
-    dtype, dW [F, H·C] f32).  CPU tensors take the plain version, CUDA
-    tensors the kernel."""
+def fold_project_bwd(dz, x, w, with_bias=False):
+    """Projection backward of z = x·W (+ b) from dz rows: (dx [N, F] in x's
+    dtype, dW [F, H·C] f32[, db [H·C] f32 with ``with_bias``]).  x may be a
+    column block of a wider buffer (row-major, any row stride).  CPU
+    tensors take the plain version, CUDA tensors the kernel."""
     if dz.device.type == "cpu":
-        return fold_project_bwd_plain(dz, x, w)
+        return fold_project_bwd_plain(dz, x, w, with_bias)
     if dz.device.type != "cuda":
         raise ValueError(f"unsupported device {dz.device}")
     n, hc = dz.shape
@@ -168,8 +184,8 @@ def fold_project_bwd(dz, x, w):
     for name, t in (("dz", dz), ("x", x), ("w", w)):
         if t.device != dz.device:
             raise ValueError(f"{name} is on {t.device}, dz on {dz.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if not (t.is_contiguous() or (name == "x" and t.stride(1) == 1)):
+            raise ValueError(f"{name} must be contiguous (x: row-major)")
         if t.dtype != dz.dtype:
             raise TypeError(f"dz, x and w must share one dtype, got "
                             f"{dz.dtype} / {x.dtype} / {w.dtype}")
@@ -178,23 +194,225 @@ def fold_project_bwd(dz, x, w):
     if x.shape[0] != n or w.shape != (f, hc):
         raise ValueError(f"shape mismatch: dz {tuple(dz.shape)}, x "
                          f"{tuple(x.shape)}, w {tuple(w.shape)}")
+    ldx = x.stride(0)
     if dz.dtype == torch.bfloat16 and (
-            f % 8 or hc % 8
+            f % 8 or hc % 8 or ldx % 8
             or any(t.data_ptr() % 16 for t in (dz, x, w))):
         raise ValueError("the bf16 products load 16-byte chunks: F and H·C "
                          "must be multiples of 8 and dz, x, w 16-byte aligned")
     lib = _build.bind("fold_project_bwd", "fold_project_bwd_launch",
-                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                      + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                       + [ctypes.c_void_p])
     k_chunk = _k_chunk(n, f, hc)
     splits = -(-n // k_chunk)
-    dx = torch.empty_like(x)
-    dw = torch.empty((f, hc), dtype=torch.float32, device=dz.device)
-    part = torch.empty((splits, f, hc), dtype=torch.float32, device=dz.device)
+    rows = f + int(with_bias)
+    dx = torch.empty((n, f), dtype=x.dtype, device=dz.device)
+    dw = torch.empty((rows, hc), dtype=torch.float32, device=dz.device)
+    part = torch.empty((splits, rows, hc), dtype=torch.float32,
+                       device=dz.device)
     rc = lib.fold_project_bwd_launch(
-        dz.data_ptr(), x.data_ptr(), w.data_ptr(), dx.data_ptr(),
-        dw.data_ptr(), part.data_ptr(), n, f, hc, k_chunk,
+        dz.data_ptr(), x.data_ptr(), ldx, w.data_ptr(), dx.data_ptr(),
+        dw.data_ptr(), part.data_ptr(), n, f, hc, k_chunk, int(with_bias),
         _DTYPE_CODE[dz.dtype], torch.cuda.current_stream(dz.device).cuda_stream)
     _build.check(lib, rc, "fold_project_bwd")
     _build.LAUNCHES["fold_project_bwd"] += 1
-    return dx, dw
+    return (dx, dw[:f], dw[f]) if with_bias else (dx, dw)
+
+
+# ------------------------------------------------------------------ row 10
+def banded_transformer_bwd_plain(bias_noself, q, k, v, g, heads, edge=None,
+                                 qw=None, gs=None, geo=None, pos=None,
+                                 mean_expand=False, dropout_rate=0.0,
+                                 seed=None):
+    """Plain PyTorch version of row 10, dense over the window like the TPU
+    kernel (masked entries contribute exactly 0), with its rounding points:
+    g/H (head mean) rounded to the primal dtype for the dp product, dl for
+    the dq and dk products, ẽ and g·inv for the dv product; rs and dl from
+    the undropped e and the dropped dp.  Returns (dq, dk partials, dv
+    partials[, dqw f32])."""
+    n_tiles, tile, width = bias_noself.shape
+    n, hc = q.shape
+    c = hc // heads
+    dt = q.dtype
+    sub = tile // 2
+    scale = 1.0 / (c ** 0.5)
+    logits, planes = _tr_logits(bias_noself, q, k, heads, edge, qw, geo, pos)
+    e, inv = _softmax_parts(logits)                           # inv [n, H, T, 1]
+    if mean_expand:
+        gh = (g.float() * (1.0 / heads)).reshape(n_tiles, tile, 1, c)
+        gh = gh.expand(n_tiles, tile, heads, c)
+    else:
+        gh = g.float().reshape(n_tiles, tile, heads, c)
+    win_k = _windows(k, tile, width).reshape(n_tiles, width, heads, c).float()
+    win_v = _windows(v, tile, width).reshape(n_tiles, width, heads, c).float()
+    dp = torch.einsum("nthc,nwhc->nhtw", _mm_round(gh, dt), win_v)
+    if gs is not None and edge is not None:
+        gs4 = gs.reshape(n_tiles, tile, heads, -1)
+        for d in range(edge.shape[1]):
+            dp = dp + _by_head(gs4[..., d]) * edge[:, d, None]
+    if gs is not None and geo is not None:
+        gs4 = gs.reshape(n_tiles, tile, heads, 4)
+        pos_c, pos_w = planes["pos_c"], planes["pos_w"]
+        gs_self = (gs4 * pos_c[:, :, None, :]).sum(-1)
+        gsp = torch.einsum("nthd,nwd->nhtw", gs4, pos_w)
+        dp = dp + (_by_head(gs_self) - gsp) * planes["invd"] \
+            + _by_head(gs4[..., 3]) * planes["dist"]
+    e_d = e
+    if dropout_rate > 0:
+        keep = _tr_keep(seed, bias_noself, heads, dropout_rate)
+        kf = inv_keep(dropout_rate)
+        e_d = torch.where(keep, e * kf, 0.0)
+        dp = torch.where(keep, dp * kf, 0.0)
+    rs = (e * dp).sum(-1, keepdim=True) * inv
+    dl = (e * ((dp - rs) * inv)) * scale                      # [n, H, T, Wc]
+    dl_r = _mm_round(dl, dt)
+    dq = torch.einsum("nhtw,nwhc->nthc", dl_r, win_k).reshape(n, hc).to(dt)
+    q4 = q.reshape(n_tiles, tile, heads, c).float()
+    parts = (n_tiles, width // sub, sub, hc)
+    dk = torch.einsum("nhtw,nthc->nwhc", dl_r, q4).reshape(parts).to(k.dtype)
+    g_s = gh * inv.permute(0, 2, 1, 3)                        # [n, T, H, C]
+    dv = torch.einsum("nhtw,nthc->nwhc", _mm_round(e_d, dt),
+                      _mm_round(g_s, dt)).reshape(parts).to(v.dtype)
+    if geo is not None:
+        pos_c, pos_w = planes["pos_c"], planes["pos_w"]
+        u = dl * planes["invd"]
+        t13u = torch.einsum("nhtw,nwd->nthd", u, pos_w)
+        t0u = u.sum(-1).permute(0, 2, 1)[..., None]            # [n, T, H, 1]
+        dqw3 = (dl * planes["dist"]).sum(-1).permute(0, 2, 1)[..., None]
+        dqw = torch.cat([(pos_c[:, :, None, :] * t0u - t13u)[..., :3], dqw3],
+                        -1)
+        return dq, dk, dv, dqw.reshape(n, heads * 4)
+    if edge is not None:
+        dqw = torch.stack([(dl * edge[:, d, None]).sum(-1)
+                           for d in range(edge.shape[1])], -1)  # [n, H, T, D]
+        return dq, dk, dv, dqw.permute(0, 2, 1, 3).reshape(n, -1)
+    return dq, dk, dv
+
+
+def banded_transformer_bwd(bias_noself, q, k, v, g, heads, edge=None,
+                           qw=None, gs=None, geo=None, pos=None,
+                           mean_expand=False, dropout_rate=0.0, seed=None):
+    """Row 10: the backward of row 9 given its inputs and the cotangents g
+    of out (in q's dtype: [N, C] with ``mean_expand``, each head receiving
+    g/H, else [N, H·C]) and ``gs`` of s (f32 [N, H·D_e] or None) →
+    (dq [N, H·C] in q's dtype, dk and dv window partials [n_tiles, W_sub,
+    sub, H·C] in k's / v's dtype[, dqw [N, H·D_e] f32 when conditioned]).
+    q, k and v may be column blocks of one buffer.  CPU tensors take the
+    plain version, CUDA tensors the kernel."""
+    if q.device.type == "cpu":
+        return banded_transformer_bwd_plain(bias_noself, q, k, v, g, heads,
+                                            edge, qw, gs, geo, pos,
+                                            mean_expand, dropout_rate, seed)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    n, hc = q.shape
+    n_tiles, tile, width = bias_noself.shape
+    mode, d_e, feat, extra = _conditioning(edge, qw, geo, pos, q, heads, tile,
+                                           width)
+    if gs is not None:
+        extra = (*extra, ("gs", gs))
+    c, ld = _check_transformer(bias_noself, q, k, v, heads,
+                               (*extra, ("g", g)))
+    if g.dtype != q.dtype or g.shape != (n, c if mean_expand else hc):
+        raise ValueError(f"g must be [{n}, {c if mean_expand else hc}] in "
+                         f"q's dtype, got {tuple(g.shape)} {g.dtype}")
+    if gs is not None and (not mode or gs.shape != (n, heads * d_e)):
+        raise ValueError(f"gs must be [{n}, {heads * d_e}] with conditioning")
+    if g.data_ptr() % 16 or tile % 2 or tile > 256:
+        raise ValueError("g must be 16-byte aligned and the tile even, at "
+                         "most 256 rows")
+    seed = _drop.check_seed(seed, dropout_rate, q.device)
+    lib = _build.bind("banded_transformer_bwd", "banded_transformer_bwd_launch",
+                      [ctypes.c_void_p] * 14 + [ctypes.c_int] * 10
+                      + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+                         ctypes.c_uint, ctypes.c_float, ctypes.c_void_p])
+    sub = tile // 2
+    stats = torch.empty((n, 3 * heads), dtype=torch.float32, device=q.device)
+    dq = torch.empty((n, hc), dtype=q.dtype, device=q.device)
+    dk = torch.empty((n_tiles, width // sub, sub, hc), dtype=k.dtype,
+                     device=q.device)
+    dv = torch.empty_like(dk)
+    dqw = (torch.empty((n, heads * d_e), dtype=torch.float32, device=q.device)
+           if mode else None)
+    rc = lib.banded_transformer_bwd_launch(
+        bias_noself.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _ptr(feat), _ptr(pos if mode == 2 else None),
+        _ptr(qw if mode else None), g.data_ptr(), _ptr(gs), stats.data_ptr(),
+        dq.data_ptr(), _ptr(dqw), dk.data_ptr(), dv.data_ptr(), n, ld, heads,
+        c, tile, width, mode, d_e, int(mean_expand), _DTYPE_CODE[q.dtype],
+        1.0 / (c ** 0.5), 1.0 / heads, _ptr(seed),
+        _drop.threshold(dropout_rate),
+        inv_keep(dropout_rate) if seed is not None else 1.0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, rc, "banded_transformer_bwd")
+    _build.LAUNCHES["banded_transformer_bwd"] += 1
+    return (dq, dk, dv, dqw) if mode else (dq, dk, dv)
+
+
+# ------------------------------------------------------------------- row 7
+def fold_partials_plain(part, tile, out=None):
+    """Plain PyTorch version of :func:`fold_partials`: ``combine_partials``
+    (W_sub/r shifted slices summed in f32 in ascending window block, blocks
+    outside [0, n_tiles) dropped), rounded once to ``out``'s dtype."""
+    out_dtype = part.dtype if out is None else out.dtype
+    n_tiles, w_sub, sub, feat = part.shape
+    r = tile // sub
+    k0 = (w_sub - r) // 2
+    pad = (w_sub + r - 1) // r + 1   # ≥ max |tile shift| over window blocks
+    p = torch.nn.functional.pad(part.float(), (0, 0, 0, 0, 0, 0, pad, pad))
+    rows = []
+    for m in range(r):
+        acc = None
+        for k in range(w_sub):
+            if (k - k0) % r != m:
+                continue
+            s = (k - k0) // r
+            sl = p[pad - s:pad - s + n_tiles, k]
+            acc = sl if acc is None else acc + sl
+        rows.append(acc if acc is not None
+                    else part.new_zeros((n_tiles, sub, feat), dtype=torch.float32))
+    res = torch.stack(rows, 1).reshape(n_tiles * tile, feat).to(out_dtype)
+    return res if out is None else out.copy_(res)
+
+
+def fold_partials(part, tile, out=None):
+    """Row 7: window partials [n_tiles, W_sub, sub, F] → [N, F] rows:
+    window block (t, k) lands on sender sub-tile t·r + k − k0 (r = T/sub,
+    k0 = (W_sub − r)/2); the f32 sum rounds once to the output's dtype.
+    ``out``: an [N, F] row-major destination (a column block of a wider
+    buffer, float32 or bfloat16), written and returned; by default a
+    new buffer in the partials' dtype.  CPU tensors take the plain version,
+    CUDA tensors the kernel."""
+    if part.device.type == "cpu":
+        return fold_partials_plain(part, tile, out)
+    n_tiles, w_sub, sub, feat = part.shape
+    if part.device.type != "cuda":
+        raise ValueError(f"unsupported device {part.device}")
+    n = n_tiles * tile
+    if out is None:
+        out = torch.empty((n, feat), dtype=part.dtype, device=part.device)
+    if part.dtype not in _DTYPE_CODE or out.dtype not in _DTYPE_CODE:
+        raise TypeError(f"partials and output must be float32 or bfloat16, "
+                        f"got {part.dtype} → {out.dtype}")
+    if out.device != part.device or not part.is_contiguous():
+        raise ValueError("part must be contiguous, out on its device")
+    if (tile % sub or out.shape != (n, feat) or out.stride(1) != 1
+            or feat % 4 or out.stride(0) % 4
+            or part.data_ptr() % 16 or out.data_ptr() % 16):
+        raise ValueError(f"shape mismatch or misaligned: part "
+                         f"{tuple(part.shape)}, tile {tile}, out "
+                         f"{tuple(out.shape)} (F a multiple of 4, rows "
+                         f"16-byte aligned)")
+    r = tile // sub
+    lib = _build.bind("fold_partials", "fold_partials_launch",
+                      [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
+                      + [ctypes.c_void_p])
+    rc = lib.fold_partials_launch(
+        part.data_ptr(), out.data_ptr(), out.stride(0), n_tiles, w_sub, sub,
+        r, (w_sub - r) // 2, feat, _DTYPE_CODE[part.dtype],
+        _DTYPE_CODE[out.dtype],
+        torch.cuda.current_stream(part.device).cuda_stream)
+    _build.check(lib, rc, "fold_partials")
+    _build.LAUNCHES["fold_partials"] += 1
+    return out

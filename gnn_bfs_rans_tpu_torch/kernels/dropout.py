@@ -5,12 +5,14 @@ the chip and, in interpret mode, from a counter-based hash of (seed, draw,
 element index) (``gnn_bfs_rans_tpu/kernels/banded.py::_hash_bits``).  The
 TPU stream cannot be reproduced off the TPU, so the port uses the hash
 everywhere: its masks are bit-identical to the JAX package run on the CPU.
-Every caller uses draw 0.  The same function is written for the card in
-``csrc/dropout.cuh`` (the CUDA kernels) and in ``kernels/epilogue.py`` (the
-Triton kernels).
+The GAT kernels and the epilogue draw once per plane (draw 0); the
+Transformer attention draws once per head, draw h over each tile's
+[T, Wcols] plane (``transformer_keep``).  The same function is written for
+the card in ``csrc/dropout.cuh`` (the CUDA kernels) and in
+``kernels/epilogue.py`` (the Triton kernels, draw 0).
 
-An element is kept when ``hash_bits(seed, flat) >= threshold(rate)`` and
-then scaled by ``1 / (1 − rate)``.  Seeds are [1] int32 tensors on the
+An element is kept when ``hash_bits(seed, flat, draw) >= threshold(rate)``
+and then scaled by ``1 / (1 − rate)``.  Seeds are [1] int32 tensors on the
 device of the data they mask, drawn from an explicit ``torch.Generator``,
 so a kernel reads its seed without a host round trip.
 """
@@ -33,20 +35,42 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
 
 
-def hash_bits(seed, flat: torch.Tensor) -> torch.Tensor:
-    """uint32 bits (as int64) of element ``flat`` of the stream ``seed``.
+def hash_bits(seed, flat: torch.Tensor, draw=0) -> torch.Tensor:
+    """uint32 bits (as int64) of element ``flat`` of draw ``draw`` of the
+    stream ``seed``.
 
-    ``seed`` is an int or an int64 tensor broadcastable against ``flat``;
-    it wraps to 32 bits as the int32 seed arithmetic of the kernels does.
+    ``seed`` and ``draw`` are ints or int64 tensors broadcastable against
+    ``flat``; the seed wraps to 32 bits as the int32 seed arithmetic of the
+    kernels does.
     """
     flat = flat.to(torch.int64)
     seed = torch.as_tensor(seed, dtype=torch.int64, device=flat.device) & _M32
-    x = flat ^ _mul32(seed, 0x9E3779B9)
+    # an int draw stays a Python int: no host-to-device copy, so the plain
+    # versions capture into CUDA graphs
+    step = (draw * 0x85EBCA6B & _M32 if isinstance(draw, int)
+            else _mul32(draw, 0x85EBCA6B))
+    x = (flat ^ _mul32(seed, 0x9E3779B9)) + step & _M32
     x = x ^ (x >> 16)
     x = _mul32(x, 0x7FEB352D)
     x = x ^ (x >> 15)
     x = _mul32(x, 0x846CA68B)
     return x ^ (x >> 16)
+
+
+def transformer_keep(seed, n_tiles: int, tile: int, width: int, heads: int,
+                     rate: float, device=None) -> torch.Tensor:
+    """[n_tiles, H, T, Wcols] keep mask of the Transformer's attention
+    dropout: tile t, head h draws ``h`` of the stream seed + t over the
+    tile's [T, Wcols] plane, element i·Wcols + w (``_transformer_kernel``'s
+    ``_attn_dropout(e, ..., sv, draw=h)``).  ``seed``: an int or a [1]
+    int64 tensor (read without a host sync)."""
+    if device is None:
+        device = seed.device if torch.is_tensor(seed) else "cpu"
+    ar = lambda n: torch.arange(n, device=device)  # noqa: E731
+    t = ar(n_tiles)[:, None, None, None]
+    h = ar(heads)[None, :, None, None]
+    flat = ar(tile)[:, None] * width + ar(width)[None, :]
+    return hash_bits(seed + t, flat, h) >= threshold(rate)
 
 
 def check_seed(seed: torch.Tensor | None, rate: float,

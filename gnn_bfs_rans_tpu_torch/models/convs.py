@@ -18,25 +18,29 @@ Counterparts of ``gnn_bfs_rans_tpu/models/convs.py``'s ``GCNConv``,
   latter with attention dropout in the kernel).  Training with
   ``fuse_train=False`` runs the unfused path: z = x·W in the compute dtype,
   α = z·amat in f32, then ``banded_gat_mean_packed`` on z.
-* ``TransformerConv`` (``convs.py:366-618``), eval form: q, k, v = x·W + b,
-  scaled dot-product attention over each receiver's senders (no
-  self-loops) on the band's ``bias_noself`` mask, the head mean (or
-  concat), plus ``lin_skip(x)``.  Edge-conditioned (``edge_dim``): the
-  logit edge term factors through ``qw = q·W_e`` per head and the value
-  edge term through ``s``, the attention-weighted raw edge features, which
-  W_e projects outside the kernel; on a band with the geometric ``geo``
-  planes (every mesh the system builds) the factorised geo form runs, else
-  the generic ``edge`` form.  With ``fuse_eval`` (and a deterministic
-  forward) the geo head-mean path projects q/k/v inside the launch
-  (``banded_transformer_geo_mean_fused``, row 11); otherwise row 9 runs on
-  dense q/k/v.  The JAX package's eval routes the geo head-mean path
-  through ``banded_transformer_geo_mean_projgrad``, whose forward is the
-  same on weights extracted as ``lin(eye) − lin(0)``; the port uses the
-  weights themselves (the branch exists for the backward).  Training raises
-  until the backward (row 10) is ported.
+* ``TransformerConv`` (``convs.py:366-618``): q, k, v = x·W + b, scaled
+  dot-product attention over each receiver's senders (no self-loops) on
+  the band's ``bias_noself`` mask, with attention dropout in training, the
+  head mean (or concat), plus ``lin_skip(x)``.  Edge-conditioned
+  (``edge_dim``): the logit edge term factors through ``qw = q·W_e`` per
+  head and the value edge term through ``s``, the attention-weighted raw
+  edge features, which W_e projects outside the kernel; on a band with the
+  geometric ``geo`` planes (every mesh the system builds) the factorised
+  geo form runs, else the generic ``edge`` form.  Training on the geo
+  head-mean path runs ``banded_transformer_geo_mean_projgrad`` (the q/k/v
+  projections inside the op, q/k/v rounded once after the f32 bias); every
+  other form runs row 9's op on dense q/k/v.  In eval, with ``fuse_eval``
+  (and a deterministic forward) the geo head-mean path projects q/k/v
+  inside the launch (``banded_transformer_geo_mean_fused``, row 11);
+  otherwise row 9 runs on dense q/k/v.  The JAX package's eval also routes
+  the geo head-mean path through its projgrad op, whose forward is the
+  same on weights extracted as ``lin(eye) − lin(0)``; the port takes that
+  op in training only and uses the weights themselves.
 
 The dense products stay ``torch.matmul``: in the JAX package they are XLA
-products outside any Pallas kernel.  The segment and dense backends and the
+products outside any Pallas kernel.  The projgrad op's are hand-written
+(``gemm.cuh``): its backward's products run inside the JAX op's kernel,
+and its forward rounds q/k/v once after the f32 bias.  The segment and dense backends and the
 concat GAT are not ported yet; a graph without the band plane a conv needs
 raises.
 
@@ -64,6 +68,7 @@ from ..kernels.banded import (
     banded_spmm,
     banded_transformer_fwd,
     banded_transformer_geo_mean_fused,
+    banded_transformer_geo_mean_projgrad,
 )
 
 
@@ -201,13 +206,15 @@ class GATConv(nn.Module):
 
 class TransformerConv(nn.Module):
     def __init__(self, features: int, heads: int = 4, concat: bool = False,
-                 edge_dim: int | None = None, fuse_eval: bool = False):
+                 edge_dim: int | None = None, fuse_eval: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         self.heads = heads
         self.features = features
         self.concat = concat
         self.edge_dim = edge_dim
         self.fuse_eval = fuse_eval
+        self.dropout = dropout
         hc = heads * features
         lin = functools.partial(nn.utils.skip_init, nn.Linear)
         self.lin_query = lin(features, hc)
@@ -223,16 +230,22 @@ class TransformerConv(nn.Module):
             if layer is not None:
                 lecun_init_(layer, generator)
 
-    def forward(self, x: torch.Tensor, graph: Graph,
+    def forward(self, x: torch.Tensor, graph: Graph, train: bool = False,
+                seed: torch.Tensor | None = None,
                 fused_ok: bool = True) -> torch.Tensor:
-        """Eval form.  ``fused_ok``: the forward is deterministic (the JAX
-        module's ``deterministic``), so ``fuse_eval`` may take row 11; the
+        """``train``: the training forms, the geo head-mean path through
+        ``banded_transformer_geo_mean_projgrad`` (the JAX module's branch,
+        which the port takes in training only), with attention dropout at
+        ``self.dropout`` masked from ``seed`` ([1] int32 on x's device).
+        ``fused_ok``: the forward is deterministic (the JAX module's
+        ``deterministic``), so ``fuse_eval`` may take row 11 in eval; the
         ``exact_bn`` forward passes False, as the JAX package runs it in
         train mode."""
         mask = _plane(graph, "bias_noself", "TransformerConv")
         H, C = self.heads, self.features
         dt = x.dtype
         band = graph.band
+        rate = self.dropout if seed is not None else 0.0
         if self.edge_dim is not None:
             d_e = self.edge_dim
             if band.geo is None and band.edge is None:
@@ -245,24 +258,27 @@ class TransformerConv(nn.Module):
             w_blk = (torch.eye(H, device=x.device)[:, None, :, None]
                      * w_e.float().permute(1, 2, 0)[:, :, None, :]
                      ).reshape(H * C, H * d_e).to(dt)
-            if (band.geo is not None and self.fuse_eval and fused_ok
-                    and not self.concat):
-                ws = [m.weight.t().to(dt).contiguous() for m in
-                      (self.lin_query, self.lin_key, self.lin_value)]
-                bs = [m.bias.to(dt) for m in
-                      (self.lin_query, self.lin_key, self.lin_value)]
-                out, s = banded_transformer_geo_mean_fused(
-                    mask, band.geo, band.pos, x.contiguous(), *ws, *bs, w_blk,
-                    H)
+            geo_mean = band.geo is not None and not self.concat
+            qkv_layers = (self.lin_query, self.lin_key, self.lin_value)
+            if geo_mean and (train or (self.fuse_eval and fused_ok)):
+                ws = [m.weight.t().to(dt).contiguous() for m in qkv_layers]
+                bs = [m.bias.to(dt) for m in qkv_layers]
+                if train:
+                    out, s = banded_transformer_geo_mean_projgrad(
+                        mask, band.geo, band.pos, x, *ws, *bs, w_blk, H,
+                        rate, seed)
+                else:
+                    out, s = banded_transformer_geo_mean_fused(
+                        mask, band.geo, band.pos, x.contiguous(), *ws, *bs,
+                        w_blk, H)
             else:
-                q, k, v = (dense(m, x) for m in
-                           (self.lin_query, self.lin_key, self.lin_value))
+                q, k, v = (dense(m, x) for m in qkv_layers)
                 qw = (q.float() @ w_blk.float()).to(dt)
                 cond = (dict(geo=band.geo, pos=band.pos)
                         if band.geo is not None else dict(edge=band.edge))
                 out, s = banded_transformer_fwd(
                     mask, q, k, v, H, qw=qw, mean_heads=not self.concat,
-                    **cond)
+                    dropout_rate=rate, seed=seed, **cond)
             if self.concat:
                 out = out.view(-1, H, C) + torch.einsum(
                     "nhd,dhc->nhc", s.view(-1, H, d_e), w_e.float()
@@ -277,5 +293,6 @@ class TransformerConv(nn.Module):
             q, k, v = (dense(m, x) for m in
                        (self.lin_query, self.lin_key, self.lin_value))
             out = banded_transformer_fwd(mask, q, k, v, H,
-                                         mean_heads=not self.concat)
+                                         mean_heads=not self.concat,
+                                         dropout_rate=rate, seed=seed)
         return out + dense(self.lin_skip, x)

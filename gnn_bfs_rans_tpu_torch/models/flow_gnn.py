@@ -6,7 +6,7 @@ BatchNorm, ReLU}, and the output MLP ``H→H→H→H/2→out``.  The conv is
 ``GCNConv``, ``GATConv``, ``GINConv`` or ``TransformerConv`` by
 ``layer_type`` (dispatch as in ``flow_gnn.py:130-153``; GCN and GIN take no
 training flag or seed; the Transformer is edge-conditioned with
-``use_edge_attr`` and takes ``fuse_eval``).
+``use_edge_attr``, takes ``fuse_eval`` and, as GAT, the attention dropout).
 Output layout is ``[U(3), p, k, epsilon, nut]``.  Dtype rules are the JAX
 module's (``flow_gnn.py:56-66, 108-153``): ``bfloat16`` runs everything but
 the final head in bf16; ``mixed`` runs the convs and the MLP in bf16 on an
@@ -23,9 +23,7 @@ BatchNorm statistics updated.  Without a generator the training forward is
 deterministic (the JAX package's dropout-free train-mode forward of the
 recalibration).  Batch or no normalization is ported, with the fused
 batch-norm epilogue; LayerNorm and the unfused epilogue
-(``fuse_epilogue=False``) are not.  The Transformer serves (eval and
-``exact_bn``) and its BatchNorm recalibrates (a train-mode forward with no
-gradient and no dropout), but does not train: its backward is not ported.
+(``fuse_epilogue=False``) are not.
 """
 
 from __future__ import annotations
@@ -106,7 +104,7 @@ class FlowGNN(nn.Module):
                 return TransformerConv(
                     h, heads=cfg.heads, concat=False,
                     edge_dim=EDGE_DIM if cfg.use_edge_attr else None,
-                    fuse_eval=cfg.fuse_eval)
+                    fuse_eval=cfg.fuse_eval, dropout=cfg.dropout)
             return GCNConv(h) if cfg.layer_type == "GCN" else GINConv(h)
 
         self.convs = nn.ModuleList(conv() for _ in range(cfg.num_layers))
@@ -137,12 +135,6 @@ class FlowGNN(nn.Module):
             raise NotImplementedError(
                 "batch statistics without the fused epilogue "
                 "(fuse_epilogue=False) are not ported yet")
-        if (cfg.layer_type == "Transformer" and train
-                and (generator is not None or torch.is_grad_enabled())):
-            raise NotImplementedError(
-                "training the Transformer is not ported yet: its backward "
-                "(row 10, banded_transformer_bwd), fold_partials (row 7) "
-                "and its attention dropout come next")
         if (cfg.layer_type == "Transformer" and cfg.use_edge_attr
                 and graph.edge_feat.shape[1] != EDGE_DIM):
             raise ValueError(f"the Transformer takes {EDGE_DIM} edge "
@@ -167,7 +159,8 @@ class FlowGNN(nn.Module):
             elif cfg.layer_type == "Transformer":
                 # the JAX package runs exact_bn (and the recalibration) in
                 # train mode, where fuse_eval does not apply
-                x_new = conv(x_in, graph, fused_ok=not (train or exact_bn))
+                x_new = conv(x_in, graph, train=train, seed=seed(),
+                             fused_ok=not (train or exact_bn))
             else:
                 x_new = conv(x_in, graph)
             if mixed:

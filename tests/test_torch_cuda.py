@@ -31,11 +31,18 @@ from gnn_bfs_rans_tpu_torch.kernels.banded import (
     banded_transformer_fwd_plain,
     banded_transformer_geo_mean_fused,
     banded_transformer_geo_mean_fused_plain,
+    banded_transformer_geo_mean_projgrad,
+    transformer_project,
+    transformer_project_plain,
     transpose_band,
 )
 from gnn_bfs_rans_tpu_torch.kernels.banded_bwd import (
     banded_gat_bwd,
     banded_gat_bwd_plain,
+    banded_transformer_bwd,
+    banded_transformer_bwd_plain,
+    fold_partials,
+    fold_partials_plain,
     fold_project_bwd,
     fold_project_bwd_plain,
 )
@@ -285,8 +292,18 @@ def test_epilogue_backward_matches_plain(card, mode, rate):
 _FEEDS_BN = re.compile(r"convs\.\d+\.(nn\.2\.)?bias")
 
 
-def _train_step_card_vs_cpu(card, tmp_path, cfg):
-    """One train step of ``cfg`` on the 336-cell case, card vs CPU."""
+# the Transformer's leaves whose gradient is zero in exact arithmetic: the
+# key bias (every logit of a row alike), the value and skip biases (every
+# row of a channel alike before the BatchNorm)
+_TR_FEEDS_BN = re.compile(r"convs\.\d+\.lin_(key|value|skip)\.bias")
+
+
+def _train_step_card_vs_cpu(card, tmp_path, cfg, zero_grad=_FEEDS_BN,
+                            zero_tol=None):
+    """One train step of ``cfg`` on the 336-cell case, card vs CPU;
+    ``zero_grad``: the parameters whose gradient is rounding noise, held in
+    bf16 and mixed, with ``zero_tol``, to that share of the largest
+    group's norm (two noises have no ratio)."""
     from gnn_bfs_rans_tpu_torch.infer import load_graph
 
     generate_box_case(tmp_path / "case", 24, 14, 1)
@@ -324,7 +341,10 @@ def _train_step_card_vs_cpu(card, tmp_path, cfg):
         for k, ref in g_f32.items():
             own = (g_cpu[k] - ref).norm().item()
             dist = (g_card[k] - ref).norm().item()
-            scale = g_norm if _FEEDS_BN.fullmatch(k) else ref.norm().item()
+            scale = g_norm if zero_grad.fullmatch(k) else ref.norm().item()
+            if zero_tol is not None and zero_grad.fullmatch(k):
+                assert dist <= zero_tol * g_norm, (k, dist, g_norm)
+                continue
             assert dist <= 1.5 * own + 1e-4 * scale, (k, dist, own)
     if dtype == "float32":
         # f32 in other summation orders through 2 layers and back: an entry
@@ -334,7 +354,7 @@ def _train_step_card_vs_cpu(card, tmp_path, cfg):
         # the attention vectors) is measured against 1e-3 of the largest one
         floor = 1e-3 * max(g.abs().max().item() for g in g_cpu.values())
         for k in g_cpu:
-            if _FEEDS_BN.fullmatch(k):
+            if zero_grad.fullmatch(k):
                 continue   # zero gradient up to rounding: Adam moves ±lr
             _close(g_card[k], g_cpu[k], 1e-3, floor)
             # Adam's first step is lr·g/(|g| + ε): it moves each entry by
@@ -608,3 +628,232 @@ def test_transformer_predict_case_card_matches_cpu(card, tmp_path, dtype,
         for k in ref:
             np.testing.assert_allclose(got[k], ref[k], rtol=tol,
                                        atol=tol * np.abs(ref[k]).max())
+
+
+def _tr_inputs(card, n, heads, c, dt, form, band, gen):
+    q, k, v = (torch.randn(n, heads * c, generator=gen).to(card, dt)
+               for _ in range(3))
+    extra = {}
+    if form == "edge":
+        extra = dict(edge=band.edge)
+    elif form == "geo":
+        extra = dict(geo=band.geo, pos=band.pos)
+    if extra:
+        extra["qw"] = torch.randn(n, heads * 4, generator=gen).to(card, dt)
+    return q, k, v, extra
+
+
+# width 60 → Wcols 256, width 100 → Wcols 384
+@pytest.mark.parametrize("width", [60, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", ["plain", "edge", "geo"])
+def test_transformer_kernel_dropout_matches_plain(card, form, dtype, width):
+    """Row 9 at rate 0.1, head mean and concat: the same masks (the hash
+    stream, one draw per head) on both sides."""
+    n, heads, c = 512, 4, 64
+    band, pad = _tr_band(n, width, geometric=form != "edge", seed=2)
+    band = band.to(card)
+    gen = torch.Generator().manual_seed(11)
+    dt = getattr(torch, dtype)
+    q, k, v, extra = _tr_inputs(card, n, heads, c, dt, form, band, gen)
+    for mean in (False, True):
+        args = (band.bias_noself, q, k, v, heads)
+        kw = dict(mean_heads=mean, dropout_rate=0.1, seed=_seed(card), **extra)
+        _build.reset_launches()
+        got = banded_transformer_fwd(*args, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["banded_transformer_fwd"] == 1
+        ref = banded_transformer_fwd_plain(*args, **kw)
+        got, ref = (got, ref) if extra else ((got,), (ref,))
+        _close(got[0], ref[0], 1e-4 if dtype == "float32" else 1e-2)
+        if extra:
+            _check_s(band, got[1], ref[1], 1e-4)
+
+
+# the geo form (FlowGNN's) in every combination; the others at (rate 0, no
+# gs) and (rate 0.1, gs)
+_TR_BWD = ([("geo", m, r, g) for m in (True, False) for r in (0.0, 0.1)
+            for g in (False, True)]
+           + [("edge", m, r, r > 0) for m in (True, False) for r in (0.0, 0.1)]
+           + [("plain", m, r, False) for m in (True, False)
+              for r in (0.0, 0.1)])
+
+
+@pytest.mark.parametrize("width", [60, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form,mean,rate,with_gs", _TR_BWD)
+def test_transformer_backward_kernel_matches_plain(card, form, mean, rate,
+                                                   with_gs, dtype, width):
+    """Row 10: dq and the dk/dv partials (f32 summation order; bf16 one
+    rounding of dl, ẽ or an output may flip, KTOL) and dqw (f32 from the
+    same inputs; by column group as s, the geo direction columns' terms
+    cancel)."""
+    n, heads, c = 512, 4, 64
+    band, pad = _tr_band(n, width, geometric=form != "edge", seed=3)
+    band = band.to(card)
+    gen = torch.Generator().manual_seed(12)
+    dt = getattr(torch, dtype)
+    q, k, v, extra = _tr_inputs(card, n, heads, c, dt, form, band, gen)
+    g = torch.randn(n, c if mean else heads * c, generator=gen).to(card, dt)
+    if with_gs:
+        extra["gs"] = torch.randn(n, heads * 4, generator=gen).to(card)
+    args = (band.bias_noself, q, k, v, g, heads)
+    kw = dict(mean_expand=mean, dropout_rate=rate,
+              seed=_seed(card) if rate else None, **extra)
+    _build.reset_launches()
+    got = banded_transformer_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["banded_transformer_bwd"] == 1
+    ref = banded_transformer_bwd_plain(*args, **kw)
+    assert len(got) == len(ref) == (3 if form == "plain" else 4)
+    for a, b in zip(got[:3], ref[:3]):
+        assert a.dtype == b.dtype == dt and a.shape == b.shape
+        _close(a, b, KTOL[dtype])
+    assert (got[0][torch.from_numpy(pad).to(card)] == 0).all()
+    if form != "plain":
+        assert got[3].dtype == torch.float32
+        _check_s(band, got[3], ref[3], 1e-4 if dtype == "float32" else 1e-3)
+
+
+@pytest.mark.parametrize("window", [(6, 64), (10, 64), (4, 64), (3, 128)])
+@pytest.mark.parametrize("dtypes", [("float32", "float32"),
+                                    ("bfloat16", "bfloat16"),
+                                    ("bfloat16", "float32")])
+def test_fold_partials_kernel_matches_plain(card, window, dtypes):
+    """Row 7: the same f32 sums in the same order, rounded once: equal in
+    f32 and within one rounding (2^-8) in bf16; into a column block of a
+    wider buffer too."""
+    w_sub, sub = window
+    n_tiles, tile, feat = 7, 128, 96
+    gen = torch.Generator().manual_seed(13)
+    part = torch.randn(n_tiles, w_sub, sub, feat, generator=gen).to(
+        card, getattr(torch, dtypes[0]))
+    out_dt = getattr(torch, dtypes[1])
+    _build.reset_launches()
+    got = fold_partials(part, tile, out=torch.empty(
+        n_tiles * tile, feat, dtype=out_dt, device=card))
+    wide = torch.zeros(n_tiles * tile, 3 * feat, dtype=out_dt, device=card)
+    fold_partials(part, tile, out=wide[:, feat:2 * feat])
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fold_partials"] == 2
+    ref = fold_partials_plain(part, tile, out=torch.empty_like(got))
+    assert got.dtype == out_dt
+    _close(got, ref, 0.0 if out_dt == torch.float32 else 2.0 ** -8)
+    torch.testing.assert_close(wide[:, feat:2 * feat], got, rtol=0, atol=0)
+    assert (wide[:, :feat] == 0).all() and (wide[:, 2 * feat:] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fold_project_bias_form_matches_plain(card, dtype):
+    """Row 6's bias form: db = Σ_rows dz summed from the dz tiles the dW
+    product stages (f32 summation order), dx and dW as before; x as a
+    column block of a wider buffer (its row stride)."""
+    n, f, hc = 1000, 64, 192
+    gen = torch.Generator().manual_seed(14)
+    dt = getattr(torch, dtype)
+    dz = torch.randn(n, hc, generator=gen).to(card, dt)
+    wide = torch.randn(n, 3 * f, generator=gen).to(card, dt)
+    x = wide[:, f:2 * f]
+    w = (torch.randn(f, hc, generator=gen) * f ** -0.5).to(card, dt)
+    _build.reset_launches()
+    dx, dw, db = fold_project_bwd(dz, x, w, with_bias=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fold_project_bwd"] == 1
+    ref = fold_project_bwd_plain(dz, x, w, with_bias=True)
+    assert dx.dtype == dt and dw.dtype == db.dtype == torch.float32
+    assert dw.shape == (f, hc) and db.shape == (hc,)
+    _close(dx, ref[0], KTOL[dtype])
+    _close(dw, ref[1], 1e-4 if dtype == "float32" else 1e-3)
+    _close(db, ref[2], 1e-5)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_transformer_projgrad_op_matches_plain(card, dtype, rate):
+    """The projgrad op (rows 9, 10, 7, 6 and the projection) on the card
+    against the same op through the plain versions on the CPU: out, s and
+    every cotangent (f32 summation order; bf16 KTOL of each one's max, or
+    of the largest cotangent for dbk, zero in exact arithmetic)."""
+    n, heads, c, f = 512, 4, 64, 64
+    band, _ = _tr_band(n, 60, geometric=True, seed=4)
+    gen = torch.Generator().manual_seed(15)
+    dt = getattr(torch, dtype)
+    x = torch.randn(n, f, generator=gen)
+    ws = [torch.randn(f, heads * c, generator=gen) * f ** -0.5
+          for _ in range(3)]
+    bs = [0.1 * torch.randn(heads * c, generator=gen) for _ in range(3)]
+    w_e = torch.randn(4, heads, c, generator=gen) * 0.5
+    wblk = (torch.eye(heads)[:, None, :, None]
+            * w_e.permute(1, 2, 0)[:, :, None, :]).reshape(heads * c, heads * 4)
+    g = torch.randn(n, c, generator=gen)
+    gs = torch.randn(n, heads * 4, generator=gen)
+    results = []
+    for dev in ("cpu", card):
+        b = band.to(dev)
+        leaves = [t.to(dev, dt).detach().clone().requires_grad_()
+                  for t in (x, *ws, *bs, wblk)]
+        seed = torch.tensor([77], dtype=torch.int32, device=dev) if rate \
+            else None
+        _build.reset_launches()
+        out, s = banded_transformer_geo_mean_projgrad(
+            b.bias_noself, b.geo, b.pos, *leaves, heads, rate, seed)
+        torch.autograd.backward((out, s), (g.to(dev, dt), gs.to(dev)))
+        torch.cuda.synchronize()
+        results.append(([out, s], [t.grad for t in leaves],
+                        dict(_build.LAUNCHES)))
+    (fwd_cpu, g_cpu, l_cpu), (fwd_card, g_card, l_card) = results
+    assert not any(l_cpu.values())
+    assert {k: v for k, v in l_card.items() if v} == {
+        "transformer_project": 1, "banded_transformer_fwd": 1,
+        "banded_transformer_bwd": 1, "fold_partials": 2,
+        "fold_project_bwd": 2}
+    tol = KTOL[dtype]
+    _close(fwd_card[0], fwd_cpu[0], tol)
+    top = max(t.float().abs().max().item() for t in g_cpu)
+    names = ("dx", "dwq", "dwk", "dwv", "dbq", "dbk", "dbv", "dwblk")
+    for name, a, b in zip(names, g_card, g_cpu):
+        assert a.dtype == b.dtype == dt, name
+        _close(a, b, tol, floor=top if name == "dbk" else 1e-30)
+
+
+def test_transformer_project_matches_plain(card):
+    """qkv = x·W + b with the f32 bias before the one rounding, qw = q·wblk
+    rounded once: bf16 one rounding may flip (2^-8)."""
+    n, f, hc, heads = 500, 64, 256, 4
+    gen = torch.Generator().manual_seed(16)
+    x = torch.randn(n, f, generator=gen).to(card, torch.bfloat16)
+    w = (torch.randn(f, 3 * hc, generator=gen) * f ** -0.5).to(
+        card, torch.bfloat16)
+    b = 0.1 * torch.randn(3 * hc, generator=gen).to(card)
+    wblk = torch.randn(hc, 4 * heads, generator=gen).to(card, torch.bfloat16)
+    qkv, qw = transformer_project(x, w, b, wblk)
+    ref_qkv, ref_qw = transformer_project_plain(x, w, b, wblk)
+    torch.cuda.synchronize()
+    _close(qkv, ref_qkv, 2.0 ** -7)
+    # qw from the kernel's own q (a q rounding may flip on either side)
+    _close(qw, (qkv[:, :hc].float() @ wblk.float()).to(torch.bfloat16),
+           2.0 ** -7)
+
+
+@pytest.mark.parametrize("edge,dtype", [
+    (True, "float32"), (True, "bfloat16"), (True, "mixed"),
+    (False, "float32"), (False, "bfloat16")])
+def test_transformer_train_step_card_matches_cpu(card, tmp_path, edge,
+                                                 dtype):
+    """One Transformer train step on the card vs the CPU (the plain
+    versions), as the other convs' (its zero-gradient biases, noise on both
+    sides, within one bf16 rounding, 2^-8, of the largest group's norm, as
+    chip_smoke.py holds them); the launches are the training path's:
+    per layer the projection, rows 9, 10, two row-7 folds and two row-6
+    launches on the geo path; rows 9, 10 and two folds without edges."""
+    _build.reset_launches()
+    _train_step_card_vs_cpu(card, tmp_path, ModelConfig(
+        hidden_dim=64, num_layers=2, layer_type="Transformer", heads=2,
+        backend="pallas", compute_dtype=dtype, dropout=0.0,
+        use_edge_attr=edge), zero_grad=_TR_FEEDS_BN, zero_tol=2.0 ** -8)
+    want = {"banded_transformer_fwd": 2, "banded_transformer_bwd": 2,
+            "fold_partials": 4, "fused_epilogue_fwd": 4,
+            "fused_epilogue_bwd": 4}
+    if edge:
+        want.update(transformer_project=2, fold_project_bwd=4)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == want

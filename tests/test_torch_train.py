@@ -352,14 +352,17 @@ def test_unported_paths_raise(case, tmp_path):
         cli_main(_train_argv(path, tmp_path / "a", 1, "--backend", "dense"))
     with pytest.raises(NotImplementedError):
         cli_main(_train_argv(path, tmp_path / "b", 1, "--epoch_block", "2"))
-    # the Transformer serves but does not train: its backward is not ported
-    with pytest.raises(NotImplementedError, match="Transformer"):
-        cli_main(_train_argv(path, tmp_path / "t", 1, "--layer_type",
-                             "Transformer"))
-    port = FlowGNN(ModelConfig(**{**CFG, "layer_type": "Transformer"}))
-    with pytest.raises(NotImplementedError, match="Transformer"):
-        port(load_graph(path, "Transformer"), train=True,
-             generator=torch.Generator().manual_seed(0))
+    # the Transformer trains (rows 9, 10, 7 and 6), with dropout; its
+    # fused-projection eval form (row 11) has no gradient
+    cfg = ModelConfig(**{**CFG, "layer_type": "Transformer", "heads": 2,
+                         "dropout": 0.1, "fuse_eval": True})
+    port = FlowGNN(cfg)
+    graph = load_graph(path, "Transformer")
+    port(graph, train=True,
+         generator=torch.Generator().manual_seed(0)).sum().backward()
+    assert all(torch.isfinite(p.grad).all() for p in port.parameters())
+    with pytest.raises(NotImplementedError, match="eval form"):
+        port.convs[0](port.input_proj(graph.node_feat), graph)
     if not torch.cuda.is_available():
         # the card is the default device: no silent fall back to the CPU
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -10,8 +10,8 @@
 * rows without senders (padding) give exactly 0;
 * ``TransformerConv`` matches the JAX module in f32 on the geo and the
   generic edge planes, head mean and concat;
-* a CPU tensor takes the plain version; the gradient and dropout forms
-  raise until the backward is ported.
+* a CPU tensor takes the plain version; row 9 takes a gradient and
+  dropout, row 11 (an eval form) raises under a gradient.
 
 The CUDA kernels are held against the plain versions on the card by
 ``test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -255,6 +255,9 @@ def test_rows_without_senders_give_zero(bands, form):
 
 
 def test_cpu_takes_plain_version_and_grad_or_dropout_raise(bands):
+    """A CPU tensor takes the plain versions, forward and backward (no
+    launch); row 9 takes a gradient and dropout (rows 10 and 7 behind it);
+    row 11, an eval form, raises under a gradient."""
     _, tb = bands["geo"]
     n = tb.bias_noself.shape[0] * 128
     q, k, v, qw = (torch.from_numpy(a) for a in _inputs(n, H, 4, seed=8))
@@ -263,13 +266,23 @@ def test_cpu_takes_plain_version_and_grad_or_dropout_raise(bands):
                                        geo=tb.geo, pos=tb.pos,
                                        mean_heads=True)
     assert out.shape == (n, C) and s.shape == (n, H * 4)
+    ql = q.clone().requires_grad_()
+    seed = torch.tensor([3], dtype=torch.int32)
+    dropped = tk.banded_transformer_fwd(tb.bias_noself, ql, k, v, H,
+                                        mean_heads=True, dropout_rate=0.1,
+                                        seed=seed)
+    dropped.sum().backward()
+    assert ql.grad.shape == q.shape and torch.isfinite(ql.grad).all()
+    assert not torch.equal(dropped.detach(), tk.banded_transformer_fwd(
+        tb.bias_noself, q, k, v, H, mean_heads=True))
     assert not any(_build.LAUNCHES.values())
-    with pytest.raises(NotImplementedError, match="row 10"):
-        tk.banded_transformer_fwd(tb.bias_noself, q.requires_grad_(), k, v,
-                                  H, mean_heads=True)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tk.banded_transformer_fwd(tb.bias_noself, q.detach(), k, v, H,
-                                  dropout_rate=0.1)
+    x, ws, bs, wblk = (torch.from_numpy(a) if isinstance(a, np.ndarray)
+                       else [torch.from_numpy(b) for b in a]
+                       for a in _fused_inputs(n))
+    with pytest.raises(NotImplementedError, match="eval form"):
+        tk.banded_transformer_geo_mean_fused(
+            tb.bias_noself, tb.geo, tb.pos, x.requires_grad_(), *ws, *bs,
+            wblk, H)
 
 
 @pytest.mark.parametrize("concat", [False, True], ids=["mean", "concat"])

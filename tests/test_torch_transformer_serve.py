@@ -10,7 +10,8 @@
 * ``predict_case`` end to end: a JAX-saved checkpoint (Orbax) and the port
   checkpoint carried from it give the same denormalized fields, and
   ``--recalibrate_bn`` runs;
-* training a Transformer raises (its backward is not ported).
+* the Transformer's training forward differentiates; what is not ported
+  (the dense backend, epoch blocks, row 11 under a gradient) raises.
 
 Small sizes: a 336-cell generated case, hidden 32, 2 heads, 2 layers.
 """
@@ -202,11 +203,24 @@ def test_jax_saved_checkpoint_serves(case, tmp_path):
 
 
 def test_training_raises(case, tmp_path):
+    """What is still not ported raises for the Transformer too (the dense
+    backend, on-device epoch blocks, row 11 under a gradient); its training
+    forward itself now runs and differentiates."""
     path = case[0]
-    with pytest.raises(NotImplementedError, match="Transformer"):
-        cli_main(["train", "--case_path", str(path), "--time_dirs", "100",
-                  "--output_dir", str(tmp_path), "--layer_type",
-                  "Transformer", "--device", "cpu"])
-    port = FlowGNN(ModelConfig(**CFG))
-    with pytest.raises(NotImplementedError, match="row 10"):
-        port(load_graph(path, "Transformer"), train=True)
+    argv = ["train", "--case_path", str(path), "--time_dirs", "100",
+            "--layer_type", "Transformer", "--device", "cpu"]
+    with pytest.raises(NotImplementedError, match="backend"):
+        cli_main([*argv, "--output_dir", str(tmp_path / "a"), "--backend",
+                  "dense"])
+    with pytest.raises(NotImplementedError, match="epoch_block"):
+        cli_main([*argv, "--output_dir", str(tmp_path / "b"),
+                  "--epoch_block", "2"])
+    port = FlowGNN(ModelConfig(**{**CFG, "fuse_eval": True}))
+    graph = load_graph(path, "Transformer")
+    out = port(graph, train=True, generator=torch.Generator().manual_seed(0))
+    out.sum().backward()
+    grad = port.convs[0].lin_query.weight.grad
+    assert grad is not None and torch.isfinite(grad).all()
+    x = port.input_proj(graph.node_feat)
+    with pytest.raises(NotImplementedError, match="eval form"):
+        port.convs[0](x, graph)         # fuse_eval in eval, under a gradient
