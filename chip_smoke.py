@@ -87,7 +87,21 @@ Phases (any failure raises and exits non-zero):
     checkpoint served by ``infer``; the no-edge path through the
     ``Trainer`` (rows 9, 10, 7 launched); the train steps' times at 4×256
     and 8×256;
-16. print the kernel table as one JSON line, then the result line.
+16. rows 4 (concat) and 5 (per-head): ``banded_gat`` and
+    ``banded_gat_bwd(..., mean_expand=False)`` (CUDA) against their plain
+    versions on both GAT bands at the flagship width, f32 and bf16, rate 0
+    and 0.1, timed beside their bounds; one forward and backward of
+    ``GATConv(256, heads=4, concat=True)`` through the kernels vs the plain
+    versions, f32 and bf16, its launch counts showing rows 4 and 5; the
+    three backends on the card: every conv at hidden 256 (GAT and the
+    Transformer also concat), its ``dense`` and ``segment`` outputs and
+    gradients against the banded path's on the same weights; the GAT
+    4×256 bf16 served through ``infer`` (as in phase 4) on a 24×24×24 hex
+    box, which has no band (the dense branches); ``train --backend dense``
+    (the JAX CLI's default backend: GCN 6×256 f32, 4 epochs) and
+    ``--backend dense --norm_type layer`` (2 epochs), each lowering the
+    loss and served by ``infer``; their train steps' times;
+17. print the kernel table as one JSON line, then the result line.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times per
 call: ten calls captured in one CUDA graph and replayed, so host launch
@@ -95,8 +109,10 @@ overhead does not enter them; the eager per-call time is printed beside
 them.  ``launches`` counts each wrapper's launches on its training path
 (phase 12: the flagship GAT's for rows 1, 2, 3, 5, 6; the GCN run's for
 row 8; the unfused GAT run's for row 4; phase 15's Transformer run for
-rows 10 and 7); rows 9 and 11 count theirs on the Transformer serving
-path (the 4×256 bf16 ``--bn_exact off`` run and the ``fuse_eval`` run).
+rows 10 and 7; phase 16's concat conv, bf16, for row 4's concat form and
+row 5's per-head form); rows 9 and 11 count theirs on the Transformer
+serving path (the 4×256 bf16 ``--bn_exact off`` run and the ``fuse_eval``
+run).
 
 Needs no network; builds into ``gnn_bfs_rans_tpu_torch/build`` and writes
 scratch files only under the temporary directory.
@@ -177,6 +193,11 @@ TR_EPOCHS = 4
 # S_CANCEL_TOL of that size (measured f32 gap ≤ 2.5e-7 of it)
 S_TOL = 1e-4
 S_CANCEL_TOL = 1e-6
+# the dense and segment branches vs the banded path (f32, × max |banded|):
+# the same functions by other summation orders, the Transformer's edge term
+# factorised through the geo planes on the banded side; a wrong branch
+# moves a value by O(1)
+BACKEND_TOL = 1e-3
 
 
 def log(*args):
@@ -325,7 +346,7 @@ def plain_versions():
     swaps = [
         (convs, "banded_gat_mean_fused", banded.banded_gat_mean_fused_plain),
         (banded, "banded_gat_mean_fused", banded.banded_gat_mean_fused_plain),
-        (banded, "banded_gat_mean", banded.banded_gat_mean_plain),
+        (banded, "_gat_attention", banded._attention_plain),
         (banded, "banded_spmm_fwd", banded.banded_spmm_plain),
         (banded, "_transformer_fwd", banded.banded_transformer_fwd_plain),
         (banded, "transformer_project", banded.transformer_project_plain),
@@ -1058,49 +1079,17 @@ def check_gat_mean(graph, dtype_name, rate, gen, measure=False):
 
 def train_default(tmp, case, info):
     """``train`` with the CLI's default model (GCN, 6 layers, hidden 256,
-    f32): a few epochs, the loss must fall and the checkpoint serve; then
-    the train step's times.  Returns the launch counts of the run."""
+    f32; ``train_cli``), then the train step's times.  Returns the launch
+    counts of the run."""
     import json as _json
 
-    import numpy as np
-    import torch
-    from gnn_bfs_rans_tpu_torch.cli.main import main as cli_main
-    from gnn_bfs_rans_tpu_torch.kernels import _build
-
-    out = tmp / "train_gcn"
-    argv = ["train", "--case_path", str(case), "--time_dirs", *TRAIN_TIMES,
-            "--output_dir", str(out), "--epochs", str(GCN_EPOCHS),
-            "--save_every", str(GCN_EPOCHS), "--lr", "1e-3", "--device",
-            "cuda"]
-    t = time.time()
-    _build.reset_launches()           # the GCN training path starts here
-    rc = cli_main(argv)
-    torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)  # ... and ends here
-    log(f"train (default: GCN): {GCN_EPOCHS} epochs in {time.time() - t:.1f} "
-        f"s, launches {launches}")
-    if rc != 0:
-        raise RuntimeError(f"train returned {rc}")
-    meta = _json.loads((out / f"epoch_{GCN_EPOCHS}.meta.json").read_text())
+    launches = train_cli(tmp, case, info, "gcn", GCN_EPOCHS)
+    meta = _json.loads((tmp / "train_gcn" / f"epoch_{GCN_EPOCHS}.meta.json")
+                       .read_text())
     mcfg = meta["model_config"]
     if (mcfg["layer_type"], mcfg["num_layers"], mcfg["hidden_dim"]) != (
             "GCN", GCN_LAYERS, HIDDEN):
         raise AssertionError(f"the default model is not GCN 6x256: {mcfg}")
-    losses = _json.loads((out / "training_history.json").read_text())[
-        "train_loss"]
-    log(f"train losses (GCN) {losses}")
-    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-        raise AssertionError(f"GCN training did not lower the loss: {losses}")
-    pred = tmp / "train_gcn_pred"
-    rc = cli_main(["infer", "--checkpoint", str(out), "--case_path",
-                   str(case), "--output_dir", str(pred), "--reference_time",
-                   "100", "--device", "cuda"])
-    if rc != 0:
-        raise RuntimeError(f"infer of the GCN checkpoint returned {rc}")
-    fields = dict(np.load(pred / "predictions.npz"))
-    if fields["U"].shape != (info["n_cells"], 3) or not all(
-            np.isfinite(v).all() for v in fields.values()):
-        raise AssertionError("bad predictions from the GCN checkpoint")
     step_times(tmp, case, "gcn6x256-f32", layer_type="GCN",
                num_layers=GCN_LAYERS, compute_dtype="float32")
     return launches
@@ -1149,7 +1138,8 @@ def step_times(tmp, case, label, **model):
 
     mcfg = ModelConfig(**{**dict(hidden_dim=HIDDEN, heads=HEADS,
                                  backend="pallas", dropout=DROPOUT), **model})
-    dataset = load_dataset(case, list(TRAIN_TIMES), with_band=True,
+    dataset = load_dataset(case, list(TRAIN_TIMES),
+                           with_band=mcfg.backend == "pallas",
                            band_components=LAYER_COMPONENTS[mcfg.layer_type])
     tcfg = TrainConfig(lr=1e-3)
     tr = Trainer(dataset, mcfg, tcfg, output_dir=tmp / f"timing_{label}",
@@ -1792,6 +1782,302 @@ def transformer_train_phase(tmp, case, train_info, edge_bands, gen):
     return rows, launches, noedge
 
 
+# ------------------------------------------------------------ phase 16
+def check_gat_concat(graph, dtype_name, rate, gen, measure=False):
+    """Row 4's concat form and row 5's per-head cotangent, each kernel
+    alone vs its plain version at the flagship width (H 4, C 256); with
+    ``measure`` their times (returned as two rows)."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.kernels.banded import (banded_gat,
+                                                       banded_gat_plain)
+    from gnn_bfs_rans_tpu_torch.kernels.banded_bwd import (
+        banded_gat_bwd, banded_gat_bwd_plain)
+
+    dt = getattr(torch, dtype_name)
+    n = graph.n_pad
+    mask = graph.band.bias_self
+    x, w, wa, _, seed = _gat_inputs(n, dt, gen)
+    seed = seed if rate else None
+    hc = HEADS * HIDDEN
+    g = torch.randn(n, hc, generator=gen).to("cuda", dt)
+    z = (x.float() @ w.float()).to(dt)
+    alphas = (x.float() @ wa.float()).contiguous()
+    a4 = (mask, z, alphas, HEADS, 0.2, rate, seed)
+    a5 = (mask, z, alphas, g, HEADS, 0.2, rate, seed, False)
+    out = banded_gat(*a4)
+    dz, da = banded_gat_bwd(*a5)
+    ref = banded_gat_plain(*a4)
+    ref_dz, ref_da = banded_gat_bwd_plain(*a5)
+    torch.cuda.synchronize()
+    err4, scale4 = _rel_err(out, ref)
+    err5, scale5 = _rel_err(dz, ref_dz)
+    errs = (("row 4 concat out", err4, scale4, GAT_TOL[dtype_name]),
+            ("row 5 per-head dz", err5, scale5, BWD_TOL[dtype_name]),
+            ("row 5 per-head dalpha", *_rel_err(da, ref_da),
+             BWD_TOL[dtype_name]))
+    for what, err, scale, tol in errs:
+        log(f"{what} {dtype_name} rate {rate} Wcols {mask.shape[-1]}: "
+            f"max_abs_err {err:.3e} (tol {tol} x {scale:.3e})")
+        if not err <= tol * scale:
+            raise AssertionError(f"{what} {dtype_name} rate {rate}: {err}")
+    if out.shape != (n, hc) or not (torch.isfinite(out).all()
+                                    and torch.isfinite(dz).all()):
+        raise AssertionError(f"row 4 concat / row 5 per-head: shape "
+                             f"{tuple(out.shape)} or non-finite values")
+    if not measure:
+        return None
+    ms4 = graph_time_ms(lambda: banded_gat(*a4))
+    eager4 = cuda_time_ms(lambda: banded_gat(*a4))
+    plain4 = graph_time_ms(lambda: banded_gat_plain(*a4), 3, 2)
+    ms5 = graph_time_ms(lambda: banded_gat_bwd(*a5))
+    plain5 = graph_time_ms(lambda: banded_gat_bwd_plain(*a5), 3, 2)
+    nnz = int(mask.sum().item())
+    isz = z.element_size()
+    # row 4: mask, z and α read once, out [N, H·C] written once; row 5:
+    # mask, z, α and g [N, H·C] read once, dz and dα written once.  The f32
+    # SIMT work is the sparse products: 2·C operations per nonzero entry
+    # and head (row 4), dp and dz (row 5)
+    b4 = bound(mask.numel() + 2 * n * hc * isz + n * 2 * HEADS * 4,
+               2 * nnz * hc, H100_FP32_FLOPS)
+    b5 = bound(mask.numel() + 3 * n * hc * isz + 2 * n * 2 * HEADS * 4,
+               4 * nnz * hc, H100_FP32_FLOPS)
+    log(f"row 4 banded_gat (concat) {dtype_name} rate {rate} N {n} nnz "
+        f"{nnz}: ms {ms4:.4f} (eager {eager4:.4f}) plain_ms {plain4:.4f} "
+        f"bound_ms {b4[0]:.5f} ({b4[1]})")
+    log(f"row 5 banded_gat_bwd (per-head) {dtype_name} rate {rate}: ms "
+        f"{ms5:.4f} plain_ms {plain5:.4f} bound_ms {b5[0]:.5f} ({b5[1]})")
+    return (dict(max_abs_err=err4, ms=ms4, plain_ms=plain4, bound_ms=b4[0],
+                 bound_by=b4[1], library_ms=None),
+            dict(max_abs_err=err5, ms=ms5, plain_ms=plain5, bound_ms=b5[0],
+                 bound_by=b5[1], library_ms=None))
+
+
+def concat_conv(graph, dtype_name, gen):
+    """One forward and backward of ``GATConv(256, heads=4, concat=True)``
+    (dropout 0.1) through the kernels, then through the plain versions on
+    the same weights and masks: the output and every gradient.  Returns
+    the launch counts of the kernel run (the concat conv's path)."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.kernels import _build
+    from gnn_bfs_rans_tpu_torch.models.convs import GATConv
+
+    dt = getattr(torch, dtype_name)
+    conv = GATConv(HIDDEN, heads=HEADS, concat=True, dropout=DROPOUT,
+                   backend="pallas")
+    conv.reset_parameters(torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        conv.bias.normal_(0.0, 0.1, generator=torch.Generator()
+                          .manual_seed(4))
+    conv = conv.cuda()
+    x = torch.randn(graph.n_pad, HIDDEN, generator=gen).to("cuda", dt)
+    g = torch.randn(graph.n_pad, HEADS * HIDDEN, generator=gen).to("cuda", dt)
+    seed = torch.tensor([4321], dtype=torch.int32, device="cuda")
+    runs = []
+    for plain in (False, True):
+        conv.zero_grad()
+        xl = x.clone().requires_grad_()
+        with plain_versions() if plain else contextlib.nullcontext():
+            _build.reset_launches()     # the concat conv's path starts here
+            out = conv(xl, graph, train=True, seed=seed)
+            out.backward(g)
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)    # ... and ends here
+        runs.append((out.detach(), {"x": xl.grad, **{
+            k: p.grad.clone() for k, p in conv.named_parameters()}},
+            launches))
+    (out_k, g_k, launches), (out_p, g_p, _) = runs
+    log(f"GATConv concat {dtype_name}: launches {launches}")
+    if not (launches.get("banded_gat", 0) == 1
+            and launches.get("banded_gat_bwd", 0) == 1):
+        raise AssertionError(f"the concat conv did not run rows 4 (concat) "
+                             f"and 5 (per-head): {launches}")
+    err, scale = _rel_err(out_k, out_p)
+    log(f"  out: max_abs_err {err:.3e} (tol {GAT_TOL[dtype_name]} x "
+        f"{scale:.3e})")
+    if out_k.shape != (graph.n_pad, HEADS * HIDDEN) or not (
+            err <= GAT_TOL[dtype_name] * scale):
+        raise AssertionError(f"concat conv {dtype_name} output: {err}")
+    for name in g_p:
+        err, scale = _rel_err(g_k[name], g_p[name])
+        log(f"  grad {name}: max_abs_err {err:.3e} (tol "
+            f"{BWD_TOL[dtype_name]} x {scale:.3e})")
+        if not (torch.isfinite(g_k[name]).all()
+                and err <= BWD_TOL[dtype_name] * scale):
+            raise AssertionError(f"concat conv {dtype_name} grad {name}: "
+                                 f"{err}")
+    return launches
+
+
+def backends_agree(graph, gen):
+    """The three backends on the card: each conv at hidden 256 (GAT and the
+    Transformer also concat) on the flagship case, f32, in its training
+    form without dropout, its dense and segment outputs and gradients (in
+    x and every parameter) against the banded path's on the same
+    weights."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.models import convs
+
+    makers = {
+        "GCN": lambda b: convs.GCNConv(HIDDEN, backend=b),
+        "GIN": lambda b: convs.GINConv(HIDDEN, backend=b),
+        "GAT": lambda b: convs.GATConv(HIDDEN, heads=HEADS, backend=b),
+        "GAT-concat": lambda b: convs.GATConv(HIDDEN, heads=HEADS,
+                                              concat=True, backend=b),
+        "Transformer": lambda b: convs.TransformerConv(
+            HIDDEN, heads=HEADS, edge_dim=4, backend=b),
+        "Transformer-concat": lambda b: convs.TransformerConv(
+            HIDDEN, heads=HEADS, edge_dim=4, concat=True, backend=b),
+    }
+    x = torch.randn(graph.n_pad, HIDDEN, generator=gen).cuda()
+    worst = {}
+    for name, make in makers.items():
+        runs = {}
+        for backend in ("pallas", "dense", "segment"):
+            conv = make(backend)
+            conv.reset_parameters(torch.Generator().manual_seed(7))
+            with torch.no_grad():
+                for k, p in conv.named_parameters():
+                    if k.endswith("bias"):
+                        p.normal_(0.0, 0.1, generator=torch.Generator()
+                                  .manual_seed(8))
+            conv = conv.cuda()
+            xl = x.clone().requires_grad_()
+            # the differentiable forms (training, no dropout): kernel 1's
+            # eval form has no gradient
+            kw = {} if name in ("GCN", "GIN") else dict(train=True)
+            out = conv(xl, graph, **kw)
+            gout = torch.randn(out.shape, generator=torch.Generator()
+                               .manual_seed(9)).cuda()
+            out.backward(gout)
+            runs[backend] = {"out": out.detach(), "x": xl.grad, **{
+                k: p.grad for k, p in conv.named_parameters()}}
+        ref = runs["pallas"]
+        # the key bias shifts every logit of a row alike: its gradient is
+        # zero in exact arithmetic, held against the largest gradient
+        g_max = max(v.abs().max().item() for k, v in ref.items()
+                    if k != "out")
+        for backend in ("dense", "segment"):
+            for k, v in runs[backend].items():
+                err, scale = _rel_err(v, ref[k])
+                if k == "lin_key.bias":
+                    scale = g_max
+                worst[(name, backend)] = max(worst.get((name, backend), 0.0),
+                                             err / max(scale, 1e-30))
+                if not (torch.isfinite(v).all()
+                        and err <= BACKEND_TOL * max(scale, 1e-30)):
+                    raise AssertionError(f"{name} {backend} {k}: {err} vs "
+                                         f"the banded path ({scale})")
+    for (name, backend), rel in worst.items():
+        log(f"backends agree: {name} {backend} vs pallas: worst relative "
+            f"gap {rel:.3e} (out and gradients; tol {BACKEND_TOL})")
+
+
+def train_cli(tmp, case, info, label, epochs, *extra):
+    """``python -m gnn_bfs_rans_tpu_torch train`` (in process) with the
+    CLI's default model and ``extra`` flags: the loss must fall and the
+    checkpoint serve.  Returns the launch counts of the training run."""
+    import json as _json
+
+    import numpy as np
+    import torch
+    from gnn_bfs_rans_tpu_torch.cli.main import main as cli_main
+    from gnn_bfs_rans_tpu_torch.kernels import _build
+
+    out = tmp / f"train_{label}"
+    argv = ["train", "--case_path", str(case), "--time_dirs", *TRAIN_TIMES,
+            "--output_dir", str(out), "--epochs", str(epochs),
+            "--save_every", str(epochs), "--lr", "1e-3", "--device", "cuda",
+            *extra]
+    t = time.time()
+    _build.reset_launches()           # the training path starts here
+    rc = cli_main(argv)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)  # ... and ends here
+    log(f"train {label} ({' '.join(extra)}): {epochs} epochs in "
+        f"{time.time() - t:.1f} s, launches {launches}")
+    if rc != 0:
+        raise RuntimeError(f"train {label} returned {rc}")
+    losses = _json.loads((out / "training_history.json").read_text())[
+        "train_loss"]
+    log(f"train losses ({label}) {losses}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{label} training did not lower the loss: "
+                             f"{losses}")
+    pred = tmp / f"train_{label}_pred"
+    rc = cli_main(["infer", "--checkpoint", str(out), "--case_path",
+                   str(case), "--output_dir", str(pred), "--reference_time",
+                   "100", "--device", "cuda"])
+    if rc != 0:
+        raise RuntimeError(f"infer of the {label} checkpoint returned {rc}")
+    fields = dict(np.load(pred / "predictions.npz"))
+    if fields["U"].shape != (info["n_cells"], 3) or not all(
+            np.isfinite(v).all() for v in fields.values()):
+        raise AssertionError(f"bad predictions from the {label} checkpoint")
+    return launches
+
+
+def pr6_phase(tmp, case, graphs, train_case, train_info, gen):
+    """Phase 16: rows 4 (concat) and 5 (per-head) vs their plain versions,
+    the concat conv, the three backends, serving on a mesh without a band,
+    ``train --backend dense`` and LayerNorm training, and their times.
+    Returns (kernel rows, the concat conv's launch counts)."""
+    from gnn_bfs_rans_tpu_torch.foam import FoamCase, generate_box_case
+    from gnn_bfs_rans_tpu_torch.graph.band import ALL_COMPONENTS
+    from gnn_bfs_rans_tpu_torch.graph.build import build_graph
+    from gnn_bfs_rans_tpu_torch.infer import load_graph
+    from gnn_bfs_rans_tpu_torch.models.flow_gnn import ModelConfig
+
+    rows = {}
+    t1 = time.time()
+    for nx in (163, 400):
+        for dt in ("float32", "bfloat16"):
+            for rate in (0.0, DROPOUT):
+                got = check_gat_concat(graphs[nx], dt, rate, gen,
+                                       measure=nx == 400 and rate == DROPOUT)
+                if got:
+                    rows[("row4c", dt)], rows[("row5h", dt)] = got
+    launches = {dt: concat_conv(graphs[400], dt, gen)
+                for dt in ("float32", "bfloat16")}
+    log(f"rows 4 (concat) and 5 (per-head), the concat conv: "
+        f"{time.time() - t1:.1f} s")
+
+    t1 = time.time()
+    full = build_graph(FoamCase(case).load_mesh(), with_band=True,
+                       band_components=ALL_COMPONENTS).to("cuda")
+    backends_agree(full, gen)
+    log(f"backends agree: {time.time() - t1:.1f} s")
+
+    # the GAT 4x256 bf16 served on a 24^3 hex box, whose band would be
+    # wider than 5 tiles: the dense branches, the epilogue under exact_bn
+    t1 = time.time()
+    hex_case = tmp / "hex24"
+    hex_info = generate_box_case(hex_case, 24, 24, 24)
+    if load_graph(hex_case, "GAT").band is not None:
+        raise AssertionError("the 24^3 box was expected to have no band")
+    gat_cfg = ModelConfig(hidden_dim=HIDDEN, num_layers=LAYERS,
+                          layer_type="GAT", heads=HEADS, backend="pallas",
+                          compute_dtype="bfloat16")
+    serve(tmp, hex_case, hex_info, gat_cfg, f"gat{LAYERS}x{HIDDEN}-bf16-hex24",
+          gen, runs={"off": {},
+                     "on": {"fused_epilogue_fwd": 2 * LAYERS}})
+    log(f"serving without a band: {time.time() - t1:.1f} s")
+
+    # the JAX CLI's default training run (--backend dense), and LayerNorm
+    t1 = time.time()
+    train_cli(tmp, train_case, train_info, "gcn-dense", GCN_EPOCHS,
+              "--backend", "dense")
+    train_cli(tmp, train_case, train_info, "gcn-dense-layer", 2,
+              "--backend", "dense", "--norm_type", "layer")
+    step_times(tmp, train_case, "gcn6x256-f32-dense", layer_type="GCN",
+               num_layers=GCN_LAYERS, backend="dense",
+               compute_dtype="float32")
+    step_times(tmp, train_case, "gcn6x256-f32-dense-layer", layer_type="GCN",
+               num_layers=GCN_LAYERS, backend="dense", norm_type="layer",
+               compute_dtype="float32")
+    log(f"dense training: {time.time() - t1:.1f} s")
+    return rows, launches
+
+
 def main() -> int:
     import torch
 
@@ -1946,6 +2232,15 @@ def main() -> int:
         launches_gatm = train_gat_unfused(tmp, train_case)
         log(f"training phases: {time.time() - t1:.1f} s")
 
+        # rows 4 (concat) and 5 (per-head), the concat conv, the dense and
+        # segment backends, a mesh without a band, dense and LayerNorm
+        # training
+        t1 = time.time()
+        pr6_rows, launches_concat = pr6_phase(tmp, case, graphs, train_case,
+                                              train_info, gen)
+        rows.update(pr6_rows)
+        log(f"phase 16: {time.time() - t1:.1f} s")
+
     gat = {k: v for k, v in rows[("gat_train", 400, "bfloat16")].items()}
     kernels = [
         dict(name="banded_gat_mean_fused", route="cuda",
@@ -2010,6 +2305,18 @@ def main() -> int:
              source="gnn_bfs_rans_tpu_torch/csrc/fold_partials.cu",
              replaces="gnn_bfs_rans_tpu/kernels/banded_bwd.py:86",
              launches=launches_tr.get("fold_partials", 0), **rows["row7"]),
+        # the concat GAT conv's path (bf16, dropout 0.1): row 4's concat
+        # form and row 5's per-head cotangent
+        dict(name="banded_gat (concat)", route="cuda",
+             source="gnn_bfs_rans_tpu_torch/csrc/banded_gat.cu",
+             replaces="gnn_bfs_rans_tpu/kernels/banded.py:499",
+             launches=launches_concat["bfloat16"].get("banded_gat", 0),
+             **rows[("row4c", "bfloat16")]),
+        dict(name="banded_gat_bwd (per-head)", route="cuda",
+             source="gnn_bfs_rans_tpu_torch/csrc/banded_gat_bwd.cu",
+             replaces="gnn_bfs_rans_tpu/kernels/banded_bwd.py:682",
+             launches=launches_concat["bfloat16"].get("banded_gat_bwd", 0),
+             **rows[("row5h", "bfloat16")]),
     ]
     for k in kernels:
         if k["launches"] <= 0:

@@ -4,9 +4,11 @@ A second package beside the JAX one, written in PyTorch for an NVIDIA
 H100: every TPU kernel on a ported path becomes a kernel written by hand
 for Hopper (CUDA C++ under ``csrc/``, or Triton), each with a plain
 PyTorch version that the CPU runs.  The JAX package is the reference and
-is never imported here.  Ported so far: FlowGNN with GCN, GAT and GIN
-convolutions on the banded path, served (``infer``) and trained
-(``train``; GAT with the fused or the unfused kernels).
+is never imported here.  Ported so far: FlowGNN with GCN, GAT, GIN and
+Transformer convolutions on the ``pallas`` (banded kernels), ``dense`` and
+``segment`` backends, BatchNorm (fused or unfused) or LayerNorm, served
+(``infer``, meshes with or without a band) and trained (``train``); every
+TPU kernel function of the JAX package has its counterpart.
 """
 
 __version__ = "0.1.0"

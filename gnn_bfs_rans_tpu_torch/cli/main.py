@@ -5,11 +5,14 @@ subcommands.
 the JAX package's subcommands (``gnn_bfs_rans_tpu/cli/main.py:27-76,
 455-527``) plus ``--device`` (``cuda`` by default; ``cpu`` runs the
 kernels' plain versions).  ``train`` defaults to the JAX CLI's model
-(``--layer_type GCN``, 6 layers, hidden 256) on the ported backend
-(``--backend pallas``, the banded kernels: the port has no dense path)
-and trains every layer type.  Its ``--epoch_block`` > 1 and the JAX
-trainer's ``--progress`` bar and ``--no_aot`` cache are not ported.  The
-other subcommands are not ported yet.
+(``--layer_type GCN``, 6 layers, hidden 256) and trains every layer type
+on every backend: ``--backend pallas`` (the port's default, where the JAX
+CLI defaults to ``dense``: the banded kernels, or the dense branches on a
+mesh without a band), ``dense`` or ``segment``, with ``--norm_type batch``,
+``layer`` or ``none``.  The band is built only for ``pallas``, as the JAX
+CLI builds it.  Its ``--epoch_block`` > 1 and the JAX trainer's
+``--progress`` bar and ``--no_aot`` cache are not ported, nor are the
+other subcommands.
 """
 
 from __future__ import annotations
@@ -29,10 +32,6 @@ def cmd_train(args) -> int:
     from ..train.loop import TrainConfig
     from ..train.trainer import Trainer
 
-    if args.backend != "pallas":
-        raise NotImplementedError(
-            f"backend {args.backend!r} is not ported yet: the port trains "
-            "through the banded kernels (--backend pallas)")
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     cfg_dict = {k: v for k, v in vars(args).items() if k != "func"}
@@ -41,7 +40,8 @@ def cmd_train(args) -> int:
     print("Loading dataset...")
     dataset = load_dataset(
         args.case_path, args.time_dirs, include_uniform=args.include_uniform,
-        with_band=True, band_components=LAYER_COMPONENTS.get(args.layer_type))
+        with_band=args.backend == "pallas",
+        band_components=LAYER_COMPONENTS.get(args.layer_type))
     print(f"Loaded {dataset.n_snapshots} samples: {dataset.time_dirs}")
     dataset.normalizer.save(out_dir / "normalizer.json")
 
@@ -138,7 +138,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--backend", type=str, default="pallas",
                    choices=["segment", "dense", "pallas"],
-                   help="pallas (the banded kernels) is the ported backend")
+                   help="pallas: the banded kernels (the dense branches on "
+                        "a mesh without a band); dense: padded neighbour "
+                        "lists; segment: COO scatter-add")
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16", "mixed"])
     p.add_argument("--norm_type", type=str, default="batch",

@@ -1,23 +1,28 @@
-// Banded GAT forward with head-mean epilogue: fused-projection and unfused.
+// Banded GAT forward: fused-projection head mean, and the attention alone
+// on a given z in its head-mean and concat forms.
 //
 // Replaces two TPU kernels of gnn_bfs_rans_tpu/kernels/banded.py:
 // banded_gat_mean_fused_fwd (_gat_kernel with fuse_proj=True,
 // mean_heads=True, dropout and emit_z; no emit_stats), entry
-// banded_gat_mean_fused_launch, and banded_gat_fwd with mean_heads=True
-// (the unfused training path's attention on a precomputed z; no
-// emit_stats), entry banded_gat_mean_launch, which runs the attention phase
-// below on the caller's z.  Computes, for
-// every receiver row i of tile t = i / T and every head h,
+// banded_gat_mean_fused_launch, and banded_gat_fwd (row 4, no emit_stats)
+// with mean_heads=True (the unfused head-mean training path) or False (the
+// concat GAT, GATConv(concat=True)), entry banded_gat_launch, which runs the
+// attention phase below on the caller's z.  Computes, for every receiver
+// row i of tile t = i / T and every head h,
 //
 //   z      = x · W                          (f32 accumulate, rounded to x's dtype)
 //   l[i,j] = LeakyReLU(α_dst[i,h] + α_src[s_j,h]),  s_j = t·T − (Wcols−T)/2 + j,
 //            over the window columns j whose int8 band mask is 1
 //   e      = exp(l − max_j l),   inv = 1 / max(Σ_j e, 1e-16)
 //   ẽ_j    = e_j · keep_j / (1 − rate)   (training: attention dropout)
-//   out[i] = (Σ_h inv_h · Σ_j round(ẽ_j) · z[s_j, h·C:(h+1)·C]) / H
+//   o_h[i] = inv_h · Σ_j round(ẽ_j) · z[s_j, h·C:(h+1)·C]   (f32)
+//   out[i] = (Σ_h o_h[i]) / H            head mean: [N, C]
+//   out[i, h·C:(h+1)·C] = o_h[i]         concat:    [N, H·C]
 //
-// with round() the cast of the probability to bf16 when x is bf16 (the TPU
-// kernel's _mm_cast) and the identity in f32.  Dropout acts on the
+// each rounded once to the output dtype (concat: every head on its own,
+// as the TPU kernel casts the concatenated f32 heads), with round() the
+// cast of the probability to bf16 when x is bf16 (the TPU kernel's
+// _mm_cast) and the identity in f32.  Dropout acts on the
 // unnormalized e after the denominator is summed, as the TPU kernel's does;
 // keep_j is the dropout.cuh hash of (seed + t, (h·T + i mod T)·Wcols + j),
 // the TPU kernel's interpret-mode stream over tile t's [H·T, Wcols] plane.
@@ -39,9 +44,9 @@
 // Unlike the TPU kernel, z makes one round trip through device memory
 // (N·H·C·dtype bytes: 24.6 MB per layer at the flagship shape in bf16);
 // keeping z on chip, and wgmma/TMA for the projection, are later work.
-// The unfused form (row 4) has no projection: it reads z, the mask, α and
-// writes out (34.3 MB per layer at the flagship shape in bf16), so it is
-// bound by bytes.
+// Row 4 has no projection: it reads z, the mask, α and writes out (34.3 MB
+// per layer at the flagship shape in bf16 for the head mean, 52.7 MB for
+// concat, whose output is H times wider), so it is bound by bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,12 +77,14 @@ using band::warp_max;
 using band::warp_sum;
 
 // DROP: training form (seed non-null); the eval form carries no hash code.
-template <typename T, bool DROP>
+// CONCAT: each head's output written to its own C columns (row 4's concat
+// form); else the head mean.
+template <typename T, bool DROP, bool CONCAT>
 __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK) gat_attention_kernel(
     const int8_t* __restrict__ mask,    // [n_tiles, T, Wcols]
     const float* __restrict__ alphas,   // [n_pad, 2H]: src | dst
     const T* __restrict__ z,            // [n_pad, H·C]
-    T* __restrict__ out,                // [n_pad, C]
+    T* __restrict__ out,                // [n_pad, C], or [n_pad, H·C] (CONCAT)
     int n_pad, int heads, int C, int tile, int wcols, float slope,
     const int* __restrict__ seed, uint32_t thresh, float inv_keep) {
   extern __shared__ unsigned char smem[];
@@ -154,10 +161,24 @@ __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK) gat_attention_kernel(
         }
       }
     }
+    if (CONCAT) {
 #pragma unroll
-    for (int j = 0; j < COLS_PER_LANE; ++j) total[j] += acc[j] * inv;
+      for (int g = 0; g < GROUPS; ++g) {
+        const int c = c_base + 4 * lane + 128 * g;
+        if (c < C) {
+          float v[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) v[q] = acc[4 * g + q] * inv;
+          store4(out + (size_t)row * hc + (size_t)h * C + c, v);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < COLS_PER_LANE; ++j) total[j] += acc[j] * inv;
+    }
     __syncwarp();  // pw is rewritten by the next head
   }
+  if (CONCAT) return;
 
   const float inv_heads = 1.f / (float)heads;
 #pragma unroll
@@ -175,13 +196,15 @@ __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK) gat_attention_kernel(
 template <typename T>
 int attention(const int8_t* mask, const float* alphas, const void* z,
               void* out, int n_pad, int heads, int c, int tile, int wcols,
-              float slope, const int* seed, uint32_t thresh, float inv_keep,
-              cudaStream_t stream) {
+              float slope, bool concat, const int* seed, uint32_t thresh,
+              float inv_keep, cudaStream_t stream) {
   dim3 agrid((n_pad + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK,
              (c + COL_CHUNK - 1) / COL_CHUNK);
   const size_t smem = (size_t)ROWS_PER_BLOCK * wcols * (sizeof(int) + sizeof(float));
-  auto kernel = seed != nullptr ? gat_attention_kernel<T, true>
-                                 : gat_attention_kernel<T, false>;
+  auto kernel = concat ? (seed != nullptr ? gat_attention_kernel<T, true, true>
+                                          : gat_attention_kernel<T, false, true>)
+                       : (seed != nullptr ? gat_attention_kernel<T, true, false>
+                                          : gat_attention_kernel<T, false, false>);
   kernel<<<agrid, 32 * ROWS_PER_BLOCK, smem, stream>>>(
       mask, alphas, static_cast<const T*>(z), static_cast<T*>(out), n_pad,
       heads, c, tile, wcols, slope, seed, thresh, inv_keep);
@@ -199,7 +222,7 @@ int launch(const int8_t* mask, const void* w, const float* alphas,
       static_cast<T*>(z), heads * c, 0, n_pad, heads * c, f, f, stream);
   if (err != cudaSuccess) return (int)err;
   return attention<T>(mask, alphas, z, out, n_pad, heads, c, tile, wcols,
-                      slope, seed, thresh, inv_keep, stream);
+                      slope, false, seed, thresh, inv_keep, stream);
 }
 
 }  // namespace
@@ -228,21 +251,23 @@ int banded_gat_mean_fused_launch(const int8_t* mask, const void* w,
   return (int)cudaErrorInvalidValue;
 }
 
-// The attention alone on a given z [n_pad, heads·c] (row 4, head mean):
-// dtype, seed, thresh and inv_keep as above.
-int banded_gat_mean_launch(const int8_t* mask, const float* alphas,
-                           const void* z, void* out, int n_pad, int heads,
-                           int c, int tile, int wcols, float slope, int dtype,
-                           const int* seed, unsigned int thresh,
-                           float inv_keep, void* stream) {
+// Row 4, the attention alone on a given z [n_pad, heads·c]: the head mean
+// [n_pad, c] (concat = 0) or every head's output [n_pad, heads·c]
+// (concat = 1); dtype, seed, thresh and inv_keep as above.
+int banded_gat_launch(const int8_t* mask, const float* alphas, const void* z,
+                      void* out, int n_pad, int heads, int c, int tile,
+                      int wcols, float slope, int concat, int dtype,
+                      const int* seed, unsigned int thresh, float inv_keep,
+                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return attention<float>(mask, alphas, z, out, n_pad, heads, c, tile,
-                            wcols, slope, seed, thresh, inv_keep, s);
+                            wcols, slope, concat != 0, seed, thresh, inv_keep,
+                            s);
   if (dtype == 1)
     return attention<__nv_bfloat16>(mask, alphas, z, out, n_pad, heads, c,
-                                    tile, wcols, slope, seed, thresh,
-                                    inv_keep, s);
+                                    tile, wcols, slope, concat != 0, seed,
+                                    thresh, inv_keep, s);
   return (int)cudaErrorInvalidValue;
 }
 

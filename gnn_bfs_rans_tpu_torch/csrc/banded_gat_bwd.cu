@@ -1,20 +1,26 @@
-// Banded GAT backward (head-mean output, α packed src | dst).
+// Banded GAT backward (head-mean or per-head cotangent, α packed src | dst).
 //
 // Replaces the TPU kernel gnn_bfs_rans_tpu/kernels/banded_bwd.py::
-// banded_gat_bwd (_gat_bwd_kernel with mean_expand=True, mxu_das=True,
-// raw_dz_partials=True).  Given the forward's inputs, its z and the
-// cotangent g of the head-mean output [N, C], it returns
+// banded_gat_bwd (_gat_bwd_kernel with mxu_das=True, raw_dz_partials=True)
+// in both its cotangent forms: mean_expand=True, the cotangent g of the
+// head-mean output [N, C] (kernel 1's op and row 4's head-mean op), and
+// mean_expand=False, the per-head cotangent [N, H·C] of the concat output
+// (row 4's concat op, the JAX package's _gat_vjp_bwd).  Given the forward's
+// inputs, its z and g, it returns
 //
 //   dz [N, H·C] (z's dtype)  and  dα [N, 2H] f32 (src | dst),
 //
 // with, for receiver i, head h and each sender j of i's window (band mask 1),
-//   gout_i = g_i / H,    dp_ij = round(gout_i) · z_j,h   (keep-masked, ×1/(1−rate))
+//   gout_i = g_i / H (head mean)  or  g_i[h·C:(h+1)·C] (per head),
+//   dp_ij  = round(gout_i) · z_j,h   (keep-masked, ×1/(1−rate))
 //   rs_i   = inv_i · Σ_j e_ij·dp_ij,   dpre_ij = e_ij·(dp_ij − rs_i)·inv_i·LeakyReLU'(pre_ij)
 //   dα_dst[i,h] = Σ_j dpre_ij,         dα_src[j,h] = Σ_i round(dpre_ij)
 //   dz[j, h·C:(h+1)·C] = Σ_i round(ẽ_ij) · round(gout_i · inv_i)
 // where e, inv, ẽ are the forward's (recomputed, dropout replayed from the
 // same hash) and round() is the TPU kernels' bf16 rounding point (_mm_cast)
-// in bf16, the identity in f32.
+// in bf16, the identity in f32.  The two forms differ only in where head h
+// reads its cotangent row (row stride C or H·C, offset 0 or h·C) and its
+// factor (1/H or 1).
 //
 // Receiver-indexed gradients are local to a receiver row; sender-indexed
 // ones (dz, dα_src) collect from every receiver whose window holds the
@@ -39,9 +45,10 @@
 //
 // What bounds it on an H100: memory.  It must read z (24.6 MB at N 12,032,
 // H·C 1,024, bf16), g, α and the mask and write dz (24.6 MB): ~59 MB, 18 µs
-// at 3.35 TB/s; its arithmetic is the sparse products, 4·nnz·H·C
-// operations.  The sender pass re-reads the g rows of each sender's
-// receivers (from L2: each row is shared by the ~5 senders of a receiver).
+// at 3.35 TB/s (per head: g is as wide as z, ~78 MB, 23 µs); its
+// arithmetic is the sparse products, 4·nnz·H·C operations.  The sender
+// pass re-reads the g rows of each sender's receivers (from L2: each row
+// is shared by the ~5 senders of a receiver).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,7 +68,8 @@ using band::warp_sum;
 
 constexpr int WARPS = 4;  // rows per block in both passes
 
-// round(g_i / H) · z_j,h over C, reduced across the warp (every lane gets it)
+// round(gout_i) · z_j,h over C, reduced across the warp (every lane gets
+// it); grow is head h's cotangent row, scaled by inv_heads (1/H or 1)
 template <typename T>
 __device__ __forceinline__ float dot_gz(const T* __restrict__ grow,
                                         const T* __restrict__ zrow, int C,
@@ -79,7 +87,7 @@ __global__ void __launch_bounds__(32 * WARPS) gat_bwd_rows_kernel(
     float* __restrict__ stats,   // [n_pad, 3H]: max | 1/denominator | rs
     float* __restrict__ dalpha,  // [n_pad, 2H]: this pass writes the dst half
     int n_pad, int heads, int C, int tile, int wcols, float slope,
-    float inv_heads, Drop drop) {
+    int g_ld, int g_head, float inv_heads, Drop drop) {
   extern __shared__ unsigned char smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row = blockIdx.x * WARPS + warp;
@@ -106,8 +114,8 @@ __global__ void __launch_bounds__(32 * WARPS) gat_bwd_rows_kernel(
   __syncwarp();
 
   const int hc = heads * C, two_h = 2 * heads;
-  const T* grow = g + (size_t)row * C;
   for (int h = 0; h < heads; ++h) {
+    const T* grow = g + (size_t)row * g_ld + (size_t)h * g_head;
     const float ad = alphas[(size_t)row * two_h + heads + h];
     float mx = -CUDART_INF_F;
     for (int k = lane; k < cnt; k += 32) {
@@ -170,7 +178,7 @@ __global__ void __launch_bounds__(32 * WARPS) gat_bwd_cols_kernel(
     const float* __restrict__ stats, T* __restrict__ dz,
     float* __restrict__ dalpha,  // this pass writes the src half
     int n_pad, int heads, int C, int tile, int wcols, float slope,
-    float inv_heads, Drop drop) {
+    int g_ld, int g_head, float inv_heads, Drop drop) {
   extern __shared__ unsigned char smem[];
   const int cap = wcols + tile;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -202,8 +210,10 @@ __global__ void __launch_bounds__(32 * WARPS) gat_bwd_cols_kernel(
   const int hc = heads * C, two_h = 2 * heads;
   for (int h = 0; h < heads; ++h) {
     const T* zrow = z + (size_t)s * hc + (size_t)h * C;
+    const T* gh = g + (size_t)h * g_head;  // head h's cotangent columns
     for (int k = 0; k < cnt; ++k) {
-      const float d = dot_gz(g + (size_t)recv[k] * C, zrow, C, inv_heads, lane);
+      const float d = dot_gz(gh + (size_t)recv[k] * g_ld, zrow, C, inv_heads,
+                             lane);
       if (lane == 0) dpk[k] = d;
     }
     __syncwarp();
@@ -236,7 +246,8 @@ __global__ void __launch_bounds__(32 * WARPS) gat_bwd_cols_kernel(
     for (int c = lane; c < C; c += 32) {
       float acc = 0.f;
       for (int k = 0; k < cnt; ++k) {
-        const float gs = mm_round<T>(to_f(g[(size_t)recv[k] * C + c]) * inv_heads * dpk[k]);
+        const float gs =
+            mm_round<T>(to_f(gh[(size_t)recv[k] * g_ld + c]) * inv_heads * dpk[k]);
         acc = fmaf(coef[k], gs, acc);
       }
       dz[(size_t)s * hc + (size_t)h * C + c] = from_f<T>(acc);
@@ -248,8 +259,13 @@ __global__ void __launch_bounds__(32 * WARPS) gat_bwd_cols_kernel(
 template <typename T>
 int launch(const int8_t* mask, const float* alphas, const void* z,
            const void* g, float* stats, void* dz, float* dalpha, int n_pad,
-           int heads, int c, int tile, int wcols, float slope, float inv_heads,
-           Drop drop, cudaStream_t stream) {
+           int heads, int c, int tile, int wcols, float slope,
+           bool mean_expand, Drop drop, cudaStream_t stream) {
+  // head h's cotangent: row i of g [N, C] scaled by 1/H, or columns
+  // h·C:(h+1)·C of row i of g [N, H·C]
+  const int g_ld = mean_expand ? c : heads * c;
+  const int g_head = mean_expand ? 0 : c;
+  const float inv_heads = mean_expand ? 1.f / (float)heads : 1.f;
   const int blocks = (n_pad + WARPS - 1) / WARPS;
   const size_t smem_rows = (size_t)WARPS * wcols * 4 * sizeof(float);
   const size_t smem_cols = (size_t)WARPS * (wcols + tile) * 3 * sizeof(float);
@@ -257,13 +273,14 @@ int launch(const int8_t* mask, const float* alphas, const void* z,
     return (int)cudaErrorInvalidValue;
   gat_bwd_rows_kernel<T><<<blocks, 32 * WARPS, smem_rows, stream>>>(
       mask, alphas, static_cast<const T*>(z), static_cast<const T*>(g), stats,
-      dalpha, n_pad, heads, c, tile, wcols, slope, inv_heads, drop);
+      dalpha, n_pad, heads, c, tile, wcols, slope, g_ld, g_head, inv_heads,
+      drop);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   gat_bwd_cols_kernel<T><<<blocks, 32 * WARPS, smem_cols, stream>>>(
       mask, alphas, static_cast<const T*>(z), static_cast<const T*>(g), stats,
       static_cast<T*>(dz), dalpha, n_pad, heads, c, tile, wcols, slope,
-      inv_heads, drop);
+      g_ld, g_head, inv_heads, drop);
   return (int)cudaGetLastError();
 }
 
@@ -271,25 +288,27 @@ int launch(const int8_t* mask, const float* alphas, const void* z,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (z, g and dz share it).  stats is the
-// caller-allocated [n_pad, 3·heads] f32 scratch.  seed: device pointer to
-// one int32, or null for no dropout.  Returns the CUDA error code of the
-// launches (0 on success).
+// dtype: 0 = float32, 1 = bfloat16 (z, g and dz share it).  g is the
+// head-mean cotangent [n_pad, c] (mean_expand = 1) or the per-head one
+// [n_pad, heads·c] (mean_expand = 0).  stats is the caller-allocated
+// [n_pad, 3·heads] f32 scratch.  seed: device pointer to one int32, or null
+// for no dropout.  Returns the CUDA error code of the launches (0 on
+// success).
 int banded_gat_bwd_launch(const int8_t* mask, const float* alphas,
                           const void* z, const void* g, float* stats, void* dz,
                           float* dalpha, int n_pad, int heads, int c, int tile,
-                          int wcols, float slope, float inv_heads, int dtype,
+                          int wcols, float slope, int mean_expand, int dtype,
                           const int* seed, unsigned int thresh, float inv_keep,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Drop drop{seed, thresh, inv_keep};
   if (dtype == 0)
     return launch<float>(mask, alphas, z, g, stats, dz, dalpha, n_pad, heads,
-                         c, tile, wcols, slope, inv_heads, drop, s);
+                         c, tile, wcols, slope, mean_expand != 0, drop, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(mask, alphas, z, g, stats, dz, dalpha, n_pad,
-                                 heads, c, tile, wcols, slope, inv_heads, drop,
-                                 s);
+                                 heads, c, tile, wcols, slope,
+                                 mean_expand != 0, drop, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,9 +2,11 @@
 
 Counterpart of ``gnn_bfs_rans_tpu/graph/structs.py``: the graph is built
 once on the host (numpy), padded so the node count is a multiple of the
-band tile, and moved to the device once with :meth:`Graph.to`.  Only the
-COO encoding is carried; the padded dense-neighbour layout serves the
-``dense`` backend, which this package does not run yet.
+band tile, and moved to the device once with :meth:`Graph.to`.  Two
+adjacency encodings are carried, as in the JAX package: the COO edge list
+sorted by receiver (the ``segment`` backend) and the padded dense-neighbour
+layout ``nbr_idx`` / ``nbr_mask`` / ``nbr_edge`` ``[N_pad, D_max]`` (the
+``dense`` backend, and ``pallas`` on a mesh without a band).
 """
 
 from __future__ import annotations
@@ -32,6 +34,11 @@ class Graph:
     edge_mask: torch.Tensor   # [E_pad] bool
     in_degree: torch.Tensor   # [N_pad] float32 — true in-degree (no self loop)
 
+    # --- dense neighbour layout ---
+    nbr_idx: torch.Tensor     # [N_pad, D_max] int32 — sender per incoming slot
+    nbr_mask: torch.Tensor    # [N_pad, D_max] bool
+    nbr_edge: torch.Tensor    # [N_pad, D_max] int32 — COO edge id per slot
+
     n_nodes: int
     n_edges: int
 
@@ -43,6 +50,14 @@ class Graph:
     @property
     def n_pad(self) -> int:
         return self.node_feat.shape[0]
+
+    @property
+    def e_pad(self) -> int:
+        return self.senders.shape[0]
+
+    @property
+    def max_degree(self) -> int:
+        return self.nbr_idx.shape[1]
 
     def to(self, device: str | torch.device) -> "Graph":
         moved = {}
@@ -60,12 +75,15 @@ def build_padded_graph(
     node_feat: np.ndarray,
     node_align: int = 128,
     edge_align: int = 128,
+    degree_align: int = 4,
 ) -> Graph:
     """Pad a host-side COO graph into a :class:`Graph` (CPU tensors).
 
     Edges are sorted by receiver (then sender) exactly as the JAX package
     sorts them; padded edges carry ``senders = receivers = 0`` and a zero
-    mask.
+    mask.  The dense layout lists each receiver's senders in that order,
+    in ``D_max`` slots (the largest in-degree rounded up to
+    ``degree_align``); empty slots hold sender 0, edge 0 and a zero mask.
     """
     n_nodes = int(node_feat.shape[0])
     n_edges = int(senders.shape[0])
@@ -91,6 +109,19 @@ def build_padded_graph(
     edge_mask[:n_edges] = True
     deg = np.bincount(receivers, minlength=n_pad).astype(np.float32)
 
+    max_deg = int(deg.max()) if n_edges else 1
+    d_max = _round_up(max(max_deg, 1), degree_align)
+    nbr_idx = np.zeros((n_pad, d_max), dtype=np.int32)
+    nbr_mask = np.zeros((n_pad, d_max), dtype=bool)
+    nbr_edge = np.zeros((n_pad, d_max), dtype=np.int32)
+    if n_edges:
+        # slot index within each receiver's contiguous run
+        starts = np.searchsorted(receivers, np.arange(n_pad))
+        slot = np.arange(n_edges) - starts[receivers]
+        nbr_idx[receivers, slot] = senders
+        nbr_mask[receivers, slot] = True
+        nbr_edge[receivers, slot] = np.arange(n_edges, dtype=np.int32)
+
     t = torch.from_numpy
     return Graph(
         node_feat=t(node_feat_p),
@@ -100,6 +131,9 @@ def build_padded_graph(
         node_mask=t(node_mask),
         edge_mask=t(edge_mask),
         in_degree=t(deg),
+        nbr_idx=t(nbr_idx),
+        nbr_mask=t(nbr_mask),
+        nbr_edge=t(nbr_edge),
         n_nodes=n_nodes,
         n_edges=n_edges,
     )

@@ -1,13 +1,18 @@
 """Checkpoint load + predict: the serving path.
 
-Counterpart of ``gnn_bfs_rans_tpu/infer.py``.  Every checkpoint (GCN,
-GAT, GIN, Transformer) is served through the banded kernel path, whatever
-``backend`` its meta records: the JAX package's ``backend='auto'`` →
-``dense`` rule exists to skip a minutes-long TPU compile that the card does
-not have.  ``load_graph`` builds the band planes the layer type reads (the
-Transformer's ``bias_noself`` and its geo planes, or the generic edge
-planes for non-geometric features).  The dense and segment paths and
-meshes without a band are not ported yet and raise.
+Counterpart of ``gnn_bfs_rans_tpu/infer.py``.  Which backend serves a
+checkpoint: an ordinary one is served on ``pallas`` whatever ``backend``
+its meta records (the JAX package's ``backend='auto'`` → ``dense`` rule
+exists to skip a minutes-long TPU compile that the card does not have), so
+on a banded mesh it runs through the kernels and on a mesh without a band
+(a window wider than 5 tiles: most 3D hex meshes) through the convs'
+dense branches, as the JAX convs route ``pallas`` there.  A checkpoint
+saved with BN recalibration (``meta['bn_recalibrated']``) keeps the
+backend it trained on, as the JAX package's does (``infer.py:89-93``):
+its exact statistics belong to that backend's arithmetic.  ``load_graph``
+builds the band planes the layer type reads (the Transformer's
+``bias_noself`` and its geo planes, or the generic edge planes for
+non-geometric features) when the backend is ``pallas``.
 """
 
 from __future__ import annotations
@@ -59,6 +64,9 @@ class Predictor:
         if exact_bn == "auto":
             exact_bn = bool(meta.get("bn_recalibrated"))
         model_config = ModelConfig.from_dict(meta["model_config"])
+        if not meta.get("bn_recalibrated"):
+            model_config = dataclasses.replace(model_config,
+                                               backend="pallas")
         model = FlowGNN(model_config)
         model.load_state_dict(state)
         model.eval().to(dev)
@@ -99,18 +107,15 @@ class Predictor:
 
 
 def load_graph(case_path: str | Path, layer_type: str = "GAT",
-               boundary_self_loops: bool = False) -> Graph:
-    """Parse a case and build its banded graph (CPU tensors)."""
+               boundary_self_loops: bool = False,
+               backend: str = "pallas") -> Graph:
+    """Parse a case and build its graph (CPU tensors), with the band planes
+    ``layer_type`` reads when ``backend`` is ``pallas`` (``graph.band`` is
+    None on a mesh whose band would be wider than 5 tiles)."""
     mesh = FoamCase(case_path).load_mesh()
-    graph = build_graph(mesh, with_band=True,
-                        band_components=LAYER_COMPONENTS[layer_type],
-                        boundary_self_loops=boundary_self_loops)
-    if graph.band is None:
-        raise NotImplementedError(
-            f"the mesh at {case_path} has no band (its reordered bandwidth "
-            "needs a window wider than 5 tiles); the dense path is not "
-            "ported yet")
-    return graph
+    return build_graph(mesh, with_band=backend == "pallas",
+                       band_components=LAYER_COMPONENTS[layer_type],
+                       boundary_self_loops=boundary_self_loops)
 
 
 def predict_case(
@@ -126,8 +131,9 @@ def predict_case(
     recalibrate BN on it, predict."""
     predictor = Predictor.from_checkpoint(checkpoint_dir, name,
                                           exact_bn=exact_bn, device=device)
-    graph = load_graph(case_path, predictor.model_config.layer_type,
-                       boundary_self_loops).to(predictor.device)
+    cfg = predictor.model_config
+    graph = load_graph(case_path, cfg.layer_type, boundary_self_loops,
+                       cfg.backend).to(predictor.device)
     if recalibrate_bn:
         predictor.recalibrate_bn(graph)
     fields = predictor.predict_fields(graph)

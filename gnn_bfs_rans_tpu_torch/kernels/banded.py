@@ -7,11 +7,13 @@
   and ``banded_gat_mean_fused_wa``, the training op whose custom VJP gives
   (dW, dWa, dx).  The backward runs ``banded_bwd.banded_gat_bwd`` and
   ``banded_bwd.fold_project_bwd``.
-* ``banded_gat_mean`` (row 4): ``banded_gat_fwd`` with ``mean_heads=True``,
-  the attention on a precomputed z of the unfused training path, and
-  ``banded_gat_mean_packed``, its op, whose backward is
-  ``banded_bwd.banded_gat_bwd`` as in ``_gatm_vjp_bwd``.  Kernel 1 and
-  row 4 share ``csrc/banded_gat.cu``.
+* ``banded_gat_mean`` and ``banded_gat`` (row 4): ``banded_gat_fwd``, the
+  attention on a precomputed z, with ``mean_heads=True`` (the head mean
+  [N, C] of the unfused training path) or ``False`` (the concat GAT's
+  per-head output [N, H·C]); their ops ``banded_gat_mean_packed`` and
+  ``banded_gat_packed``, whose backward is ``banded_bwd.banded_gat_bwd``
+  with the head-mean or the per-head cotangent, as in ``_gatm_vjp_bwd``
+  and ``_gat_vjp_bwd``.  Kernel 1 and row 4 share ``csrc/banded_gat.cu``.
 * ``banded_spmm`` (row 8): ``banded_spmm_fwd`` / ``banded_spmm``, the GCN
   and GIN aggregation ``out[t] = Σ_k A[t, k] @ x[t − k0 + k]``, kernel
   ``csrc/banded_spmm.cu``; its backward is the same kernel on
@@ -33,8 +35,8 @@
 Each source's header says what bounds it on the card and how the design
 answers that.  Layouts are the JAX package's: ``bias_self`` int8
 ``[n_tiles, T, Wcols]``, ``w`` ``[F, H·C]``, packed ``alphas`` f32
-``[N, 2H]`` (src | dst), ``x`` ``[N, F]`` → ``[N, C]`` in x's dtype
-(float32 or bfloat16); SpMM planes ``[n_tiles, W, T, T]`` (``gcn`` f32,
+``[N, 2H]`` (src | dst), ``x`` ``[N, F]`` → ``[N, C]`` (concat: ``[N,
+H·C]``) in x's dtype (float32 or bfloat16); SpMM planes ``[n_tiles, W, T, T]`` (``gcn`` f32,
 ``adj`` bf16).  Dropout draws from the hash stream of :mod:`.dropout`
 with seed + t for tile t: the GAT's [H·T, Wcols] plane in one draw, the
 Transformer's [T, Wcols] plane once per head (draw h), so masks match the
@@ -81,10 +83,12 @@ def attention_keep(seed, n_tiles: int, tile: int, width: int,
 
 
 def _attention_plain(bias_self, z, alphas, heads, negative_slope,
-                     dropout_rate, seed):
-    """The head-mean attention on z [N, H·C] with the kernel's rounding
-    points, dense over the window like the TPU kernel: masked columns get
-    the additive −1e30 bias and contribute exactly 0 after the exp."""
+                     dropout_rate, seed, concat=False):
+    """The attention on z [N, H·C] with the kernel's rounding points, dense
+    over the window like the TPU kernel: masked columns get the additive
+    −1e30 bias and contribute exactly 0 after the exp.  The head mean
+    [N, C], or with ``concat`` every head's f32 output rounded on its own,
+    [N, H·C]."""
     n_tiles, tile, width = bias_self.shape
     n, hc = z.shape
     c = hc // heads
@@ -104,11 +108,13 @@ def _attention_plain(bias_self, z, alphas, heads, negative_slope,
         e = torch.where(keep, e * inv_keep(dropout_rate), 0.0)
     if dt == torch.bfloat16:
         e = e.to(dt).float()          # the probability plane the matmul sees
-    acc = None
-    for h in range(heads):
-        o = torch.einsum("ntw,nwc->ntc", e[..., h], win_z[:, :, h].float())
-        o = o * inv[:, :, 0, h:h + 1]
-        acc = o if acc is None else acc + o
+    outs = [torch.einsum("ntw,nwc->ntc", e[..., h], win_z[:, :, h].float())
+            * inv[:, :, 0, h:h + 1] for h in range(heads)]
+    if concat:
+        return torch.stack(outs, 2).reshape(n, hc).to(dt)
+    acc = outs[0]
+    for o in outs[1:]:
+        acc = acc + o
     return (acc * (1.0 / heads)).reshape(n, c).to(dt)
 
 
@@ -265,17 +271,20 @@ def banded_gat_mean_plain(bias_self, z, alphas, heads, negative_slope=0.2,
                             dropout_rate, seed)
 
 
-def banded_gat_mean(bias_self: torch.Tensor, z: torch.Tensor,
-                    alphas: torch.Tensor, heads: int,
-                    negative_slope: float = 0.2, dropout_rate: float = 0.0,
-                    seed: torch.Tensor | None = None) -> torch.Tensor:
-    """Head-mean banded GAT attention on a given z [N, H·C] → [N, C] in z's
-    dtype: plain version for CPU tensors, the CUDA kernel for CUDA tensors
-    (or a raise).  ``seed``: [1] int32 on z's device when
-    ``dropout_rate > 0``."""
+def banded_gat_plain(bias_self, z, alphas, heads, negative_slope=0.2,
+                     dropout_rate=0.0, seed=None):
+    """Plain PyTorch version of :func:`banded_gat`."""
+    return _attention_plain(bias_self, z, alphas, heads, negative_slope,
+                            dropout_rate, seed, concat=True)
+
+
+def _gat_attention(bias_self, z, alphas, heads, negative_slope, dropout_rate,
+                   seed, concat):
+    """Row 4 in either form: the plain version for CPU tensors, the CUDA
+    kernel (``banded_gat_launch``) for CUDA tensors (or a raise)."""
     if z.device.type == "cpu":
-        return banded_gat_mean_plain(bias_self, z, alphas, heads,
-                                     negative_slope, dropout_rate, seed)
+        return _attention_plain(bias_self, z, alphas, heads, negative_slope,
+                                dropout_rate, seed, concat)
     if z.device.type != "cuda":
         raise ValueError(f"unsupported device {z.device}")
     _, tile, width = bias_self.shape
@@ -289,55 +298,90 @@ def banded_gat_mean(bias_self: torch.Tensor, z: torch.Tensor,
                          "z must be 16-byte aligned")
     seed = _drop.check_seed(seed, dropout_rate, z.device)
     lib = _build.bind(
-        KERNEL, "banded_gat_mean_launch",
+        KERNEL, "banded_gat_launch",
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint,
-           ctypes.c_float, ctypes.c_void_p])
-    out = torch.empty((n, c), dtype=z.dtype, device=z.device)
-    rc = lib.banded_gat_mean_launch(
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+           ctypes.c_uint, ctypes.c_float, ctypes.c_void_p])
+    out = torch.empty((n, hc if concat else c), dtype=z.dtype,
+                      device=z.device)
+    rc = lib.banded_gat_launch(
         bias_self.data_ptr(), alphas.data_ptr(), z.data_ptr(), out.data_ptr(),
-        n, heads, c, tile, width, negative_slope, _DTYPE_CODE[z.dtype],
-        None if seed is None else seed.data_ptr(),
+        n, heads, c, tile, width, negative_slope, int(concat),
+        _DTYPE_CODE[z.dtype], None if seed is None else seed.data_ptr(),
         _drop.threshold(dropout_rate),
         inv_keep(dropout_rate) if seed is not None else 1.0,
         torch.cuda.current_stream(z.device).cuda_stream)
-    _build.check(lib, rc, "banded_gat_mean")
-    _build.LAUNCHES["banded_gat_mean"] += 1
+    name = "banded_gat" if concat else "banded_gat_mean"
+    _build.check(lib, rc, name)
+    _build.LAUNCHES[name] += 1
     return out
 
 
-class _GatMeanPacked(torch.autograd.Function):
-    """``banded_gat_mean_packed``: cotangents (dz, dα) from
-    ``banded_bwd.banded_gat_bwd`` (``_gatm_vjp_bwd``); the band and the
-    seed get none."""
+def banded_gat_mean(bias_self: torch.Tensor, z: torch.Tensor,
+                    alphas: torch.Tensor, heads: int,
+                    negative_slope: float = 0.2, dropout_rate: float = 0.0,
+                    seed: torch.Tensor | None = None) -> torch.Tensor:
+    """Head-mean banded GAT attention on a given z [N, H·C] → [N, C] in z's
+    dtype: plain version for CPU tensors, the CUDA kernel for CUDA tensors
+    (or a raise).  ``seed``: [1] int32 on z's device when
+    ``dropout_rate > 0``."""
+    return _gat_attention(bias_self, z, alphas, heads, negative_slope,
+                          dropout_rate, seed, False)
+
+
+def banded_gat(bias_self: torch.Tensor, z: torch.Tensor,
+               alphas: torch.Tensor, heads: int, negative_slope: float = 0.2,
+               dropout_rate: float = 0.0,
+               seed: torch.Tensor | None = None) -> torch.Tensor:
+    """Concat banded GAT attention on a given z [N, H·C] → every head's
+    output [N, H·C] in z's dtype (``banded_gat_fwd`` with
+    ``mean_heads=False``): plain version for CPU tensors, the CUDA kernel
+    for CUDA tensors (or a raise).  ``seed`` as :func:`banded_gat_mean`."""
+    return _gat_attention(bias_self, z, alphas, heads, negative_slope,
+                          dropout_rate, seed, True)
+
+
+class _GatPacked(torch.autograd.Function):
+    """``banded_gat_packed`` (concat) and ``banded_gat_mean_packed``:
+    cotangents (dz, dα) from ``banded_bwd.banded_gat_bwd`` on the per-head
+    or the head-mean cotangent (``_gat_vjp_bwd``, ``_gatm_vjp_bwd``); the
+    band and the seed get none."""
 
     @staticmethod
     def forward(ctx, bias_self, z, alphas, heads, negative_slope,
-                dropout_rate, seed):
+                dropout_rate, seed, concat):
         ctx.save_for_backward(bias_self, z, alphas, seed)
-        ctx.args = (heads, negative_slope, dropout_rate)
-        return banded_gat_mean(bias_self, z, alphas, heads, negative_slope,
-                               dropout_rate, seed)
+        ctx.args = (heads, negative_slope, dropout_rate, concat)
+        return _gat_attention(bias_self, z, alphas, heads, negative_slope,
+                              dropout_rate, seed, concat)
 
     @staticmethod
     def backward(ctx, g):
         from .banded_bwd import banded_gat_bwd
 
         bias_self, z, alphas, seed = ctx.saved_tensors
-        heads, negative_slope, dropout_rate = ctx.args
+        heads, negative_slope, dropout_rate, concat = ctx.args
         dz, da = banded_gat_bwd(bias_self, z, alphas,
                                 g.to(z.dtype).contiguous(), heads,
-                                negative_slope, dropout_rate, seed)
-        return None, dz, da, None, None, None, None
+                                negative_slope, dropout_rate, seed,
+                                mean_expand=not concat)
+        return None, dz, da, None, None, None, None, None
 
 
 def banded_gat_mean_packed(bias_self, z, alphas, heads, negative_slope=0.2,
                            dropout_rate=0.0, seed=None):
     """Differentiable head-mean banded GAT on z [N, H·C] and the packed f32
     α [N, 2H]; the unfused training path (``fuse_train=False``)."""
-    return _GatMeanPacked.apply(bias_self, z.contiguous(),
-                                alphas.contiguous(), heads, negative_slope,
-                                dropout_rate, seed)
+    return _GatPacked.apply(bias_self, z.contiguous(), alphas.contiguous(),
+                            heads, negative_slope, dropout_rate, seed, False)
+
+
+def banded_gat_packed(bias_self, z, alphas, heads, negative_slope=0.2,
+                      dropout_rate=0.0, seed=None):
+    """Differentiable concat banded GAT on z [N, H·C] and the packed f32 α
+    [N, 2H] → [N, H·C]; the concat conv's path in eval and training."""
+    return _GatPacked.apply(bias_self, z.contiguous(), alphas.contiguous(),
+                            heads, negative_slope, dropout_rate, seed, True)
 
 
 # ------------------------------------------------------------------ row 8

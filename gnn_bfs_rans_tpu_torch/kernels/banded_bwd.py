@@ -2,14 +2,17 @@
 versions.
 
 * ``banded_gat_bwd`` (row 5) replaces ``gnn_bfs_rans_tpu/kernels/
-  banded_bwd.py::banded_gat_bwd`` (``mean_expand=True``): softmax
-  recompute, dropout replay, softmax VJP → dz [N, H·C] in z's dtype and the
-  packed dα [N, 2H] f32.  Kernel: ``csrc/banded_gat_bwd.cu``.  The TPU
-  kernel emits per-window dz partials for ``fold_project_bwd`` to fold; the
-  CUDA kernel gathers each sender's dz row from its receivers and emits dz
-  rows, with one rounding instead of two (a few bf16 ulps apart in bf16).
-  It is the backward of both kernel 1's op and row 4's
-  (``banded_gat_mean_packed``, the JAX package's ``_gatm_vjp_bwd``).
+  banded_bwd.py::banded_gat_bwd`` with ``mean_expand`` True (the head-mean
+  cotangent [N, C]) and False (the concat output's per-head cotangent
+  [N, H·C]): softmax recompute, dropout replay, softmax VJP → dz [N, H·C]
+  in z's dtype and the packed dα [N, 2H] f32.  Kernel:
+  ``csrc/banded_gat_bwd.cu``.  The TPU kernel emits per-window dz partials
+  for ``fold_project_bwd`` to fold; the CUDA kernel gathers each sender's
+  dz row from its receivers and emits dz rows, with one rounding instead of
+  two (a few bf16 ulps apart in bf16).  It is the backward of kernel 1's op
+  and of both row-4 ops (``banded_gat_mean_packed`` and
+  ``banded_gat_packed``, the JAX package's ``_gatm_vjp_bwd`` and
+  ``_gat_vjp_bwd``).
 * ``fold_project_bwd`` (row 6) replaces ``banded_bwd.py::fold_project_bwd``
   (``with_bias`` False and True): dx = dz·Wᵀ in x's dtype, dW = xᵀ·dz and
   db = Σ_rows dz in f32, all in the kernel's own body.  Kernel:
@@ -50,7 +53,7 @@ def _mm_round(v: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
 
 
 def banded_gat_bwd_plain(bias_self, z, alphas, g, heads, negative_slope=0.2,
-                         dropout_rate=0.0, seed=None):
+                         dropout_rate=0.0, seed=None, mean_expand=True):
     """Plain PyTorch version with the kernel's rounding points: dense over
     the window like the TPU kernel (masked entries contribute exactly 0),
     dz summed in f32 over every receiver, then rounded once."""
@@ -66,8 +69,12 @@ def banded_gat_bwd_plain(bias_self, z, alphas, g, heads, negative_slope=0.2,
     full = full + ((bias_self.float() - 1.0) * 1e30)[..., None]
     e = torch.exp(full - full.amax(dim=2, keepdim=True))
     inv = 1.0 / e.sum(dim=2, keepdim=True).clamp_min(1e-16)  # [n, T, 1, H]
-    gout = g.float().reshape(n_tiles, tile, c) * (1.0 / heads)
-    dp = torch.einsum("ntc,nwhc->ntwh", _mm_round(gout, dt), win_z)
+    if mean_expand:        # every head receives g/H
+        gout = (g.float().reshape(n_tiles, tile, 1, c) * (1.0 / heads)
+                ).expand(n_tiles, tile, heads, c)
+    else:                  # head h reads its own columns of g
+        gout = g.float().reshape(n_tiles, tile, heads, c)
+    dp = torch.einsum("nthc,nwhc->ntwh", _mm_round(gout, dt), win_z)
     e_d = e
     if dropout_rate > 0:
         keep = attention_keep(seed.long(), n_tiles, tile, width, heads,
@@ -79,7 +86,7 @@ def banded_gat_bwd_plain(bias_self, z, alphas, g, heads, negative_slope=0.2,
     dpre = e * ((dp - rs) * inv) * torch.where(pre >= 0, 1.0, negative_slope)
     dad = dpre.sum(dim=2).reshape(n, heads)
     das_win = _mm_round(dpre, dt).sum(dim=1)                  # [n, W, H]
-    gout_s = gout[:, :, None, :] * inv[:, :, 0, :, None]      # [n, T, H, C]
+    gout_s = gout * inv[:, :, 0, :, None]                     # [n, T, H, C]
     dz_win = torch.einsum("ntwh,nthc->nwhc", _mm_round(e_d, dt),
                           _mm_round(gout_s, dt))
     # fold the windows onto sender rows; window rows outside [0, N) go to a
@@ -96,14 +103,15 @@ def banded_gat_bwd_plain(bias_self, z, alphas, g, heads, negative_slope=0.2,
 
 
 def banded_gat_bwd(bias_self, z, alphas, g, heads, negative_slope=0.2,
-                   dropout_rate=0.0, seed=None):
-    """(dz, dα) of the head-mean banded GAT given z (the forward's
-    projection), the packed f32 α and the output cotangent ``g`` [N, C] in
-    z's dtype.  CPU tensors take the plain version, CUDA tensors the
-    kernel."""
+                   dropout_rate=0.0, seed=None, mean_expand=True):
+    """(dz, dα) of the banded GAT given z (the forward's projection), the
+    packed f32 α and the output cotangent ``g`` in z's dtype: [N, C] of the
+    head mean (``mean_expand``) or [N, H·C] of the concat output.  CPU
+    tensors take the plain version, CUDA tensors the kernel."""
     if z.device.type == "cpu":
         return banded_gat_bwd_plain(bias_self, z, alphas, g, heads,
-                                    negative_slope, dropout_rate, seed)
+                                    negative_slope, dropout_rate, seed,
+                                    mean_expand)
     if z.device.type != "cuda":
         raise ValueError(f"unsupported device {z.device}")
     n_tiles, tile, width = bias_self.shape
@@ -121,7 +129,8 @@ def banded_gat_bwd(bias_self, z, alphas, g, heads, negative_slope=0.2,
                         f"{z.dtype} / {g.dtype}")
     if bias_self.dtype != torch.int8 or alphas.dtype != torch.float32:
         raise TypeError("bias_self must be int8 and alphas float32")
-    if (n != n_tiles * tile or hc != heads * c or g.shape != (n, c)
+    if (n != n_tiles * tile or hc != heads * c
+            or g.shape != (n, c if mean_expand else hc)
             or alphas.shape != (n, 2 * heads) or width < tile
             or (width - tile) % 2):
         raise ValueError(f"shape mismatch: bias_self {tuple(bias_self.shape)}, "
@@ -133,7 +142,7 @@ def banded_gat_bwd(bias_self, z, alphas, g, heads, negative_slope=0.2,
     seed = _drop.check_seed(seed, dropout_rate, z.device)
     lib = _build.bind("banded_gat_bwd", "banded_gat_bwd_launch",
                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                      + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                      + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                          ctypes.c_void_p, ctypes.c_uint, ctypes.c_float,
                          ctypes.c_void_p])
     stats = torch.empty((n, 3 * heads), dtype=torch.float32, device=z.device)
@@ -142,7 +151,7 @@ def banded_gat_bwd(bias_self, z, alphas, g, heads, negative_slope=0.2,
     rc = lib.banded_gat_bwd_launch(
         bias_self.data_ptr(), alphas.data_ptr(), z.data_ptr(), g.data_ptr(),
         stats.data_ptr(), dz.data_ptr(), da.data_ptr(), n, heads, c, tile,
-        width, negative_slope, 1.0 / heads, _DTYPE_CODE[z.dtype],
+        width, negative_slope, int(mean_expand), _DTYPE_CODE[z.dtype],
         None if seed is None else seed.data_ptr(),
         _drop.threshold(dropout_rate),
         inv_keep(dropout_rate) if seed is not None else 1.0,

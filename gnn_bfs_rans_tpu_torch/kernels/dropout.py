@@ -95,3 +95,12 @@ def draw_seed(generator: torch.Generator, device) -> torch.Tensor:
     the range of the JAX package's ``_dropout_seed``."""
     return torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                          device=device, dtype=torch.int32)
+
+
+def bernoulli_keep(shape, rate: float, generator: torch.Generator,
+                   device) -> torch.Tensor:
+    """Keep mask of the dense and segment backends' attention dropout: each
+    element kept with probability 1 − rate, drawn from ``generator``.  The
+    JAX package draws these from ``jax.random.bernoulli``, which torch
+    cannot reproduce: masks match in distribution, not bit for bit."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate

@@ -1,29 +1,39 @@
-"""FlowGNN — the flow-surrogate model on the banded kernel path.
+"""FlowGNN — the flow-surrogate model.
 
 Counterpart of ``gnn_bfs_rans_tpu/models/flow_gnn.py::FlowGNN``:
 ``Linear(3→H)`` input projection, ``L`` blocks of {conv, residual add,
-BatchNorm, ReLU}, and the output MLP ``H→H→H→H/2→out``.  The conv is
-``GCNConv``, ``GATConv``, ``GINConv`` or ``TransformerConv`` by
+normalization, ReLU, dropout}, and the output MLP ``H→H→H→H/2→out``.  The
+conv is ``GCNConv``, ``GATConv``, ``GINConv`` or ``TransformerConv`` by
 ``layer_type`` (dispatch as in ``flow_gnn.py:130-153``; GCN and GIN take no
 training flag or seed; the Transformer is edge-conditioned with
-``use_edge_attr``, takes ``fuse_eval`` and, as GAT, the attention dropout).
-Output layout is ``[U(3), p, k, epsilon, nut]``.  Dtype rules are the JAX
-module's (``flow_gnn.py:56-66, 108-153``): ``bfloat16`` runs everything but
-the final head in bf16; ``mixed`` runs the convs and the MLP in bf16 on an
-f32 residual stream; parameters stay f32.
+``use_edge_attr``, takes ``fuse_eval`` and, as GAT, the attention dropout),
+each on ``backend`` (``pallas``, ``dense`` or ``segment``, the convs'
+routing).  Output layout is ``[U(3), p, k, epsilon, nut]``.  Dtype rules
+are the JAX module's (``flow_gnn.py:56-66, 108-153``): ``bfloat16`` runs
+everything but the final head in bf16 (the convs' products; a dense or
+segment conv's f32 output turns the residual stream f32, as in JAX);
+``mixed`` runs the convs and the MLP in bf16 on an f32 residual stream;
+parameters stay f32.
+
+The block's epilogue is the fused kernel op (``norm.MaskedBatchNorm``'s
+``train_forward`` in training, ``batch_forward`` under ``exact_bn``)
+exactly where the JAX module's ``fused_ep`` holds: BatchNorm,
+``fuse_epilogue`` and ``backend='pallas'``.  Everywhere else it is the
+unfused chain of ``flow_gnn.py:170-190``: the residual add, then
+BatchNorm (running statistics in eval, the batch statistics of the real
+rows in training and under ``exact_bn``), LayerNorm (``norm_type='layer'``,
+in f32 under ``mixed``) or nothing, then ReLU and dropout.
 
 ``forward(graph, exact_bn=True)`` is the deterministic train-mode forward
 the JAX package's ``make_forward(exact_bn=True)`` runs: batch statistics of
-the input graph through the fused epilogue.  ``forward(graph, train=True,
-generator=g)`` is the training forward (``flow_gnn.py:100-202`` with
-``train=True``): the differentiable conv ops and fused epilogue with their
-in-kernel dropout, each layer's kernel seeds and the output MLP's dropout
-masks drawn from the explicit ``g`` (never the global RNG), and the running
-BatchNorm statistics updated.  Without a generator the training forward is
-deterministic (the JAX package's dropout-free train-mode forward of the
-recalibration).  Batch or no normalization is ported, with the fused
-batch-norm epilogue; LayerNorm and the unfused epilogue
-(``fuse_epilogue=False``) are not.
+the input graph, running statistics untouched.  ``forward(graph,
+train=True, generator=g)`` is the training forward (``flow_gnn.py:100-202``
+with ``train=True``): the differentiable conv ops and epilogue with their
+dropout, each layer's kernel seeds, the dense and segment convs' attention
+masks and the flax-style dropout masks drawn from the explicit ``g``
+(never the global RNG), and the running BatchNorm statistics updated.
+Without a generator the training forward is deterministic (the JAX
+package's dropout-free train-mode forward of the recalibration).
 """
 
 from __future__ import annotations
@@ -39,7 +49,7 @@ from ..graph.structs import Graph
 from ..kernels.dropout import draw_seed
 from .convs import (GATConv, GCNConv, GINConv, TransformerConv, dense,
                     lecun_init_)
-from .norm import MaskedBatchNorm
+from .norm import LayerNorm, MaskedBatchNorm
 
 # the edge features every graph of the system carries: [unit dir xyz, dist]
 EDGE_DIM = 4
@@ -87,29 +97,46 @@ class FlowGNN(nn.Module):
         if cfg.layer_type not in ("GCN", "GAT", "GIN", "Transformer"):
             raise ValueError(f"unknown layer_type {cfg.layer_type!r}")
         self.bn = cfg.use_batch_norm and cfg.norm_type == "batch"
-        if cfg.use_batch_norm and cfg.norm_type not in ("batch", "none"):
-            raise NotImplementedError(
-                f"norm_type {cfg.norm_type!r} is not ported yet")
+        self.ln = cfg.use_batch_norm and cfg.norm_type == "layer"
+        if cfg.use_batch_norm and cfg.norm_type not in ("batch", "layer",
+                                                        "none"):
+            raise ValueError(f"unknown norm_type {cfg.norm_type!r}")
         if cfg.compute_dtype not in ("float32", "bfloat16", "mixed"):
             raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
+        if cfg.backend not in ("segment", "dense", "pallas"):
+            raise ValueError(f"unknown backend {cfg.backend!r}")
         self.config = cfg
+        # the fused epilogue runs where the JAX module's fused_ep holds (in
+        # training and under exact_bn)
+        self.fused_ep = (self.bn and cfg.fuse_epilogue
+                         and cfg.backend == "pallas")
         h = cfg.hidden_dim
+        mixed = cfg.compute_dtype == "mixed"
+        # the products' dtype (the flax modules' ``dtype``): None is f32
+        self.dtype = dtype = (torch.bfloat16 if cfg.compute_dtype
+                              in ("bfloat16", "mixed") else None)
         lin = functools.partial(nn.utils.skip_init, nn.Linear)
         self.input_proj = lin(cfg.input_dim, h)
+        common = dict(backend=cfg.backend, dtype=dtype)
+
         def conv():
             if cfg.layer_type == "GAT":
                 return GATConv(h, heads=cfg.heads, dropout=cfg.dropout,
-                               fuse_train=cfg.fuse_train)
+                               fuse_train=cfg.fuse_train, **common)
             if cfg.layer_type == "Transformer":
                 return TransformerConv(
                     h, heads=cfg.heads, concat=False,
                     edge_dim=EDGE_DIM if cfg.use_edge_attr else None,
-                    fuse_eval=cfg.fuse_eval, dropout=cfg.dropout)
-            return GCNConv(h) if cfg.layer_type == "GCN" else GINConv(h)
+                    fuse_eval=cfg.fuse_eval, dropout=cfg.dropout, **common)
+            return (GCNConv(h, **common) if cfg.layer_type == "GCN"
+                    else GINConv(h, **common))
 
         self.convs = nn.ModuleList(conv() for _ in range(cfg.num_layers))
+        n_norms = cfg.num_layers if (self.bn or self.ln) else 0
         self.norms = nn.ModuleList(
-            MaskedBatchNorm(h) for _ in range(cfg.num_layers if self.bn else 0))
+            MaskedBatchNorm(h) if self.bn
+            else LayerNorm(h, dtype=None if mixed else dtype)
+            for _ in range(n_norms))
         self.out_0 = lin(h, h)
         self.out_1 = lin(h, h)
         self.out_2 = lin(h, h // 2)
@@ -131,22 +158,20 @@ class FlowGNN(nn.Module):
                 train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         cfg = self.config
-        if (exact_bn or train) and self.bn and not cfg.fuse_epilogue:
-            raise NotImplementedError(
-                "batch statistics without the fused epilogue "
-                "(fuse_epilogue=False) are not ported yet")
         if (cfg.layer_type == "Transformer" and cfg.use_edge_attr
                 and graph.edge_feat.shape[1] != EDGE_DIM):
             raise ValueError(f"the Transformer takes {EDGE_DIM} edge "
                              f"features, got {graph.edge_feat.shape[1]}")
         rate = cfg.dropout if (train and generator is not None) else 0.0
         mixed = cfg.compute_dtype == "mixed"
-        dtype = torch.bfloat16 if cfg.compute_dtype in ("bfloat16", "mixed") \
-            else None
+        dtype = self.dtype
         dev = graph.node_feat.device
 
         def seed():
             return draw_seed(generator, dev) if rate > 0 else None
+
+        # the dense and segment convs' attention masks
+        conv_gen = generator if rate > 0 else None
 
         x = dense(self.input_proj, graph.node_feat, dtype)
         if mixed:
@@ -155,25 +180,29 @@ class FlowGNN(nn.Module):
         for i, conv in enumerate(self.convs):
             x_in = x.to(torch.bfloat16) if mixed else x
             if cfg.layer_type == "GAT":
-                x_new = conv(x_in, graph, train=train, seed=seed())
+                x_new = conv(x_in, graph, train=train, seed=seed(),
+                             generator=conv_gen)
             elif cfg.layer_type == "Transformer":
                 # the JAX package runs exact_bn (and the recalibration) in
                 # train mode, where fuse_eval does not apply
                 x_new = conv(x_in, graph, train=train, seed=seed(),
-                             fused_ok=not (train or exact_bn))
+                             fused_ok=not (train or exact_bn),
+                             generator=conv_gen)
             else:
                 x_new = conv(x_in, graph)
             if mixed:
                 x_new = x_new.float()
-            if self.bn and train:
+            if self.fused_ep and train:
                 x = self.norms[i].train_forward(x, x_new, graph.n_nodes, rate,
                                                 seed())
                 continue
-            if self.bn and exact_bn:
+            if self.fused_ep and exact_bn:
                 x = self.norms[i].batch_forward(x, x_new, graph.n_nodes)
                 continue
             x = x + x_new
-            if self.bn:
+            if self.bn and (train or exact_bn):
+                x = self.norms[i].batch_norm(x, graph.node_mask, update=train)
+            elif self.bn or self.ln:
                 x = self.norms[i](x)
             x = self._dropout(torch.relu(x), rate, generator)
         h = torch.relu(dense(self.out_0, x, dtype))

@@ -3,9 +3,10 @@
 Counterpart of ``gnn_bfs_rans_tpu/train/data.py``: the mesh is parsed
 once, ONE canonical padded graph is built, the normalizer is fitted over
 all usable snapshots, and targets are packed into a single
-``[S, N_pad, 7]`` array in the graph's (reordered) node order.  Uniform
-snapshots (time 0 initial conditions) are skipped by default, as the
-reference's effective training set does.
+``[S, N_pad, 7]`` array in the graph's (reordered) node order; the band
+planes are built only when asked (``with_band``: the ``pallas``
+backend).  Uniform snapshots (time 0 initial conditions) are skipped by
+default, as the reference's effective training set does.
 """
 
 from __future__ import annotations

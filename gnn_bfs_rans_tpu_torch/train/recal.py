@@ -23,7 +23,7 @@ from ..models.flow_gnn import FlowGNN, ModelConfig
 def exact_stats(model: FlowGNN, graph: Graph) -> dict[str, torch.Tensor]:
     """The exact running statistics (state-dict keys → tensors) for the
     model's current parameters on ``graph``."""
-    if not len(model.norms):
+    if not model.bn:
         return {}
     buffers = dict(model.named_buffers())
     old = {k: v.clone() for k, v in buffers.items()}

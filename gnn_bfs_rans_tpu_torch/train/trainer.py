@@ -14,11 +14,14 @@ with the reference's ``train.py main()``):
   optimizer state that ``resume`` continues from;
 * ``training_history.json`` in the reference schema and ``metrics.jsonl``.
 
-It runs on the card unless asked for the CPU, and has no fallback: a CUDA
-tensor goes to the kernels or the step raises.  Not ported: the JAX
-trainer's device-resident epoch blocks (``epoch_block > 1``), its Mosaic
-compile retries and dense-backend fallback (``kernels/fallback.py``), its
-AOT executable cache and its tqdm bar.  Dropout masks and kernel seeds come
+It trains on every backend (``pallas``, ``dense``, ``segment``; a
+``pallas`` model on a mesh without a band takes the convs' dense
+branches).  It runs on the card unless asked for the CPU, and has no
+fallback: a CUDA tensor goes to the kernels or the step raises.  Not
+ported: the JAX trainer's device-resident epoch blocks
+(``epoch_block > 1``), its Mosaic compile retries and dense-backend
+fallback (``kernels/fallback.py``: a TPU workaround that would hide a
+kernel fault here), its AOT executable cache and its tqdm bar.  Dropout masks and kernel seeds come
 from one ``torch.Generator`` on the training device, seeded from
 ``TrainConfig.seed``; parameters are initialized from a CPU generator with
 the same seed.
@@ -71,18 +74,10 @@ class Trainer:
         log_fn=print,
         device: str | torch.device = "cuda",
     ):
-        if model_config.backend != "pallas":
-            raise NotImplementedError(
-                f"backend {model_config.backend!r} is not ported yet: the "
-                "port trains through the banded kernels (backend='pallas')")
         if train_config.epoch_block > 1:
             raise NotImplementedError(
                 "epoch_block > 1 (the JAX package's on-device lax.scan of "
                 "whole epochs) is not ported yet")
-        if dataset.graph.band is None:
-            raise NotImplementedError(
-                "the mesh has no band (its reordered bandwidth needs a "
-                "window wider than 5 tiles); the dense path is not ported")
         self.device = resolve_device(device)
         self.dataset = dataset
         self.model_config = model_config

@@ -19,11 +19,14 @@ from gnn_bfs_rans_tpu_torch.graph.build import compute_edge_features
 from gnn_bfs_rans_tpu_torch.infer import predict_case
 from gnn_bfs_rans_tpu_torch.kernels import _build
 from gnn_bfs_rans_tpu_torch.kernels.banded import (
+    banded_gat,
     banded_gat_mean,
     banded_gat_mean_fused,
     banded_gat_mean_fused_plain,
     banded_gat_mean_packed,
     banded_gat_mean_plain,
+    banded_gat_packed,
+    banded_gat_plain,
     banded_spmm,
     banded_spmm_fwd,
     banded_spmm_plain,
@@ -389,6 +392,24 @@ def test_train_step_card_matches_cpu_other_convs(card, tmp_path, layer,
     assert _build.LAUNCHES[want] == (2 if layer == "GAT-unfused" else 4)
 
 
+@pytest.mark.parametrize("layer,backend,norm,dtype", [
+    ("GAT", "dense", "batch", "float32"),
+    ("Transformer", "segment", "batch", "float32"),
+    ("GCN", "dense", "layer", "bfloat16")])
+def test_train_step_card_matches_cpu_backends(card, tmp_path, layer, backend,
+                                              norm, dtype):
+    """The dense and segment backends (plain torch on the card, the unfused
+    BatchNorm or LayerNorm) launch no kernel of the port and train as on
+    the CPU."""
+    extra = dict(heads=2) if layer in ("GAT", "Transformer") else {}
+    _build.reset_launches()
+    _train_step_card_vs_cpu(card, tmp_path, ModelConfig(
+        hidden_dim=64, num_layers=2, layer_type=layer, backend=backend,
+        norm_type=norm, compute_dtype=dtype, dropout=0.0, **extra),
+        zero_grad=_TR_FEEDS_BN if layer == "Transformer" else _FEEDS_BN)
+    assert sum(_build.LAUNCHES.values()) == 0
+
+
 def _spmm_band(n, width, seed=0):
     """The GCN and GIN planes of random symmetric edges, |s − r| < width."""
     rng = np.random.default_rng(seed)
@@ -468,6 +489,40 @@ def test_gat_mean_kernel_and_op_match_plain(card, width, dtype, rate):
                                           rate, seed)
     _close(zl.grad, ref_dz, KTOL[dtype])
     _close(al.grad, ref_da, 1e-4 if dtype == "float32" else 1e-2)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("width", [60, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gat_concat_kernel_and_op_match_plain(card, width, dtype, rate):
+    """Row 4's concat form and row 5's per-head cotangent: the kernels
+    through ``banded_gat`` and the op ``banded_gat_packed`` against their
+    plain versions."""
+    n, heads, c = 512, 4, 64
+    gen = torch.Generator().manual_seed(9)
+    dt = getattr(torch, dtype)
+    z = (0.5 * torch.randn(n, heads * c, generator=gen)).to(card, dt)
+    alphas = torch.randn(n, 2 * heads, generator=gen).to(card)
+    g = torch.randn(n, heads * c, generator=gen).to(card, dt)
+    mask = _band(n, width).to(card)
+    seed = _seed(card) if rate else None
+    args = (mask, z, alphas, heads, 0.2, rate, seed)
+    _build.reset_launches()
+    out = banded_gat(*args)
+    zl, al = z.clone().requires_grad_(), alphas.clone().requires_grad_()
+    banded_gat_packed(mask, zl, al, heads, 0.2, rate, seed).backward(g)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["banded_gat"] == 2
+    assert _build.LAUNCHES["banded_gat_bwd"] == 1
+    assert out.shape == (n, heads * c) and out.dtype == dt
+    _close(out, banded_gat_plain(*args), KTOL[dtype])
+    ref_dz, ref_da = banded_gat_bwd_plain(mask, z, alphas, g, heads, 0.2,
+                                          rate, seed, mean_expand=False)
+    _close(zl.grad, ref_dz, KTOL[dtype])
+    _close(al.grad, ref_da, 1e-4 if dtype == "float32" else 1e-2)
+    with pytest.raises(ValueError, match="shape"):
+        banded_gat_bwd(mask, z, alphas, g[:, :c].contiguous(), heads, 0.2,
+                       rate, seed, mean_expand=False)
 
 
 def _tr_band(n, width, geometric, seed=0):

@@ -1,7 +1,9 @@
 """Port foam/ and graph/ vs the JAX package; import and device rules.
 
-(a) mesh arrays, the RCM permutation, the padded graph, the int8 band and
-    the written OpenFOAM files equal the JAX package's exactly;
+(a) mesh arrays, the RCM permutation, the padded graph (its COO edges and
+    its dense neighbour layout ``nbr_idx`` / ``nbr_mask`` / ``nbr_edge``,
+    ``e_pad``, ``max_degree``), the int8 band and the written OpenFOAM
+    files equal the JAX package's exactly;
 (f) the port and its CLI import no JAX;
 (g) entry points raise without CUDA unless the CPU is asked for.
 """
@@ -80,6 +82,39 @@ def test_graph_perm_and_band_equal(cases):
     assert g.band.width_cols == 256
     np.testing.assert_array_equal(g.band.bias_self.numpy(),
                                   np.asarray(ref.band.bias_self))
+
+
+@pytest.mark.parametrize("reorder,align", [("rcm", 4), ("none", 4),
+                                           ("rcm", 8)])
+def test_dense_neighbour_layout_equal(cases, reorder, align):
+    """The padded neighbour layout the dense backend reads, with and
+    without RCM and at another ``degree_align``, and its moves with
+    ``Graph.to``."""
+    from gnn_bfs_rans_tpu.graph.structs import build_padded_graph as jax_pad
+    from gnn_bfs_rans_tpu_torch.graph.structs import build_padded_graph
+
+    root, _ = cases
+    mesh = FoamCase(root / "port").load_mesh()
+    ref = jax_build_graph(mesh, reorder=reorder)
+    if align != 4:
+        args = [np.asarray(ref.senders)[:ref.n_edges],
+                np.asarray(ref.receivers)[:ref.n_edges],
+                np.asarray(ref.edge_feat)[:ref.n_edges],
+                np.asarray(ref.node_feat)[:ref.n_nodes]]
+        ref = jax_pad(*args, degree_align=align)
+        g = build_padded_graph(*args, degree_align=align)
+    else:
+        g = build_graph(mesh, reorder=reorder)
+    assert (g.e_pad, g.max_degree) == (ref.e_pad, ref.max_degree)
+    assert g.max_degree % align == 0
+    for name in ("senders", "receivers", "nbr_idx", "nbr_mask", "nbr_edge"):
+        np.testing.assert_array_equal(getattr(g, name).numpy(),
+                                      np.asarray(getattr(ref, name)), name)
+    assert g.nbr_idx.dtype == g.nbr_edge.dtype == torch.int32
+    assert g.nbr_mask.dtype == torch.bool
+    moved = g.to("meta")
+    assert moved.nbr_idx.device.type == moved.nbr_edge.device.type == "meta"
+    assert moved.nbr_mask.device.type == "meta"
 
 
 def test_all_band_components_equal(cases):

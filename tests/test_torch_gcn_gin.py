@@ -166,7 +166,15 @@ def test_jax_saved_checkpoint_serves(case, tmp_path, layer):
 
 
 def test_graph_without_the_plane_raises(case):
+    """A ``pallas`` GCN on a band without its ``gcn`` plane no longer
+    raises: it takes the dense branch, as the JAX module routes it, and
+    gives the banded path's output (f32, summation order)."""
     path, _, _ = case
     port = FlowGNN(ModelConfig(**CFG, layer_type="GCN"))
-    with pytest.raises(NotImplementedError, match="gcn"):
-        port(load_graph(path, "GIN"))
+    graph = load_graph(path, "GIN")
+    assert graph.band.gcn is None and graph.band.adj is not None
+    with torch.no_grad():
+        got = port(graph)
+        want = port(load_graph(path, "GCN"))
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())

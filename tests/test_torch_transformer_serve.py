@@ -203,15 +203,16 @@ def test_jax_saved_checkpoint_serves(case, tmp_path):
 
 
 def test_training_raises(case, tmp_path):
-    """What is still not ported raises for the Transformer too (the dense
-    backend, on-device epoch blocks, row 11 under a gradient); its training
-    forward itself now runs and differentiates."""
+    """What is still not ported raises for the Transformer too (on-device
+    epoch blocks, row 11 under a gradient); its training forward runs and
+    differentiates, and the dense backend, which raised before it was
+    ported, trains it."""
     path = case[0]
     argv = ["train", "--case_path", str(path), "--time_dirs", "100",
             "--layer_type", "Transformer", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="backend"):
-        cli_main([*argv, "--output_dir", str(tmp_path / "a"), "--backend",
-                  "dense"])
+    assert cli_main([*argv, "--output_dir", str(tmp_path / "a"), "--backend",
+                     "dense", "--hidden_dim", "16", "--num_layers", "2",
+                     "--epochs", "1"]) == 0
     with pytest.raises(NotImplementedError, match="epoch_block"):
         cli_main([*argv, "--output_dir", str(tmp_path / "b"),
                   "--epoch_block", "2"])
