@@ -35,7 +35,12 @@ Phases (any failure raises and exits non-zero):
    the kernels and through the plain versions, in f32, bf16 and mixed: the
    loss and each parameter group's gradient (f32: the largest relative gap
    held to 3e-2; bf16 and mixed: the distance from the plain versions' f32
-   step on the same masks held to 1.5 × the plain bf16 step's own);
+   step on the same masks held to 1.5 × the plain bf16 step's own); the f32
+   step again at dropout 0, through every kernel and through row 6 alone
+   (the plain versions for the rest); row 6 against its plain version at
+   the main path's three shapes (the GAT form, the Transformer's wblk form
+   on the row-strided q block, the bias form), f32 and bf16, at N 12,032
+   and a ragged 12,000, each timed beside its torch.matmul calls and bound;
 9. row 8, ``banded_spmm`` (CUDA), forward and backward (through the autograd
    op, on the transposed band) against the plain versions at F 256: the
    ``gcn`` (f32) and ``adj`` (bf16) planes, x in f32 and bf16, on the
@@ -80,7 +85,8 @@ Phases (any failure raises and exits non-zero):
     backward's shape and the projection ``transformer_project``; the
     projgrad op (projection, rows 9, 10, 7, 6) through the kernels vs the
     plain versions, f32 and bf16, rate 0 and 0.1; one train step of the
-    4×256 Transformer, kernels vs plain versions, in f32, bf16 and mixed;
+    4×256 Transformer, kernels vs plain versions, in f32, bf16 and mixed
+    (row 10's two passes timed by kernel name in torch.profiler);
     ``python -m gnn_bfs_rans_tpu_torch train --layer_type Transformer``
     (4×256, bf16, dropout 0.1, geo, 4 epochs): every kernel of the path
     launched, the loss lower in the last epoch than in the first, the
@@ -337,9 +343,9 @@ def check_epilogue(mode, n_pad, n_valid, gen):
 
 
 @contextlib.contextmanager
-def plain_versions():
+def plain_versions(keep=()):
     """Route every kernel call of the model, forward and backward, to the
-    plain versions (on the card)."""
+    plain versions (on the card), but the kernels named in ``keep``."""
     from gnn_bfs_rans_tpu_torch.kernels import banded, banded_bwd, epilogue
     from gnn_bfs_rans_tpu_torch.models import convs, norm
 
@@ -361,6 +367,7 @@ def plain_versions():
         (epilogue, "_forward", epilogue._forward_plain),
         (epilogue, "fused_epilogue_bwd", epilogue.fused_epilogue_bwd_plain),
     ]
+    swaps = [sw for sw in swaps if sw[1] not in keep]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -755,7 +762,7 @@ def epilogue_dropout_keys(itemsize):
 
 
 def compare_train_step(graph, dtype_name, label="gat4x256", model_seed=1,
-                       **overrides):
+                       keep=None, **overrides):
     """One step's loss and gradients, kernels vs plain versions, from the
     same seeded parameters and dropout masks; bf16 and mixed are also held
     against the plain versions' f32 step on those masks.  ``overrides``:
@@ -765,7 +772,9 @@ def compare_train_step(graph, dtype_name, label="gat4x256", model_seed=1,
     they lie and how many of their ReLUs take the other branch (the
     dropout masks are the same), and the same gaps between the plain
     versions on the input and on the input moved by one f32 ulp (no kernel
-    on either side: what rounding alone does to this step)."""
+    on either side: what rounding alone does to this step).  ``keep``: the
+    kernels the kernel side launches (by wrapper name; the plain versions
+    for the rest), to see what one kernel adds to the gap; default all."""
     import torch
     from gnn_bfs_rans_tpu_torch.models.convs import dense
     from gnn_bfs_rans_tpu_torch.models.flow_gnn import FlowGNN, ModelConfig
@@ -792,6 +801,8 @@ def compare_train_step(graph, dtype_name, label="gat4x256", model_seed=1,
         with contextlib.ExitStack() as ctx:
             if plain:
                 ctx.enter_context(plain_versions())
+            elif keep is not None:
+                ctx.enter_context(plain_versions(keep=keep))
             if itemsize:
                 ctx.enter_context(epilogue_dropout_keys(itemsize))
             loss = batch_loss(model(g, train=True, generator=gen),
@@ -1469,7 +1480,7 @@ def check_transformer_bwd(band, form, mean, dtype_name, rate, gen,
     # inputs read once (mask, q, k, v, g, qw, gs, pos, the planes at the
     # nonzeros); dq, the two partial arrays and dqw written once.  The f32
     # SIMT work per nonzero and head: the logit, dp, dq, dk and dv products,
-    # 2·C operations each (the kernel forms the logit and dp twice)
+    # 2·C operations each
     nbytes = (mask.numel() + 3 * n * hc * isz + g.numel() * isz
               + n * hc * isz + 2 * got[1].numel() * isz)
     if form != "plain":
@@ -1480,6 +1491,9 @@ def check_transformer_bwd(band, form, mean, dtype_name, rate, gen,
     bound_ms, bound_by = bound(nbytes, 10 * nnz * hc, H100_FP32_FLOPS)
     log(f"{label} N {n} nnz {nnz}: ms {ms:.4f} (eager {eager_ms:.4f}) "
         f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by})")
+    # its two passes by kernel name (the receiver pass, the partials pass)
+    profile_forward(lambda: banded_transformer_bwd(*args, **kw),
+                    f"{label} by kernel", steps=10)
     row10 = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                  bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     return row10, check_fold(got[1], tile)
@@ -1534,7 +1548,7 @@ def check_fold(part, tile):
 def check_project_bias(n, dtype_name, gen):
     """Row 6's bias form at the projgrad backward's shape (dz [N, 3·H·C]
     against [Wq | Wk | Wv], x [N, F]) and the projection (q|k|v = x·W + b,
-    qw = q·wblk) against their plain versions; times of the bias form."""
+    qw = q·wblk) against their plain versions; the projection's time."""
     import torch
     from gnn_bfs_rans_tpu_torch.kernels.banded import (
         transformer_project, transformer_project_plain)
@@ -1569,22 +1583,81 @@ def check_project_bias(n, dtype_name, gen):
     log(f"{label}: " + ", ".join(texts))
     if not ok:
         raise AssertionError(f"{label}: " + ", ".join(texts))
-    ms = graph_time_ms(lambda: fold_project_bwd(dz, x, w, with_bias=True))
-    plain_ms = graph_time_ms(
-        lambda: fold_project_bwd_plain(dz, x, w, with_bias=True), 3, 2)
-    wt = w.t()
-    lib_ms = graph_time_ms(lambda: (dz @ wt, x.t() @ dz, dz.sum(0)))
     proj_ms = graph_time_ms(lambda: transformer_project(x, w, b, wblk))
-    isz = x.element_size()
-    peak = H100_BF16_FLOPS if dt == torch.bfloat16 else H100_FP32_FLOPS
-    b6 = bound(dz.numel() * isz + 2 * x.numel() * isz + w.numel() * isz
-               + (f + 1) * hc3 * 4, 4 * n * f * hc3, peak)
-    log(f"row 6 fold_project_bwd bias form {dtype_name} dz [{n}, {hc3}]: ms "
-        f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms (2 x torch.matmul + "
-        f"sum) {lib_ms:.4f} bound_ms {b6[0]:.5f} ({b6[1]}); projection "
-        f"transformer_project ms {proj_ms:.4f}")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b6[0],
-                bound_by=b6[1])
+    log(f"projection transformer_project {dtype_name} N {n}: ms {proj_ms:.4f}")
+
+
+# row 6 at the main path's three shapes: (label, dz width, F, x's row
+# stride, bias form) — the GAT form (dz [N, H·C] against W [F, H·C]), the
+# Transformer's wblk form (dqw [N, H·4] against wblk [H·C, H·4], x the q
+# column block of the [N, 3·H·C] q|k|v buffer) and the bias form (dz
+# [N, 3·H·C] against [Wq | Wk | Wv])
+ROW6_SHAPES = (("GAT", HEADS * HIDDEN, HIDDEN, HIDDEN, False),
+               ("wblk", HEADS * 4, HEADS * HIDDEN, 3 * HEADS * HIDDEN, False),
+               ("bias", 3 * HEADS * HIDDEN, HIDDEN, HIDDEN, True))
+
+
+def check_row6_shapes(n, gen):
+    """Row 6 against its plain version at ROW6_SHAPES in f32 and bf16, at
+    the flagship's N (timed, with the two torch.matmul calls (+ sum) of the
+    same products and the bound) and at a ragged N − 32 (not a multiple of
+    128); dx within BWD_TOL, dW within f32 summation order (bf16 operands'
+    products are exact in f32), db 1e-5.  Returns the timed rows by
+    (label, dtype)."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.kernels.banded_bwd import (
+        fold_project_bwd, fold_project_bwd_plain)
+
+    dev = torch.device("cuda")
+    rows = {}
+    for label, hc, f, ldx, bias in ROW6_SHAPES:
+        for dtype_name in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype_name)
+            dz = torch.randn(n, hc, generator=gen).to(dev, dt)
+            wide = torch.randn(n, ldx, generator=gen).to(dev, dt)
+            x = wide[:, :f]
+            w = (torch.randn(f, hc, generator=gen) * f ** -0.5).to(dev, dt)
+            for m in (n, n - 32):
+                got = fold_project_bwd(dz[:m], x[:m], w, with_bias=bias)
+                ref = fold_project_bwd_plain(dz[:m], x[:m], w, with_bias=bias)
+                torch.cuda.synchronize()
+                texts, ok = [], True
+                for name, a, r, tol in zip(
+                        ("dx", "dW", "db"), got, ref,
+                        (BWD_TOL[dtype_name], BWD_TOL["float32"], 1e-5)):
+                    err, scale = _rel_err(a, r)
+                    ok = ok and bool(torch.isfinite(a).all()) \
+                        and err <= tol * scale
+                    texts.append(f"{name} {err:.3e} (tol {tol} x {scale:.3e})")
+                what = (f"row 6 {label} form {dtype_name} dz [{m}, {hc}] x "
+                        f"[{m}, {f}] (row stride {ldx})")
+                log(f"{what}: " + ", ".join(texts))
+                if not ok:
+                    raise AssertionError(f"{what}: " + ", ".join(texts))
+                if m == n:
+                    err6 = max(_rel_err(a, r)[0] for a, r in zip(got, ref))
+            wt = w.t()
+            ms = graph_time_ms(lambda: fold_project_bwd(dz, x, w,
+                                                        with_bias=bias))
+            plain_ms = graph_time_ms(
+                lambda: fold_project_bwd_plain(dz, x, w, with_bias=bias), 3, 2)
+            lib_ms = graph_time_ms(
+                (lambda: (dz @ wt, x.t() @ dz, dz.sum(0))) if bias
+                else (lambda: (dz @ wt, x.t() @ dz)))
+            isz = x.element_size()
+            # dz, x, W read once; dx and the f32 dW (and db) written once
+            b6 = bound(dz.numel() * isz + 2 * n * f * isz + w.numel() * isz
+                       + (f + int(bias)) * hc * 4, 4 * n * f * hc,
+                       H100_BF16_FLOPS if dt == torch.bfloat16
+                       else H100_FP32_FLOPS)
+            log(f"row 6 fold_project_bwd {label} form {dtype_name} dz [{n}, "
+                f"{hc}]: ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+                f"(2 x torch.matmul{' + sum' if bias else ''}) {lib_ms:.4f} "
+                f"bound_ms {b6[0]:.5f} ({b6[1]})")
+            rows[(label, dtype_name)] = dict(
+                max_abs_err=err6, ms=ms, plain_ms=plain_ms, bound_ms=b6[0],
+                bound_by=b6[1], library_ms=lib_ms)
+    return rows
 
 
 def check_projgrad(band, dtype_name, rate, gen):
@@ -1762,10 +1835,7 @@ def transformer_train_phase(tmp, case, train_info, edge_bands, gen):
             for rate in (0.0, DROPOUT):
                 check_projgrad(band, dt, rate, gen)
     for dt in ("float32", "bfloat16"):
-        row = check_project_bias(band.bias_noself.shape[0] * band.tile, dt,
-                                 gen)
-        if dt == "bfloat16":
-            rows["row6_bias"] = row
+        check_project_bias(band.bias_noself.shape[0] * band.tile, dt, gen)
     graph = load_graph(case, "Transformer").to("cuda")
     for dt in ("float32", "bfloat16", "mixed"):
         compare_train_step(graph, dt, "transformer4x256",
@@ -2153,6 +2223,16 @@ def main() -> int:
                 check_epilogue_bwd(mode, n_pad, n_valid, gen)
         for dt in ("float32", "bfloat16", "mixed"):
             compare_train_step(graphs[400], dt)
+        # the f32 step's gap at dropout 0 through every kernel, and through
+        # row 6 alone (the plain versions for the rest): what row 6 adds
+        compare_train_step(graphs[400], "float32", "gat4x256-dropout0",
+                           dropout=0.0)
+        compare_train_step(graphs[400], "float32", "gat4x256-dropout0-row6",
+                           keep=("fold_project_bwd",), dropout=0.0)
+        # row 6 at the main path's three shapes, f32 and bf16, ragged N
+        row6 = check_row6_shapes(graphs[400].n_pad, gen)
+        log(json.dumps({"row6_shapes": {f"{k[0]} {k[1]}": v
+                                        for k, v in row6.items()}}))
         log(f"training kernel phases: {time.time() - t1:.1f} s")
 
         # row 8 on the GCN and GIN planes: the 400×30 box (W 3) and a box

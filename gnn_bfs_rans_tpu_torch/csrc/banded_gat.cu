@@ -217,9 +217,9 @@ int launch(const int8_t* mask, const void* w, const float* alphas,
            int c, int tile, int wcols, float slope, const int* seed,
            uint32_t thresh, float inv_keep, cudaStream_t stream) {
   // z = x·W: A = x [n_pad, F] K-contiguous, B = W [F, H·C] N-contiguous
-  cudaError_t err = gemm::matmul<true, false>(
+  cudaError_t err = gemm::matmul(
       static_cast<const T*>(x), f, static_cast<const T*>(w), heads * c,
-      static_cast<T*>(z), heads * c, 0, n_pad, heads * c, f, f, stream);
+      static_cast<T*>(z), heads * c, n_pad, heads * c, f, stream);
   if (err != cudaSuccess) return (int)err;
   return attention<T>(mask, alphas, z, out, n_pad, heads, c, tile, wcols,
                       slope, false, seed, thresh, inv_keep, stream);

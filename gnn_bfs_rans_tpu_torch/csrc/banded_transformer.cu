@@ -389,9 +389,9 @@ int fused(const int8_t* mask, const void* x, const void* wq, const void* wk,
   for (int m = 0; m < 3; ++m) {
     // qkv[:, m·HC:(m+1)·HC] = x·W_m + b_m: A = x [n_pad, F] K-contiguous,
     // B = W_m [F, H·C] N-contiguous
-    cudaError_t err = gemm::matmul<true, false>(
+    cudaError_t err = gemm::matmul(
         static_cast<const T*>(x), f, static_cast<const T*>(ws[m]), hc,
-        base + (size_t)m * hc, 3 * hc, 0, n_pad, hc, f, f, stream,
+        base + (size_t)m * hc, 3 * hc, n_pad, hc, f, stream,
         bias + (size_t)m * hc);
     if (err != cudaSuccess) return (int)err;
   }
@@ -408,14 +408,14 @@ int project(const void* x, const void* w, const float* bias, const void* wblk,
   const int hc = heads * c;
   // qkv = x·[Wq | Wk | Wv] + [bq | bk | bv]: A = x [n_pad, F] K-contiguous,
   // B = W [F, 3·H·C] N-contiguous
-  cudaError_t err = gemm::matmul<true, false>(
+  cudaError_t err = gemm::matmul(
       static_cast<const T*>(x), f, static_cast<const T*>(w), 3 * hc,
-      static_cast<T*>(qkv), 3 * hc, 0, n_pad, 3 * hc, f, f, stream, bias);
+      static_cast<T*>(qkv), 3 * hc, n_pad, 3 * hc, f, stream, bias);
   if (err != cudaSuccess) return (int)err;
   // qw = q·wblk, rounded to q's dtype: A = q (row stride 3·H·C)
-  return (int)gemm::matmul<true, false>(
+  return (int)gemm::matmul(
       static_cast<const T*>(qkv), 3 * hc, static_cast<const T*>(wblk),
-      4 * heads, static_cast<T*>(qw), 4 * heads, 0, n_pad, 4 * heads, hc, hc,
+      4 * heads, static_cast<T*>(qw), 4 * heads, n_pad, 4 * heads, hc,
       stream);
 }
 

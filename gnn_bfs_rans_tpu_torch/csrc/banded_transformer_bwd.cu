@@ -37,21 +37,43 @@
 // atomics, in a fixed order:
 //
 //  1. tr_bwd_rows_kernel — one warp per receiver row: compacts the mask row
-//     (warp ballot, as the forward), recomputes the logits and dp by warp
-//     dot products, writes dq, dqw and the row statistics (max,
-//     1/denominator, rs) per head: a small [N, 3H] f32 array;
-//  2. tr_bwd_parts_kernel — one warp per (receiver tile, window column):
-//     the tile's mask columns are staged in shared memory, the warp gathers
-//     the column's receivers (a ballot), recomputes each one's logit and dp
-//     with the same lane split as pass 1 (so the same e), and sums the
-//     sender's dk and dv partial rows in registers, then rounds them once.
+//     (warp ballot, as the forward), forms the logits and dp by warp dot
+//     products (4·NG values per lane, C ≤ 128·NG a template parameter; the
+//     k and v rows of 4/NG senders, and for dq the k rows of 8/NG, loaded
+//     before their reductions, so the loads overlap), writes dq, dqw,
+//     1/denominator per (row, head), and at each nonzero (i, j) and head the
+//     two values pass 2 sums, round(dl_ij) and round(ẽ_ij), into an
+//     [n_tiles, H, Wcols, T, 2] f32 plane touched only at the nonzeros (a
+//     column's receivers contiguous: pass 2 reads them in one coalesced
+//     load per 32 rows).  The dropout replay and all conditioning (edge,
+//     geo, gs) live here alone;
+//  2. tr_bwd_parts_kernel — one block per (receiver tile, head): stages the
+//     tile's mask, its q_h rows and G'_h = round(g_h·inv) rows in shared
+//     memory (all of C in bf16 up to C 256; 128 columns at a time in f32,
+//     whose two tiles of [T, C] would not fit); a warp takes four window
+//     columns at a time, loads their receivers' (dl, ẽ) pairs together,
+//     and sums dk[t, w, h] = Σ_i dl_iw·q_h,i and dv[t, w, h] =
+//     Σ_i ẽ_iw·G'_h,i from shared memory (no recompute; no global loads but
+//     the pairs, no shuffles but their broadcast), then rounds once.  A
+//     column without a receiver writes zero rows.
+//
+// The plane's values are bit-identical to the ones pass 2 used to
+// recompute (the same e, max, 1/denominator and rs), so the partials are
+// those of the recomputing design up to the f32 summation order, which is
+// the same (receivers in ascending order).
 //
 // What bounds it on an H100: bytes.  q, k, v and g are read (24.6 MB each
 // at N 12,032, H·C 1,024 in bf16; g 6.2 MB in the head-mean form), dq
 // written (24.6 MB) and the two partial arrays written (49.3 MB each at
-// Wcols 256): ~200 MB, ~60 µs at 3.35 TB/s.  The arithmetic, 2·C
+// Wcols 256): ~200 MB, ~60 µs at 3.35 TB/s; the plane adds 8 bytes per
+// nonzero and head, written once and read once.  The arithmetic, 2·C
 // operations per nonzero, head and product for the logit, dp, dq, dk and
-// dv (the logit and dp twice), is ~0.5 GFLOP.
+// dv, is ~0.4 GFLOP.
+//
+// Registers and blocks per SM at C 256 in bf16 (nvcc 12.9 -Xptxas -v,
+// sm_90a): pass 1 79 registers, six blocks of four warps per SM (the
+// launch bound); pass 2 126 registers and 161 KB of shared memory at Wcols
+// 256, one block of 16 warps per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,10 +86,10 @@
 namespace {
 
 constexpr int ROWS_PER_BLOCK = 4;  // warps per block in the receiver pass
-constexpr int PART_WARPS = 8;      // warps per block in the partials pass
-constexpr int PART_COLS = 32;      // window columns per partials block
-constexpr int MAX_GROUPS = 4;
-constexpr int MAX_COLS = 4 * MAX_GROUPS;
+constexpr int PART_THREADS = 512;  // threads per block in the partials pass
+constexpr int PART_CC = 128;       // columns of C staged at a time
+constexpr int PART_WCOLS = 4;      // window columns per warp in flight
+constexpr int PART_SMEM_MAX = 224 * 1024;
 constexpr int MAX_DE = 8;
 
 enum Mode { PLAIN = 0, EDGE = 1, GEO = 2 };
@@ -89,7 +111,9 @@ struct Args {
   const void* qw;       // [n_pad, H·D] (EDGE, GEO)
   const void* g;        // [n_pad, C] (mean) or [n_pad, H·C]
   const float* gs;      // [n_pad, H·D] f32 or null
-  float* stats;         // [n_pad, 3H]: max | 1/denominator | rs
+  float* inv;           // [n_pad, H]: 1/denominator
+  float2* plane;        // [n_tiles, H, Wcols, T]: (round(dl), round(ẽ)) at
+                        // the nonzeros
   void* dq;             // [n_pad, H·C]
   float* dqw;           // [n_pad, H·D]
   void* dk;             // [n_tiles, Wcols, H·C] partials
@@ -99,12 +123,12 @@ struct Args {
   Drop drop;
 };
 
-// a lane's columns 4·lane + 128·g … of one head's C values
-template <typename T>
+// a lane's columns 4·lane + 128·g … (g < NG) of one head's C values
+template <int NG, typename T>
 __device__ __forceinline__ void load_head(const T* row, int C, int lane,
-                                          float v[MAX_COLS]) {
+                                          float v[4 * NG]) {
 #pragma unroll
-  for (int g = 0; g < MAX_GROUPS; ++g) {
+  for (int g = 0; g < NG; ++g) {
     const int c = 4 * lane + 128 * g;
     if (c < C) {
       load4(row + c, &v[4 * g]);
@@ -115,23 +139,33 @@ __device__ __forceinline__ void load_head(const T* row, int C, int lane,
   }
 }
 
-template <typename T>
+template <int NG, typename T>
 __device__ __forceinline__ void store_head(T* row, int C, int lane,
-                                           const float v[MAX_COLS]) {
+                                           const float v[4 * NG]) {
 #pragma unroll
-  for (int g = 0; g < MAX_GROUPS; ++g) {
+  for (int g = 0; g < NG; ++g) {
     const int c = 4 * lane + 128 * g;
     if (c < C) store4(row + c, &v[4 * g]);
   }
 }
 
-// Σ_c a_c·b_c over the lanes' columns, in the forward kernel's order
-__device__ __forceinline__ float dot_lanes(const float a[MAX_COLS],
-                                           const float b[MAX_COLS]) {
+// the lane's part of Σ_c a_c·b_c, in the forward kernel's order
+template <int NG>
+__device__ __forceinline__ float dot_part(const float a[4 * NG],
+                                          const float b[4 * NG]) {
   float part = 0.f;
 #pragma unroll
-  for (int j = 0; j < MAX_COLS; ++j) part = fmaf(a[j], b[j], part);
-  return warp_sum(part);
+  for (int j = 0; j < 4 * NG; ++j) part = fmaf(a[j], b[j], part);
+  return part;
+}
+
+// U warp sums at once (the shuffles of independent sums interleave)
+template <int U>
+__device__ __forceinline__ void warp_sums(float (&v)[U]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int u = 0; u < U; ++u) v[u] += __shfl_xor_sync(0xffffffffu, v[u], o);
 }
 
 // A receiver's per-head conditioning: qe (qw·scale_q, edge; qw·scale, geo),
@@ -200,18 +234,10 @@ struct Cond {
   }
 };
 
-// the cotangent of head h at row i (the lane's columns, f32, unrounded)
-template <typename T>
-__device__ __forceinline__ void load_g(const Args& a, int row, int h,
-                                       int lane, float graw[MAX_COLS]) {
-  const T* g = static_cast<const T*>(a.g);
-  load_head(a.mean ? g + (size_t)row * a.C
-                   : g + (size_t)row * a.heads * a.C + (size_t)h * a.C,
-            a.C, lane, graw);
-}
-
-template <typename T, int MODE>
-__global__ void __launch_bounds__(32 * ROWS_PER_BLOCK) tr_bwd_rows_kernel(Args a) {
+template <typename T, int MODE, int NG>
+__global__ void __launch_bounds__(32 * ROWS_PER_BLOCK, 6) tr_bwd_rows_kernel(Args a) {
+  constexpr int MC = 4 * NG;     // values per lane of one head row
+  constexpr int U = NG >= 4 ? 1 : 4 / NG;   // sender rows in flight per warp
   extern __shared__ unsigned char smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row = blockIdx.x * ROWS_PER_BLOCK + warp;
@@ -238,6 +264,7 @@ __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK) tr_bwd_rows_kernel(Args a
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
+  const T* g = static_cast<const T*>(a.g);
   const int d_e = MODE == GEO ? 4 : MODE == EDGE ? a.edge_dim : 0;
   const size_t plane = (size_t)tile * wcols;
   const float* frow = MODE == PLAIN ? nullptr
@@ -247,30 +274,50 @@ __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK) tr_bwd_rows_kernel(Args a
   const int hc = a.heads * C;
 
   for (int h = 0; h < a.heads; ++h) {
-    float qv[MAX_COLS], gv[MAX_COLS];
-    load_head(q + (size_t)row * a.ld + (size_t)h * C, C, lane, qv);
-    load_g<T>(a, row, h, lane, gv);
+    float qv[MC], gv[MC];
+    load_head<NG>(q + (size_t)row * a.ld + (size_t)h * C, C, lane, qv);
+    load_head<NG>(a.mean ? g + (size_t)row * C : g + (size_t)row * hc + (size_t)h * C,
+                  C, lane, gv);
 #pragma unroll
-    for (int j = 0; j < MAX_COLS; ++j)
+    for (int j = 0; j < MC; ++j)
       gv[j] = mm_round<T>(a.mean ? gv[j] * a.inv_heads : gv[j]);
     Cond<T, MODE> cond;
     cond.load(a, row, h);
+    // this row's pairs: plane[t, h, j, r]
+    float* pl = reinterpret_cast<float*>(a.plane + ((size_t)t * a.heads + h) * plane + r);
 
+    // logits and dp, U senders at a time
     float mx = -CUDART_INF_F;
-    for (int kk = 0; kk < cnt; ++kk) {
-      const int j = idx[kk];
-      const int s = s0 + j;
-      const float* pj = MODE == GEO ? a.pos + (size_t)s * 4 : nullptr;
-      float kv[MAX_COLS], vv[MAX_COLS];
-      load_head(k + (size_t)s * a.ld + (size_t)h * C, C, lane, kv);
-      load_head(v + (size_t)s * a.ld + (size_t)h * C, C, lane, vv);
-      const float l = cond.logit(dot_lanes(qv, kv) * a.scale, a, frow, plane, j, pj);
-      const float d = cond.dp(dot_lanes(gv, vv), a, frow, plane, j, pj);
-      if (lane == 0) {
-        el[kk] = l;
-        dpv[kk] = d;
+    for (int kk0 = 0; kk0 < cnt; kk0 += U) {
+      float kv[U][MC], vv[U][MC];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int s = kk0 + u < cnt ? s0 + idx[kk0 + u] : 0;
+        load_head<NG>(k + (size_t)s * a.ld + (size_t)h * C, C, lane, kv[u]);
+        load_head<NG>(v + (size_t)s * a.ld + (size_t)h * C, C, lane, vv[u]);
       }
-      mx = fmaxf(mx, l);
+      float pk[U], pv[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        pk[u] = dot_part<NG>(qv, kv[u]);
+        pv[u] = dot_part<NG>(gv, vv[u]);
+      }
+      warp_sums<U>(pk);
+      warp_sums<U>(pv);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int kk = kk0 + u;
+        if (kk >= cnt) break;
+        const int j = idx[kk];
+        const float* pj = MODE == GEO ? a.pos + (size_t)(s0 + j) * 4 : nullptr;
+        const float l = cond.logit(pk[u] * a.scale, a, frow, plane, j, pj);
+        const float d = cond.dp(pv[u], a, frow, plane, j, pj);
+        if (lane == 0) {
+          el[kk] = l;
+          dpv[kk] = d;
+        }
+        mx = fmaxf(mx, l);
+      }
     }
     __syncwarp();
     float sum = 0.f;
@@ -283,32 +330,46 @@ __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK) tr_bwd_rows_kernel(Args a
     float s1 = 0.f;
     for (int kk = lane; kk < cnt; kk += 32) {
       float d = dpv[kk];
+      float ed = el[kk];
       if (a.drop.seed != nullptr) {
         const uint32_t flat = (uint32_t)r * (uint32_t)wcols + (uint32_t)idx[kk];
-        d = dropout_hash(sv, flat, (uint32_t)h) >= a.drop.thresh ? d * a.drop.inv_keep
-                                                                 : 0.f;
+        const bool keep = dropout_hash(sv, flat, (uint32_t)h) >= a.drop.thresh;
+        d = keep ? d * a.drop.inv_keep : 0.f;
+        ed = keep ? ed * a.drop.inv_keep : 0.f;
       }
       dpv[kk] = d;
+      pl[(size_t)idx[kk] * tile * 2 + 1] = mm_round<T>(ed);   // ẽ
       s1 += el[kk] * d;
     }
     const float rs = warp_sum(s1) * inv;
-    for (int kk = lane; kk < cnt; kk += 32)
-      el[kk] = (el[kk] * ((dpv[kk] - rs) * inv)) * a.scale;   // dl
+    for (int kk = lane; kk < cnt; kk += 32) {
+      const float dl = (el[kk] * ((dpv[kk] - rs) * inv)) * a.scale;
+      el[kk] = dl;
+      pl[(size_t)idx[kk] * tile * 2] = mm_round<T>(dl);
+    }
     __syncwarp();
 
-    // dq = Σ round(dl)·k
-    float acc[MAX_COLS];
+    // dq = Σ round(dl)·k, 2·U senders at a time (no v rows here)
+    float acc[MC];
 #pragma unroll
-    for (int j = 0; j < MAX_COLS; ++j) acc[j] = 0.f;
-    for (int kk = 0; kk < cnt; ++kk) {
-      const float dl = mm_round<T>(el[kk]);
-      float kv[MAX_COLS];
-      load_head(k + (size_t)(s0 + idx[kk]) * a.ld + (size_t)h * C, C, lane, kv);
+    for (int j = 0; j < MC; ++j) acc[j] = 0.f;
+    for (int kk0 = 0; kk0 < cnt; kk0 += 2 * U) {
+      float kv[2 * U][MC];
 #pragma unroll
-      for (int j = 0; j < MAX_COLS; ++j) acc[j] = fmaf(dl, kv[j], acc[j]);
+      for (int u = 0; u < 2 * U; ++u) {
+        const int s = kk0 + u < cnt ? s0 + idx[kk0 + u] : 0;
+        load_head<NG>(k + (size_t)s * a.ld + (size_t)h * C, C, lane, kv[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < 2 * U; ++u) {
+        if (kk0 + u >= cnt) break;
+        const float dl = mm_round<T>(el[kk0 + u]);
+#pragma unroll
+        for (int j = 0; j < MC; ++j) acc[j] = fmaf(dl, kv[u][j], acc[j]);
+      }
     }
-    store_head(static_cast<T*>(a.dq) + (size_t)row * hc + (size_t)h * C, C,
-               lane, acc);
+    store_head<NG>(static_cast<T*>(a.dq) + (size_t)row * hc + (size_t)h * C, C,
+                   lane, acc);
 
     // dqw: the conditioning planes weighted by dl, lanes over senders
     if (MODE == EDGE) {
@@ -346,135 +407,184 @@ __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK) tr_bwd_rows_kernel(Args a
         drow[3] = s3;
       }
     }
-    if (lane == 0) {
-      float* st = a.stats + (size_t)row * 3 * a.heads;
-      st[h] = mx;
-      st[a.heads + h] = inv;
-      st[2 * a.heads + h] = rs;
-    }
+    if (lane == 0) a.inv[(size_t)row * a.heads + h] = inv;
     __syncwarp();  // el, dpv are rewritten by the next head
   }
 }
 
-// One warp per window column w of receiver tile t (sender s = t·T − pad +
-// w): its partial rows dk[t, w] and dv[t, w] over the tile's receivers of s.
-template <typename T, int MODE>
-__global__ void __launch_bounds__(32 * PART_WARPS) tr_bwd_parts_kernel(Args a) {
-  extern __shared__ unsigned char smem[];
-  const int tile = a.tile, wcols = a.wcols, C = a.C;
-  const int t = blockIdx.y, c0 = blockIdx.x * PART_COLS;
+// The partials pass's shared memory: q_h and G'_h rows [T][cc] in the
+// primal dtype, then the tile's mask [T][Wcols + 4] (the pad spreads a
+// column's rows over the banks).
+template <typename T>
+__host__ __device__ constexpr size_t parts_smem(int tile, int cc, int wcols) {
+  return 2 * (size_t)tile * cc * sizeof(T) + (size_t)tile * (wcols + 4);
+}
+
+// One block per (receiver tile t, head h): the tile's partial rows
+// dk[t, w, h] and dv[t, w, h] over every window column w (sender
+// s = t·T − pad + w), from pass 1's plane.
+// MAX_GROUPS: receiver groups of 32 (T ≤ 32·MAX_GROUPS); NGC: the staged
+// columns cc ≤ 128·NGC, 4·NGC per lane
+template <typename T, int MAX_GROUPS, int NGC>
+__global__ void __launch_bounds__(PART_THREADS) tr_bwd_parts_kernel(Args a, int cc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tile = a.tile, wcols = a.wcols, C = a.C, heads = a.heads;
+  const int t = blockIdx.x, h = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  int8_t* ms = reinterpret_cast<int8_t*>(smem);                 // [T][PART_COLS]
-  int* recv = reinterpret_cast<int*>(smem + (size_t)tile * PART_COLS) + warp * tile;
-  const int8_t* mtile = a.mask + (size_t)t * tile * wcols;
-  for (int e = threadIdx.x; e < tile * PART_COLS; e += blockDim.x) {
-    const int i = e / PART_COLS, j = c0 + e % PART_COLS;
-    ms[e] = j < wcols ? mtile[(size_t)i * wcols + j] : (int8_t)0;
+  const int mp = wcols + 4;
+  T* qs = reinterpret_cast<T*>(smem);
+  T* gsm = qs + (size_t)tile * cc;
+  int8_t* ms = reinterpret_cast<int8_t*>(gsm + (size_t)tile * cc);
+  const uint32_t* mtile = reinterpret_cast<const uint32_t*>(a.mask + (size_t)t * tile * wcols);
+  for (int e = threadIdx.x; e < tile * (wcols / 4); e += PART_THREADS) {
+    const int i = e / (wcols / 4), j4 = e % (wcols / 4);
+    *reinterpret_cast<uint32_t*>(ms + i * mp + 4 * j4) = mtile[e];
   }
-  __syncthreads();
-
   const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const int pad = (wcols - tile) / 2;
-  const int d_e = MODE == GEO ? 4 : MODE == EDGE ? a.edge_dim : 0;
-  const size_t plane = (size_t)tile * wcols;
-  const int hc = a.heads * C;
-  const uint32_t sv = a.drop.seed != nullptr ? (uint32_t)a.drop.seed[0] + (uint32_t)t : 0u;
-
-  for (int cc = warp; cc < PART_COLS; cc += PART_WARPS) {
-    const int w = c0 + cc;
-    if (w >= wcols) break;
+  const T* g = static_cast<const T*>(a.g);
+  const int pad = (wcols - tile) / 2, hc = heads * C;
+  // this (tile, head)'s pairs: column w's receivers are contiguous
+  const float2* plane = a.plane + ((size_t)t * heads + h) * wcols * tile;
+  // a column's pairs and receiver ballots (T ≤ 256: at most 8 groups of
+  // 32), one coalesced load per group
+  auto fetch = [&](int w, float2 (&de)[MAX_GROUPS], unsigned (&bal)[MAX_GROUPS]) {
     const int s = t * tile - pad + w;
-    const bool in_range = s >= 0 && s < a.n_pad;
-    int cnt = 0;
-    for (int base = 0; base < tile; base += 32) {
-      const int i = base + lane;
-      const bool on = in_range && i < tile && ms[i * PART_COLS + cc] != 0;
-      const unsigned bal = __ballot_sync(0xffffffffu, on);
-      if (on) recv[cnt + __popc(bal & ((1u << lane) - 1u))] = i;
-      cnt += __popc(bal);
+    const bool in_range = w < wcols && s >= 0 && s < a.n_pad;
+#pragma unroll
+    for (int gi = 0; gi < MAX_GROUPS; ++gi) {
+      const int i = 32 * gi + lane;
+      const bool on = in_range && i < tile && ms[i * mp + w] != 0;
+      de[gi] = on ? plane[(size_t)w * tile + i] : make_float2(0.f, 0.f);
+      bal[gi] = 32 * gi < tile ? __ballot_sync(0xffffffffu, on) : 0u;
     }
-    __syncwarp();
-    T* pk = static_cast<T*>(a.dk) + ((size_t)t * wcols + w) * hc;
-    T* pv = static_cast<T*>(a.dv) + ((size_t)t * wcols + w) * hc;
-    const float* pj = MODE == GEO && in_range ? a.pos + (size_t)s * 4 : nullptr;
-    for (int h = 0; h < a.heads; ++h) {
-      float acc_k[MAX_COLS], acc_v[MAX_COLS];
+  };
+  constexpr int NW = PART_THREADS / 32;
+  for (int c0 = 0; c0 < C; c0 += cc) {
+    const int width = min(cc, C - c0), w4 = width / 4;
+    // q_h and G'_h = round(g_h·inv) (g/H first in the head-mean form), four
+    // rows' loads in flight per thread
+    for (int e0 = threadIdx.x; e0 < tile * w4; e0 += 4 * PART_THREADS) {
+      float qv[4][4], gv[4][4], iv[4];
 #pragma unroll
-      for (int j = 0; j < MAX_COLS; ++j) acc_k[j] = acc_v[j] = 0.f;
-      if (cnt > 0) {
-        float kv[MAX_COLS], vv[MAX_COLS];
-        load_head(k + (size_t)s * a.ld + (size_t)h * C, C, lane, kv);
-        load_head(v + (size_t)s * a.ld + (size_t)h * C, C, lane, vv);
-        for (int n = 0; n < cnt; ++n) {
-          const int i = recv[n];
-          const int row = t * tile + i;
-          const float* frow = MODE == PLAIN ? nullptr
-                              : a.feat + (size_t)t * (MODE == GEO ? 2 : d_e) * plane
-                                    + (size_t)i * wcols;
-          float qv[MAX_COLS], graw[MAX_COLS];
-          load_head(q + (size_t)row * a.ld + (size_t)h * C, C, lane, qv);
-          load_g<T>(a, row, h, lane, graw);
-          // round(g_h)·v in pass 1's order (dot_lanes)
-          float pd = 0.f;
+      for (int u = 0; u < 4; ++u) {
+        const int e = e0 + u * PART_THREADS;
+        if (e < tile * w4) {
+          const int row = t * tile + e / w4, c = c0 + 4 * (e % w4);
+          load4(q + (size_t)row * a.ld + (size_t)h * C + c, qv[u]);
+          load4(a.mean ? g + (size_t)row * C + c
+                       : g + (size_t)row * hc + (size_t)h * C + c, gv[u]);
+          iv[u] = a.inv[(size_t)row * heads + h];
+        }
+      }
 #pragma unroll
-          for (int j = 0; j < MAX_COLS; ++j) {
-            if (a.mean) graw[j] *= a.inv_heads;
-            pd = fmaf(mm_round<T>(graw[j]), vv[j], pd);
+      for (int u = 0; u < 4; ++u) {
+        const int e = e0 + u * PART_THREADS;
+        if (e < tile * w4) {
+          const int i = e / w4, c = 4 * (e % w4);
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            gv[u][x] = mm_round<T>((a.mean ? gv[u][x] * a.inv_heads : gv[u][x]) * iv[u]);
+          store4(qs + (size_t)i * cc + c, qv[u]);
+          store4(gsm + (size_t)i * cc + c, gv[u]);
+        }
+      }
+    }
+    __syncthreads();
+    // PART_WCOLS columns per warp at a time: their pairs load together
+    for (int w0 = warp; w0 < wcols; w0 += PART_WCOLS * NW) {
+      float2 de[PART_WCOLS][MAX_GROUPS];
+      unsigned bal[PART_WCOLS][MAX_GROUPS];
+#pragma unroll
+      for (int p = 0; p < PART_WCOLS; ++p) fetch(w0 + p * NW, de[p], bal[p]);
+#pragma unroll
+      for (int p = 0; p < PART_WCOLS; ++p) {
+        const int w = w0 + p * NW;
+        if (w >= wcols) break;
+        float ak[4 * NGC], av[4 * NGC];
+#pragma unroll
+        for (int x = 0; x < 4 * NGC; ++x) ak[x] = av[x] = 0.f;
+#pragma unroll
+        for (int gi = 0; gi < MAX_GROUPS; ++gi) {
+          unsigned b = bal[p][gi];
+          while (b) {
+            const int bit = __ffs(b) - 1;
+            b &= b - 1u;
+            const float dl = __shfl_sync(0xffffffffu, de[p][gi].x, bit);
+            const float er = __shfl_sync(0xffffffffu, de[p][gi].y, bit);
+            const T* qrow = qs + (size_t)(32 * gi + bit) * cc;
+            const T* grow = gsm + (size_t)(32 * gi + bit) * cc;
+#pragma unroll
+            for (int gc = 0; gc < NGC; ++gc) {
+              const int c = 4 * lane + 128 * gc;
+              if (c < width) {
+                float qv[4], gv[4];
+                load4(qrow + c, qv);
+                load4(grow + c, gv);
+#pragma unroll
+                for (int x = 0; x < 4; ++x) {
+                  ak[4 * gc + x] = fmaf(dl, qv[x], ak[4 * gc + x]);
+                  av[4 * gc + x] = fmaf(er, gv[x], av[4 * gc + x]);
+                }
+              }
+            }
           }
-          Cond<T, MODE> cond;
-          cond.load(a, row, h);
-          const float l = cond.logit(dot_lanes(qv, kv) * a.scale, a, frow, plane, w, pj);
-          float d = cond.dp(warp_sum(pd), a, frow, plane, w, pj);
-          const float* st = a.stats + (size_t)row * 3 * a.heads;
-          const float e = expf(l - st[h]);
-          const float inv = st[a.heads + h];
-          float ed = e;
-          if (a.drop.seed != nullptr) {
-            const bool keep = dropout_hash(sv, (uint32_t)i * (uint32_t)wcols + (uint32_t)w,
-                                           (uint32_t)h) >= a.drop.thresh;
-            ed = keep ? e * a.drop.inv_keep : 0.f;
-            d = keep ? d * a.drop.inv_keep : 0.f;
-          }
-          const float dl = mm_round<T>((e * ((d - st[2 * a.heads + h]) * inv)) * a.scale);
-          const float er = mm_round<T>(ed);
+        }
+        const size_t at = ((size_t)t * wcols + w) * hc + (size_t)h * C + c0;
 #pragma unroll
-          for (int j = 0; j < MAX_COLS; ++j) {
-            acc_k[j] = fmaf(dl, qv[j], acc_k[j]);
-            acc_v[j] = fmaf(er, mm_round<T>(graw[j] * inv), acc_v[j]);
+        for (int gc = 0; gc < NGC; ++gc) {
+          const int c = 4 * lane + 128 * gc;
+          if (c < width) {
+            store4(static_cast<T*>(a.dk) + at + c, &ak[4 * gc]);
+            store4(static_cast<T*>(a.dv) + at + c, &av[4 * gc]);
           }
         }
       }
-      store_head(pk + (size_t)h * C, C, lane, acc_k);
-      store_head(pv + (size_t)h * C, C, lane, acc_v);
     }
-    __syncwarp();  // recv is rewritten for the next column
+    __syncthreads();   // the staged rows are rewritten for the next columns
   }
 }
 
-template <typename T, int MODE>
+template <typename T, int MODE, int NG>
 int run(const Args& a, cudaStream_t stream) {
   const size_t smem_rows = (size_t)ROWS_PER_BLOCK * a.wcols * 3 * sizeof(float);
-  const size_t smem_parts = (size_t)a.tile * PART_COLS
-                            + (size_t)PART_WARPS * a.tile * sizeof(int);
-  if (smem_rows > 48 * 1024 || smem_parts > 48 * 1024)
+  // stage all of C when it fits in two passes' worth (4 values per lane
+  // per 128 columns), else 128 columns (or fewer) at a time
+  const bool whole = a.C <= 2 * PART_CC && a.C > PART_CC
+                     && parts_smem<T>(a.tile, a.C, a.wcols) <= PART_SMEM_MAX;
+  int cc = whole ? a.C : (a.C < PART_CC ? a.C : PART_CC);
+  while (cc > 4 && parts_smem<T>(a.tile, cc, a.wcols) > PART_SMEM_MAX) cc /= 2;
+  const size_t smem_parts = parts_smem<T>(a.tile, cc, a.wcols);
+  if (smem_rows > 48 * 1024 || smem_parts > PART_SMEM_MAX || a.wcols % 4)
     return (int)cudaErrorInvalidValue;
-  tr_bwd_rows_kernel<T, MODE><<<(a.n_pad + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK,
-                                32 * ROWS_PER_BLOCK, smem_rows, stream>>>(a);
+  tr_bwd_rows_kernel<T, MODE, NG><<<(a.n_pad + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK,
+                                    32 * ROWS_PER_BLOCK, smem_rows, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.wcols + PART_COLS - 1) / PART_COLS, a.n_pad / a.tile);
-  tr_bwd_parts_kernel<T, MODE><<<grid, 32 * PART_WARPS, smem_parts, stream>>>(a);
+  auto parts = a.tile <= 128 ? (whole ? tr_bwd_parts_kernel<T, 4, 2> : tr_bwd_parts_kernel<T, 4, 1>)
+                             : (whole ? tr_bwd_parts_kernel<T, 8, 2> : tr_bwd_parts_kernel<T, 8, 1>);
+  err = cudaFuncSetAttribute(parts, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_parts);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.n_pad / a.tile, a.heads);
+  parts<<<grid, PART_THREADS, smem_parts, stream>>>(a, cc);
   return (int)cudaGetLastError();
+}
+
+// C ≤ 128·NG: 4·NG values per lane
+template <typename T, int MODE>
+int dispatch_c(const Args& a, cudaStream_t stream) {
+  if (a.C <= 128) return run<T, MODE, 1>(a, stream);
+  if (a.C <= 256) return run<T, MODE, 2>(a, stream);
+  if (a.C <= 512) return run<T, MODE, 4>(a, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
 int dispatch(const Args& a, int mode, cudaStream_t stream) {
   switch (mode) {
-    case PLAIN: return run<T, PLAIN>(a, stream);
-    case EDGE: return run<T, EDGE>(a, stream);
-    case GEO: return run<T, GEO>(a, stream);
+    case PLAIN: return dispatch_c<T, PLAIN>(a, stream);
+    case EDGE: return dispatch_c<T, EDGE>(a, stream);
+    case GEO: return dispatch_c<T, GEO>(a, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -488,20 +598,22 @@ extern "C" {
 // (feat [nt, 2, T, Wcols], pos [n_pad, 4]); qw [n_pad, heads·D] and dqw f32
 // for modes 1 and 2; gs f32 [n_pad, heads·D] or null.  ld: the row stride of
 // q, k and v.  mean: g is [n_pad, c] (every head receives g/H), else
-// [n_pad, heads·c].  stats: the caller-allocated [n_pad, 3·heads] f32
-// scratch; dk, dv: [n_pad / tile, wcols, heads·c].  seed: device pointer to
-// one int32, or null for no dropout.  Returns the CUDA error code of the
-// launches (0 on success).
+// [n_pad, heads·c].  inv: the caller-allocated [n_pad, heads] f32 scratch;
+// plane: the caller-allocated [n_pad / tile, heads, wcols, tile, 2] f32
+// scratch (written and read only at the mask's nonzeros); dk, dv: [n_pad / tile, wcols,
+// heads·c].  seed: device pointer to one int32, or null for no dropout.
+// Returns the CUDA error code of the launches (0 on success).
 int banded_transformer_bwd_launch(
     const int8_t* mask, const void* q, const void* k, const void* v,
     const float* feat, const float* pos, const void* qw, const void* g,
-    const float* gs, float* stats, void* dq, float* dqw, void* dk, void* dv,
-    int n_pad, int ld, int heads, int c, int tile, int wcols, int mode,
-    int edge_dim, int mean, int dtype, float scale, float inv_heads,
+    const float* gs, float* inv, float* plane, void* dq, float* dqw, void* dk,
+    void* dv, int n_pad, int ld, int heads, int c, int tile, int wcols,
+    int mode, int edge_dim, int mean, int dtype, float scale, float inv_heads,
     const int* seed, unsigned int thresh, float inv_keep, void* stream) {
-  const Args a{mask, q, k, v, ld, feat, pos, qw, g, gs, stats, dq, dqw, dk,
-               dv, n_pad, heads, c, tile, wcols, edge_dim, mean, scale,
-               inv_heads, Drop{seed, thresh, inv_keep}};
+  const Args a{mask, q, k, v, ld, feat, pos, qw, g, gs, inv,
+               reinterpret_cast<float2*>(plane), dq, dqw, dk, dv, n_pad,
+               heads, c, tile, wcols, edge_dim, mean, scale, inv_heads,
+               Drop{seed, thresh, inv_keep}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(a, mode, s);
   if (dtype == 1) return dispatch<__nv_bfloat16>(a, mode, s);

@@ -37,6 +37,8 @@ the Transformer's in-kernel projection at H·C ≥ 128) are not carried over.
 from __future__ import annotations
 
 import ctypes
+import functools
+import heapq
 
 import torch
 
@@ -169,14 +171,123 @@ def fold_project_bwd_plain(dz, x, w, with_bias=False):
     return (dx, dw, dz.float().sum(0)) if with_bias else (dx, dw)
 
 
-def _k_chunk(n: int, f: int, hc: int) -> int:
-    """Rows per dW slice: ~2 blocks per SM of the H100 (132), slices of at
-    least 256 rows, a multiple of the 32-row K step."""
-    def cdiv(a, b):
-        return -(-a // b)
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
-    splits = max(1, min(cdiv(264, cdiv(f, 128) * cdiv(hc, 128)), n // 256))
-    return cdiv(cdiv(n, splits), 32) * 32
+
+# the f32 dW slices of one call stay within a third of the H100's 50 MB L2
+# (written by the products, read back by the fold)
+_SLICE_BYTES = 16 << 20
+# half the H100's 50 MB L2: a bf16 dz at least this large is read once by
+# the dx product (tiles of 256 columns), a smaller one twice (128 columns,
+# the second read from L2)
+_DZ_ONCE_BYTES = 25 << 20
+
+
+def _tiles(bf16: bool, n: int, hc: int):
+    """Row 6's tiles (rows, columns, K step) of the dx and dW products and
+    the operands' element size, as ``csrc/gemm_sm90.cuh`` defines them:
+    bf16 dx 128 × 256 × 64 (dz of at least ``_DZ_ONCE_BYTES``) or
+    128 × 128 × 64 and dW 256 × 128 × 64 (H·C a multiple of 64), else the
+    narrow forms dx 128 × 256 × 16 and dW 256 × 16 × 64; f32 128 × 128 × 16
+    for both."""
+    if not bf16:
+        return (128, 128, 16), (128, 128, 16), 4
+    if hc % 64 == 0:
+        cols = 256 if 2 * n * hc >= _DZ_ONCE_BYTES else 128
+        return (128, cols, 64), (256, 128, 64), 2
+    return (128, 256, 16), (256, 16, 64), 2
+
+
+def _in_rounds(costs, grid):
+    """The items, costliest first, dealt to the blocks in rounds: forward
+    in even rounds, backward in odd ones."""
+    order = sorted(range(len(costs)), key=lambda i: (-costs[i], i))
+    lists = [[] for _ in range(grid)]
+    for k, i in enumerate(order):
+        r, b = divmod(k, grid)
+        lists[grid - 1 - b if r & 1 else b].append(i)
+    return lists
+
+
+def _longest_first(costs, grid):
+    """The items, costliest first, each to the least loaded block."""
+    loads = [(0, b) for b in range(grid)]
+    lists = [[] for _ in range(grid)]
+    for i in sorted(range(len(costs)), key=lambda i: (-costs[i], i)):
+        load, b = heapq.heappop(loads)
+        lists[b].append(i)
+        heapq.heappush(loads, (load + costs[i], b))
+    return lists
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(n: int, f: int, hc: int, bf16: bool, slots: int):
+    """Row 6's work for one persistent launch: (splits, chunk, grid, the
+    item ids of each block).
+
+    Items are dx's output tiles (the first ids) and dW's (tile, K-chunk)
+    pairs (the ids after them, column tile fastest, then row tile, then
+    chunk), each costed by the bytes it loads and stores.  ``slots``
+    blocks run at once (one per SM in bf16, two in f32).
+
+    bf16: each dW chunk costs about a dx tile or 1/``slots`` of the whole
+    call, whichever is larger, and the items are dealt in rounds
+    (``_in_rounds``): the blocks running at once work on neighbouring
+    items, which share x's and dz's rows in L2.  f32, bound by the SIMT
+    arithmetic: for each chunk count the items go longest first to the
+    least loaded block (``_longest_first``), and the count kept is the one
+    whose most loaded block, plus the fold of its slices spread over the
+    slots, costs least (the fewest chunks on a tie).  Either way the f32
+    slices stay within ``_SLICE_BYTES``.
+    """
+    (xm, xn, xk), (wm, wn, wk), isz = _tiles(bf16, n, hc)
+    x_items = _cdiv(n, xm) * _cdiv(f, xn)
+    cost_x = _cdiv(hc, xk) * (xm + xn) * xk * isz + xm * xn * isz
+    w_tiles = _cdiv(f, wm) * _cdiv(hc, wn)
+    w_steps = _cdiv(n, wk)
+    step_w, out_w = (wm + wn) * wk * isz, wm * wn * 4
+    max_splits = max(1, _SLICE_BYTES // ((f + 1) * hc * 4))
+
+    def work(want):
+        chunk = _cdiv(w_steps, min(want, max_splits, w_steps))
+        splits = _cdiv(w_steps, chunk)
+        costs = [cost_x] * x_items + [
+            min(chunk, w_steps - z * chunk) * step_w + out_w
+            for z in range(splits) for _ in range(w_tiles)]
+        return splits, chunk, costs, min(len(costs), slots)
+
+    if bf16:
+        total = x_items * cost_x + w_tiles * (w_steps * step_w + out_w)
+        target = max(cost_x, total / slots)
+        splits, chunk, costs, grid = work(
+            _cdiv(w_steps, max(1, _cdiv(int(target) - out_w, step_w))))
+        return splits, chunk, grid, tuple(map(tuple, _in_rounds(costs, grid)))
+    best = None
+    for want in range(1, min(w_steps, max_splits, 64) + 1):
+        splits, chunk, costs, grid = work(want)
+        lists = _longest_first(costs, grid)
+        fold = 0 if splits == 1 else (splits + 1) * (f + 1) * hc * 4 / slots
+        total = max(sum(costs[i] for i in items) for items in lists) + fold
+        if best is None or total < best[0]:
+            best = (total, splits, chunk, grid, tuple(map(tuple, lists)))
+    return best[1:]
+
+
+@functools.lru_cache(maxsize=64)
+def _schedule(n: int, f: int, hc: int, bf16: bool, slots: int,
+              device: torch.device) -> torch.Tensor:
+    """``_plan``'s item lists as the kernel reads them: int32 [grid + 1 +
+    items] on ``device``, block b's items at [grid + 1 + sched[b], grid +
+    1 + sched[b + 1]).  Made once per shape and device (the first call of a
+    shape copies it to the card; later calls, graph captures included,
+    reuse it)."""
+    lists = _plan(n, f, hc, bf16, slots)[3]
+    offs = [0]
+    for items in lists:
+        offs.append(offs[-1] + len(items))
+    return torch.tensor(offs + [i for items in lists for i in items],
+                        dtype=torch.int32, device=device)
 
 
 def fold_project_bwd(dz, x, w, with_bias=False):
@@ -204,47 +315,55 @@ def fold_project_bwd(dz, x, w, with_bias=False):
         raise ValueError(f"shape mismatch: dz {tuple(dz.shape)}, x "
                          f"{tuple(x.shape)}, w {tuple(w.shape)}")
     ldx = x.stride(0)
-    if dz.dtype == torch.bfloat16 and (
-            f % 8 or hc % 8 or ldx % 8
+    bf16 = dz.dtype == torch.bfloat16
+    vec = 8 if bf16 else 4
+    if (f % vec or hc % vec or ldx % vec
             or any(t.data_ptr() % 16 for t in (dz, x, w))):
-        raise ValueError("the bf16 products load 16-byte chunks: F and H·C "
-                         "must be multiples of 8 and dz, x, w 16-byte aligned")
+        raise ValueError(f"the products load 16-byte rows: F, H·C and x's "
+                         f"row stride must be multiples of {vec} and dz, x, "
+                         f"w 16-byte aligned")
+    if bf16 and with_bias and hc % 64:
+        raise ValueError("the bf16 bias form needs H·C a multiple of 64")
     lib = _build.bind("fold_project_bwd", "fold_project_bwd_launch",
                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-                      + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                      + [ctypes.c_void_p])
-    k_chunk = _k_chunk(n, f, hc)
-    splits = -(-n // k_chunk)
+                      + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                      + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_void_p])
+    sms = torch.cuda.get_device_properties(dz.device).multi_processor_count
+    slots = sms * (1 if bf16 else 2)
+    splits, chunk, grid, _ = _plan(n, f, hc, bf16, slots)
+    sched = _schedule(n, f, hc, bf16, slots, dz.device)
     rows = f + int(with_bias)
     dx = torch.empty((n, f), dtype=x.dtype, device=dz.device)
     dw = torch.empty((rows, hc), dtype=torch.float32, device=dz.device)
-    part = torch.empty((splits, rows, hc), dtype=torch.float32,
-                       device=dz.device)
+    part = dw if splits == 1 else torch.empty(
+        (splits, rows, hc), dtype=torch.float32, device=dz.device)
     rc = lib.fold_project_bwd_launch(
         dz.data_ptr(), x.data_ptr(), ldx, w.data_ptr(), dx.data_ptr(),
-        dw.data_ptr(), part.data_ptr(), n, f, hc, k_chunk, int(with_bias),
-        _DTYPE_CODE[dz.dtype], torch.cuda.current_stream(dz.device).cuda_stream)
+        dw.data_ptr(), part.data_ptr(), n, f, hc, int(with_bias),
+        _DTYPE_CODE[dz.dtype], splits, chunk, sched.data_ptr(), grid,
+        _tiles(bf16, n, hc)[0][1],
+        torch.cuda.current_stream(dz.device).cuda_stream)
     _build.check(lib, rc, "fold_project_bwd")
     _build.LAUNCHES["fold_project_bwd"] += 1
     return (dx, dw[:f], dw[f]) if with_bias else (dx, dw)
 
 
 # ------------------------------------------------------------------ row 10
-def banded_transformer_bwd_plain(bias_noself, q, k, v, g, heads, edge=None,
-                                 qw=None, gs=None, geo=None, pos=None,
-                                 mean_expand=False, dropout_rate=0.0,
-                                 seed=None):
-    """Plain PyTorch version of row 10, dense over the window like the TPU
-    kernel (masked entries contribute exactly 0), with its rounding points:
-    g/H (head mean) rounded to the primal dtype for the dp product, dl for
-    the dq and dk products, ẽ and g·inv for the dv product; rs and dl from
-    the undropped e and the dropped dp.  Returns (dq, dk partials, dv
-    partials[, dqw f32])."""
+def _tr_bwd_rows_plain(bias_noself, q, k, v, g, heads, edge=None, qw=None,
+                       gs=None, geo=None, pos=None, mean_expand=False,
+                       dropout_rate=0.0, seed=None):
+    """Row 10's receiver pass in plain PyTorch, dense over the window like
+    the TPU kernel (masked entries contribute exactly 0), with its rounding
+    points: g/H (head mean) rounded to the primal dtype for the dp product;
+    rs and dl from the undropped e and the dropped dp.  Returns (dq, dqw or
+    None, round(dl), round(ẽ), round(g·inv)): the two planes [n_tiles, H,
+    T, Wcols] (0 off the mask) and G' [n_tiles, T, H, C] the partials pass
+    sums."""
     n_tiles, tile, width = bias_noself.shape
     n, hc = q.shape
     c = hc // heads
     dt = q.dtype
-    sub = tile // 2
     scale = 1.0 / (c ** 0.5)
     logits, planes = _tr_logits(bias_noself, q, k, heads, edge, qw, geo, pos)
     e, inv = _softmax_parts(logits)                           # inv [n, H, T, 1]
@@ -277,12 +396,8 @@ def banded_transformer_bwd_plain(bias_noself, q, k, v, g, heads, edge=None,
     dl = (e * ((dp - rs) * inv)) * scale                      # [n, H, T, Wc]
     dl_r = _mm_round(dl, dt)
     dq = torch.einsum("nhtw,nwhc->nthc", dl_r, win_k).reshape(n, hc).to(dt)
-    q4 = q.reshape(n_tiles, tile, heads, c).float()
-    parts = (n_tiles, width // sub, sub, hc)
-    dk = torch.einsum("nhtw,nthc->nwhc", dl_r, q4).reshape(parts).to(k.dtype)
-    g_s = gh * inv.permute(0, 2, 1, 3)                        # [n, T, H, C]
-    dv = torch.einsum("nhtw,nthc->nwhc", _mm_round(e_d, dt),
-                      _mm_round(g_s, dt)).reshape(parts).to(v.dtype)
+    g_s = _mm_round(gh * inv.permute(0, 2, 1, 3), dt)          # [n, T, H, C]
+    dqw = None
     if geo is not None:
         pos_c, pos_w = planes["pos_c"], planes["pos_w"]
         u = dl * planes["invd"]
@@ -290,13 +405,33 @@ def banded_transformer_bwd_plain(bias_noself, q, k, v, g, heads, edge=None,
         t0u = u.sum(-1).permute(0, 2, 1)[..., None]            # [n, T, H, 1]
         dqw3 = (dl * planes["dist"]).sum(-1).permute(0, 2, 1)[..., None]
         dqw = torch.cat([(pos_c[:, :, None, :] * t0u - t13u)[..., :3], dqw3],
-                        -1)
-        return dq, dk, dv, dqw.reshape(n, heads * 4)
-    if edge is not None:
+                        -1).reshape(n, heads * 4)
+    elif edge is not None:
         dqw = torch.stack([(dl * edge[:, d, None]).sum(-1)
                            for d in range(edge.shape[1])], -1)  # [n, H, T, D]
-        return dq, dk, dv, dqw.permute(0, 2, 1, 3).reshape(n, -1)
-    return dq, dk, dv
+        dqw = dqw.permute(0, 2, 1, 3).reshape(n, -1)
+    return dq, dqw, dl_r, _mm_round(e_d, dt), g_s
+
+
+def banded_transformer_bwd_plain(bias_noself, q, k, v, g, heads, edge=None,
+                                 qw=None, gs=None, geo=None, pos=None,
+                                 mean_expand=False, dropout_rate=0.0,
+                                 seed=None):
+    """Plain PyTorch version of row 10: the receiver pass
+    (``_tr_bwd_rows_plain``), then the partials as the products of its
+    planes with the receivers' q and G' rows, summed in f32 and rounded
+    once.  Returns (dq, dk partials, dv partials[, dqw f32])."""
+    n_tiles, tile, width = bias_noself.shape
+    n, hc = q.shape
+    c = hc // heads
+    dq, dqw, dl_r, ed_r, g_s = _tr_bwd_rows_plain(
+        bias_noself, q, k, v, g, heads, edge, qw, gs, geo, pos, mean_expand,
+        dropout_rate, seed)
+    q4 = q.reshape(n_tiles, tile, heads, c).float()
+    parts = (n_tiles, width // (tile // 2), tile // 2, hc)
+    dk = torch.einsum("nhtw,nthc->nwhc", dl_r, q4).reshape(parts).to(k.dtype)
+    dv = torch.einsum("nhtw,nthc->nwhc", ed_r, g_s).reshape(parts).to(v.dtype)
+    return (dq, dk, dv) if dqw is None else (dq, dk, dv, dqw)
 
 
 def banded_transformer_bwd(bias_noself, q, k, v, g, heads, edge=None,
@@ -333,11 +468,15 @@ def banded_transformer_bwd(bias_noself, q, k, v, g, heads, edge=None,
                          "most 256 rows")
     seed = _drop.check_seed(seed, dropout_rate, q.device)
     lib = _build.bind("banded_transformer_bwd", "banded_transformer_bwd_launch",
-                      [ctypes.c_void_p] * 14 + [ctypes.c_int] * 10
+                      [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10
                       + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
                          ctypes.c_uint, ctypes.c_float, ctypes.c_void_p])
     sub = tile // 2
-    stats = torch.empty((n, 3 * heads), dtype=torch.float32, device=q.device)
+    # scratch: 1/denominator per (row, head), and pass 1's (round(dl),
+    # round(ẽ)) pairs, written and read only at the mask's nonzeros
+    inv = torch.empty((n, heads), dtype=torch.float32, device=q.device)
+    plane = torch.empty((n_tiles, heads, width, tile, 2),
+                        dtype=torch.float32, device=q.device)
     dq = torch.empty((n, hc), dtype=q.dtype, device=q.device)
     dk = torch.empty((n_tiles, width // sub, sub, hc), dtype=k.dtype,
                      device=q.device)
@@ -347,8 +486,8 @@ def banded_transformer_bwd(bias_noself, q, k, v, g, heads, edge=None,
     rc = lib.banded_transformer_bwd_launch(
         bias_noself.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         _ptr(feat), _ptr(pos if mode == 2 else None),
-        _ptr(qw if mode else None), g.data_ptr(), _ptr(gs), stats.data_ptr(),
-        dq.data_ptr(), _ptr(dqw), dk.data_ptr(), dv.data_ptr(), n, ld, heads,
+        _ptr(qw if mode else None), g.data_ptr(), _ptr(gs), inv.data_ptr(),
+        plane.data_ptr(), dq.data_ptr(), _ptr(dqw), dk.data_ptr(), dv.data_ptr(), n, ld, heads,
         c, tile, width, mode, d_e, int(mean_expand), _DTYPE_CODE[q.dtype],
         1.0 / (c ** 0.5), 1.0 / heads, _ptr(seed),
         _drop.threshold(dropout_rate),

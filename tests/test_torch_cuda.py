@@ -770,6 +770,43 @@ def test_transformer_backward_kernel_matches_plain(card, form, mean, rate,
         _check_s(band, got[3], ref[3], 1e-4 if dtype == "float32" else 1e-3)
 
 
+@pytest.mark.parametrize("c", [64, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", ["plain", "edge", "geo"])
+def test_transformer_backward_empty_rows_and_columns(card, form, dtype, c):
+    """Row 10 on the W 5 band (Wcols 384) at dropout 0.1, with C 64 and the
+    flagship's 256 (two 128-column passes of the partials pass): a receiver
+    row whose senders are all masked writes dq = dqw = 0, a window column
+    with no receiver writes zero dk/dv partial rows, and the rest matches
+    the plain version as in the test above."""
+    n, heads = 512, 4
+    band, _ = _tr_band(n, 100, geometric=form != "edge", seed=5)
+    mask = band.bias_noself.clone()
+    mask[0, 5] = 0           # row 5: no sender
+    mask[1, :, 140] = 0      # tile 1, window column 140: no receiver
+    band = dataclasses.replace(band, bias_noself=mask).to(card)
+    gen = torch.Generator().manual_seed(18)
+    dt = getattr(torch, dtype)
+    q, k, v, extra = _tr_inputs(card, n, heads, c, dt, form, band, gen)
+    g = torch.randn(n, c, generator=gen).to(card, dt)
+    if form != "plain":
+        extra["gs"] = torch.randn(n, heads * 4, generator=gen).to(card)
+    args = (band.bias_noself, q, k, v, g, heads)
+    kw = dict(mean_expand=True, dropout_rate=0.1, seed=_seed(card), **extra)
+    got = banded_transformer_bwd(*args, **kw)
+    ref = banded_transformer_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:3], ref[:3]):
+        _close(a, b, KTOL[dtype])
+    assert (got[0][5] == 0).all()
+    sub = band.bias_noself.shape[1] // 2
+    for part in got[1:3]:
+        assert (part[1, 140 // sub, 140 % sub] == 0).all()
+    if form != "plain":
+        assert (got[3][5] == 0).all()
+        _check_s(band, got[3], ref[3], 1e-4 if dtype == "float32" else 1e-3)
+
+
 @pytest.mark.parametrize("window", [(6, 64), (10, 64), (4, 64), (3, 128)])
 @pytest.mark.parametrize("dtypes", [("float32", "float32"),
                                     ("bfloat16", "bfloat16"),
@@ -820,6 +857,47 @@ def test_fold_project_bias_form_matches_plain(card, dtype):
     _close(dx, ref[0], KTOL[dtype])
     _close(dw, ref[1], 1e-4 if dtype == "float32" else 1e-3)
     _close(db, ref[2], 1e-5)
+
+
+# row 6 at the main path's three shapes (n, F, H·C, bias, x's row stride):
+# the GAT form, the Transformer's wblk form (dqw [N, H·4] against q read
+# from its q|k|v buffer) and the bias form; N ragged (not a multiple of
+# 128), small (one dW chunk) and at the flagship's 12,032 rows
+_ROW6 = [(1000, 256, 1024, False, 256), (1000, 1024, 16, False, 3072),
+         (1000, 256, 3072, True, 256), (12032, 256, 1024, False, 256),
+         (12032, 1024, 16, False, 3072), (200, 64, 192, True, 192),
+         (300, 128, 8, False, 384)]
+
+
+@pytest.mark.parametrize("n,f,hc,bias,ldx", _ROW6)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fold_project_shapes_match_plain(card, n, f, hc, bias, ldx, dtype):
+    """Row 6 (one persistent launch, dW folded from K-chunk slices) against
+    its plain version at dz widths 16, 1,024 and 3,072, x a row-strided
+    column block where ldx > F, ragged N: dx within KTOL (f32 summation
+    order; bf16 one rounding), dW and db within f32 summation order (bf16
+    operands are exact in the f32 products)."""
+    gen = torch.Generator().manual_seed(17)
+    dt = getattr(torch, dtype)
+    dz = torch.randn(n, hc, generator=gen).to(card, dt)
+    wide = torch.randn(n, ldx, generator=gen).to(card, dt)
+    x = wide[:, ldx - f:] if ldx > f else wide
+    w = (torch.randn(f, hc, generator=gen) * f ** -0.5).to(card, dt)
+    _build.reset_launches()
+    got = fold_project_bwd(dz, x, w, with_bias=bias)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fold_project_bwd"] == 1
+    ref = fold_project_bwd_plain(dz, x, w, with_bias=bias)
+    assert got[0].dtype == dt and got[1].dtype == torch.float32
+    assert got[1].shape == (f, hc)
+    _close(got[0], ref[0], KTOL[dtype])
+    _close(got[1], ref[1], 1e-4 if dtype == "float32" else 1e-3)
+    if bias:
+        _close(got[2], ref[2], 1e-5)
+    # deterministic: a second call gives the same bits
+    again = fold_project_bwd(dz, x, w, with_bias=bias)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
