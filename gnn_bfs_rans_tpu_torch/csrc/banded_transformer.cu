@@ -37,16 +37,18 @@
 // kernel clamps onto duplicate blocks instead).
 //
 // The fused form projects q, k and v = x·W + b (f32 accumulate, the bias
-// added in f32, one rounding to x's dtype) with the shared GEMM (gemm.cuh:
-// bf16 on the tensor cores, true f32 on the SIMT units, no TF32) into one
-// [N, 3·H·C] buffer, then runs the geo-mean attention with qw = q·wblk
-// computed in the attention kernel in f32 (the TPU kernel keeps it f32).
-// Unlike the TPU kernel, q/k/v make one round trip through device memory
-// (3·N·H·C·dtype bytes, 73.9 MB per layer at N 12,032, H·C 1,024 in bf16);
-// keeping them on chip, and wgmma/TMA for the projection, are later work.
-// The training path's projection (entry transformer_project_launch) is the
-// same GEMM into the same buffer, then qw = q·wblk rounded to q's dtype, as
-// banded_transformer_geo_mean_projgrad forms them outside its kernel.
+// added in f32, one rounding to x's dtype) into one [N, 3·H·C] buffer in one
+// launch of gemm_sm90.cuh's q/k/v projection (bf16: wgmma fed by TMA from
+// the three weights as they are, output tiles of 128 rows × one head of q,
+// k or v; f32: its SIMT tiles, true f32, no TF32), then runs the geo-mean
+// attention with qw = q·wblk computed in the attention kernel in f32 (the
+// TPU kernel keeps it f32).  Unlike the TPU kernel, q/k/v make one round
+// trip through device memory (3·N·H·C·dtype bytes, 73.9 MB per layer at N
+// 12,032, H·C 1,024 in bf16); keeping them on chip is later work.  The
+// training path's projection (entry transformer_project_launch) is the
+// shared gemm.cuh GEMM into the same buffer, then qw = q·wblk rounded to
+// q's dtype, as banded_transformer_geo_mean_projgrad forms them outside its
+// kernel.
 //
 // What bounds it on an H100: the attention is a sparse product.  The band
 // mask holds ~4 senders per row of 256–640 columns; the TPU kernel computes
@@ -58,7 +60,9 @@
 // out and s, each once, and the edge or geo planes at the mask's nonzeros
 // only: ≈85 MB in bf16 geo form, ≈0.025 ms at 3.35 TB/s.  It is bound by
 // bytes.  The fused form is bound by
-// its projection, 3·2·N·F·H·C operations (18.9 GFLOP per layer).
+// its projection, 3·2·N·F·H·C operations (18.9 GFLOP per layer, 19 µs at
+// 989 TFLOP/s in bf16), about as much as it writes of q|k|v (73.9 MB, 22
+// µs at 3.35 TB/s).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,6 +72,7 @@
 #include "band_common.cuh"
 #include "dropout.cuh"
 #include "gemm.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -379,22 +384,26 @@ int dispatch(const int8_t* mask, const void* q, const void* k, const void* v,
 
 template <typename T>
 int fused(const int8_t* mask, const void* x, const void* wq, const void* wk,
-          const void* wv, const float* bias, const void* wblk,
-          const float* geo, const float* pos, void* qkv, void* out, float* s,
-          int n_pad, int f, int heads, int c, int tile, int wcols, float scale,
-          cudaStream_t stream) {
+          const void* wv, const void* bq, const void* bk, const void* bv,
+          const void* wblk, const float* geo, const float* pos, void* qkv,
+          void* out, float* s, int n_pad, int f, int heads, int c, int tile,
+          int wcols, float scale, cudaStream_t stream) {
   const int hc = heads * c;
   T* base = static_cast<T*>(qkv);
-  const void* ws[3] = {wq, wk, wv};
-  for (int m = 0; m < 3; ++m) {
-    // qkv[:, m·HC:(m+1)·HC] = x·W_m + b_m: A = x [n_pad, F] K-contiguous,
-    // B = W_m [F, H·C] N-contiguous
-    cudaError_t err = gemm::matmul(
-        static_cast<const T*>(x), f, static_cast<const T*>(ws[m]), hc,
-        base + (size_t)m * hc, 3 * hc, n_pad, hc, f, stream,
-        bias + (size_t)m * hc);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const T* const ws[3] = {static_cast<const T*>(wq), static_cast<const T*>(wk),
+                          static_cast<const T*>(wv)};
+  const T* const bs[3] = {static_cast<const T*>(bq), static_cast<const T*>(bk),
+                          static_cast<const T*>(bv)};
+  // qkv = x·[Wq | Wk | Wv] + [bq | bk | bv] (gemm_sm90.cuh): bf16 on
+  // persistent blocks, f32 one block per tile
+  cudaError_t err;
+  if constexpr (sizeof(T) == 2)
+    err = sm90::run_proj_fwd_bf16(static_cast<const T*>(x), ws, bs, base, n_pad,
+                                  f, hc, stream);
+  else
+    err = sm90::f32::run_proj_fwd(static_cast<const T*>(x), ws, bs, base, n_pad,
+                                  f, hc, stream);
+  if (err != cudaSuccess) return (int)err;
   return attention<T, GEO, true>(mask, base, base + hc, base + 2 * hc, 3 * hc,
                                  geo, pos, wblk, out, s, n_pad, heads, c, tile,
                                  wcols, 4, 1, scale, Drop{nullptr, 0u, 1.f},
@@ -451,24 +460,25 @@ int banded_transformer_launch(const int8_t* mask, const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// Row 11.  x [n_pad, f], wq/wk/wv [f, heads·c], wblk [heads·c, heads·4] in
-// dtype; bias f32 [3·heads·c] (bq | bk | bv); qkv the caller-allocated
-// [n_pad, 3·heads·c] projection buffer; out [n_pad, c], s f32 [n_pad,
-// heads·4].  Returns the CUDA error code of the launches.
+// Row 11.  x [n_pad, f], wq/wk/wv [f, heads·c], bq/bk/bv [heads·c], wblk
+// [heads·c, heads·4] in dtype (f and heads·c multiples of 8, every pointer
+// 16-byte aligned); qkv the caller-allocated [n_pad, 3·heads·c] projection
+// buffer; out [n_pad, c], s f32 [n_pad, heads·4].  Returns the CUDA error
+// code of the launches.
 int banded_transformer_geo_mean_fused_launch(
     const int8_t* mask, const void* x, const void* wq, const void* wk,
-    const void* wv, const float* bias, const void* wblk, const float* geo,
-    const float* pos, void* qkv, void* out, float* s, int n_pad, int f,
-    int heads, int c, int tile, int wcols, int dtype, float scale,
-    void* stream) {
+    const void* wv, const void* bq, const void* bk, const void* bv,
+    const void* wblk, const float* geo, const float* pos, void* qkv,
+    void* out, float* s, int n_pad, int f, int heads, int c, int tile,
+    int wcols, int dtype, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return fused<float>(mask, x, wq, wk, wv, bias, wblk, geo, pos, qkv, out, s,
-                        n_pad, f, heads, c, tile, wcols, scale, st);
+    return fused<float>(mask, x, wq, wk, wv, bq, bk, bv, wblk, geo, pos, qkv,
+                        out, s, n_pad, f, heads, c, tile, wcols, scale, st);
   if (dtype == 1)
-    return fused<__nv_bfloat16>(mask, x, wq, wk, wv, bias, wblk, geo, pos, qkv,
-                                out, s, n_pad, f, heads, c, tile, wcols, scale,
-                                st);
+    return fused<__nv_bfloat16>(mask, x, wq, wk, wv, bq, bk, bv, wblk, geo,
+                                pos, qkv, out, s, n_pad, f, heads, c, tile,
+                                wcols, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

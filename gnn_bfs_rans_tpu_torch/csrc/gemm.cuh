@@ -1,12 +1,13 @@
 // Tiled matrix products for the forward kernels of this package (header
-// only; the projection backward has its own, gemm_sm90.cuh).
+// only; the projection backward and row 11's projection have their own,
+// gemm_sm90.cuh).
 //
 //   C[m, n] = Σ_k A[m·lda + k] · B[k·ldb + n] (+ bias[n]),   f32 accumulate:
 //
-// z = x·W (banded_gat.cu), the q/k/v projections and qw = q·wblk
-// (banded_transformer.cu).  An optional f32 bias (one per output column) is
-// added to the f32 sum before the one rounding to C's type (the q/k/v
-// projections).
+// z = x·W (banded_gat.cu), the training path's q/k/v projection and qw =
+// q·wblk (banded_transformer.cu; row 11's projection runs on gemm_sm90.cuh).
+// An optional f32 bias (one per output column) is added to the f32 sum
+// before the one rounding to C's type (the q/k/v projection).
 //
 // bf16 inputs run on the tensor cores (warp-level mma through nvcuda::wmma,
 // 16×16×16 bf16 fragments): a 128×128 output tile per block, 8 warps as

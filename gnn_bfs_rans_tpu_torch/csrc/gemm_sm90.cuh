@@ -1,8 +1,9 @@
-// Matrix products on Hopper for the projection backward (fold_project_bwd.cu;
-// header only, used there alone: rows 1 and 11 and transformer_project stay on
-// gemm.cuh).
+// Matrix products on Hopper: the projection backward (fold_project_bwd.cu)
+// and the fused Transformer's q/k/v projection (banded_transformer.cu, row
+// 11; header only).  Row 1 and the training projection transformer_project
+// stay on gemm.cuh.
 //
-// One persistent launch computes both products of the projection backward
+// The projection backward: one persistent launch computes both products
 //
 //   dx [N, F]   = dz [N, H·C] · W [F, H·C]ᵀ     (rounded once to dx's dtype)
 //   dW [F, H·C] = Σ_z x[K_z]ᵀ · dz[K_z]          (f32 partial per K-chunk z)
@@ -37,6 +38,24 @@
 // Precision.HIGHEST; no TF32): 128 × 128 × 16 tiles, cp.async double
 // buffering with 16-byte loads along each operand's contiguous dimension,
 // fragments read from shared memory as float4, the same items and fold.
+//
+// The q/k/v projection (namespace fwd, and f32::proj_fwd_f32_kernel):
+//
+//   qkv [N, 3·H·C] = x [N, F] · [Wq | Wk | Wv] + [bq | bk | bv]
+//
+// from the three weights [F, H·C] as they are (three TMA maps, no
+// concatenated copy), f32 accumulate, the bias (x's dtype) added in f32,
+// one rounding to x's dtype.  bf16: one persistent launch, at most one
+// block per SM, walking output tiles of 128 rows × 256 columns of one
+// weight (one head of q, k or v at C 256), column tile fastest so the
+// blocks running at once share x's rows in L2; x K-major (row 6's dx
+// operand), W MN-major (row 6's dW operand), m64n256 wgmmas through a
+// three-stage ring; the tile is staged in shared memory and written by TMA
+// stores (whole 128-byte lines, the ragged N and H·C edges dropped by
+// TMA), which drain while the consumers run the next tile and the producer
+// loads it.
+// f32: one 128 × 128 tile of one weight per block, row 6's SIMT tiles with
+// x K-major and W MN-major.
 
 #pragma once
 
@@ -635,6 +654,208 @@ cudaError_t run_bf16(const __nv_bfloat16* dz, const __nv_bfloat16* x, int ldx,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------- the q/k/v projection (bf16)
+namespace fwd {
+
+constexpr int BM = 128, BN = 256, BK = 64;
+constexpr int A_BYTES = BM * BK * 2, B_BYTES = BN * BK * 2;
+static_assert(A_BYTES + B_BYTES <= kStageBytes, "stage too small");
+// three stages of the ring, then the output tile staged for its TMA store
+// (four boxes of 128 rows × 64 columns, 128-byte swizzle)
+constexpr int kFwdStages = 3;
+constexpr int kOutBytes = BM * BN * 2;
+constexpr int kFwdSmemBytes = kFwdStages * kStageBytes + kOutBytes + 1024 + 2 * kFwdStages * 8;
+
+// the walk: tile id → row tile tm, weight m, first column col0 (ids column
+// tile fastest, kernels/banded.py::_qkv_plan's order)
+struct Proj {
+  const __nv_bfloat16* bias[3];   // [hc] each
+  int n, f, hc, tpm, tiles;       // tpm: column tiles per weight
+};
+
+__device__ __forceinline__ void tile_of(const Proj& p, int id, int& tm, int& m,
+                                        int& col0) {
+  const int per_row = 3 * p.tpm, j = id % per_row;
+  tm = id / per_row;
+  m = j / p.tpm;
+  col0 = (j % p.tpm) * BN;
+}
+
+// a 2-D box of shared memory to (c0 inner, c1 outer); TMA drops what lies
+// outside the tensor
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src,
+                                          int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    proj_fwd_bf16_kernel(const __grid_constant__ CUtensorMap xa,
+                         const __grid_constant__ CUtensorMap w0,
+                         const __grid_constant__ CUtensorMap w1,
+                         const __grid_constant__ CUtensorMap w2,
+                         const __grid_constant__ CUtensorMap o0,
+                         const __grid_constant__ CUtensorMap o1,
+                         const __grid_constant__ CUtensorMap o2, const Proj p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* staged = smem + kFwdStages * kStageBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(staged + kOutBytes);
+  uint64_t* empty = full + kFwdStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int ksteps = (p.f + BK - 1) / BK;
+  int stage = 0;
+  uint32_t phase = 0;
+  if (threadIdx.x >= 256) {
+    // producer warpgroup: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x != 256) return;
+    for (int id = blockIdx.x; id < p.tiles; id += gridDim.x) {
+      int tm, m, col0;
+      tile_of(p, id, tm, m, col0);
+      const CUtensorMap* wm = m == 0 ? &w0 : m == 1 ? &w1 : &w2;
+      for (int ks = 0; ks < ksteps; ++ks) {
+        mbar_wait(&empty[stage], phase ^ 1u);
+        uint8_t* st = smem + stage * kStageBytes;
+        mbar_expect_tx(&full[stage], A_BYTES + B_BYTES);
+        tma_load(st, &xa, &full[stage], ks * BK, tm * BM);
+#pragma unroll
+        for (int a = 0; a < BN / 64; ++a)
+          tma_load(st + A_BYTES + a * (128 * BK), wm, &full[stage], col0 + a * 64,
+                   ks * BK);
+        if (++stage == kFwdStages) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32,
+            lane = tid % 32;
+  for (int id = blockIdx.x; id < p.tiles; id += gridDim.x) {
+    int tm, m, col0;
+    tile_of(p, id, tm, m, col0);
+    float acc[BN / 2];
+#pragma unroll
+    for (int r = 0; r < BN / 2; ++r) acc[r] = 0.f;
+    int prev = -1;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      mbar_wait(&full[stage], phase);
+      const uint32_t a_base = smem_u32(smem + stage * kStageBytes);
+      const uint32_t b_base = a_base + A_BYTES;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        mma_m64n256k16<0, 1>(acc, operand_desc<128, false, BK>(a_base, wg * 64, kk),
+                             operand_desc<128, true, BK>(b_base, 0, kk));
+      wgmma_commit();
+      wgmma_wait<1>();   // the previous stage's products are done
+      fence_regs(acc);
+      if (prev >= 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[prev]);
+      }
+      prev = stage;
+      if (++stage == kFwdStages) {
+        stage = 0;
+        phase ^= 1u;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (prev >= 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[prev]);
+    }
+    // the epilogue: the previous tile's store has read the staging tile;
+    // the bias added in f32, one rounding, the values written in the
+    // wgmma accumulator layout (row 16·warp + lane/4 (+8), columns 8·q +
+    // 2·(lane % 4) + {0, 1}) into the 128-byte swizzled boxes the TMA store
+    // reads (conflict-free: a warp's 8 rows fall in 8 different 16-byte
+    // chunks), then one thread stores the tile
+    if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    consumers_sync();
+    const __nv_bfloat16* bias = p.bias[m];
+    const int r0 = wg * 64 + warp * 16 + lane / 4;
+#pragma unroll
+    for (int q = 0; q < BN / 8; ++q) {
+      const int c = col0 + 8 * q + 2 * (lane % 4);
+      const float2 b = c < p.hc ? __bfloat1622float2(
+                                      *reinterpret_cast<const __nv_bfloat162*>(bias + c))
+                                : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        uint8_t* box = staged + (q / 8) * (BM * 128);
+        *reinterpret_cast<__nv_bfloat162*>(
+            box + r * 128 + (((q % 8) ^ (r % 8)) << 4) + 4 * (lane % 4)) =
+            __floats2bfloat162_rn(acc[4 * q + 2 * h] + b.x, acc[4 * q + 2 * h + 1] + b.y);
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    consumers_sync();
+    if (tid == 0) {
+      const CUtensorMap* om = m == 0 ? &o0 : m == 1 ? &o1 : &o2;
+#pragma unroll
+      for (int a = 0; a < BN / 64; ++a)
+        tma_store(om, staged + a * (BM * 128), col0 + a * 64, tm * BM);
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
+  }
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+}  // namespace fwd
+
+// qkv = x·[W0 | W1 | W2] + [b0 | b1 | b2] in bf16 on persistent blocks,
+// one per SM or one per tile if fewer (x [n, f], each W [f, hc], f and hc
+// multiples of 8; out [n, 3·hc])
+inline cudaError_t run_proj_fwd_bf16(const __nv_bfloat16* x,
+                                     const __nv_bfloat16* const w[3],
+                                     const __nv_bfloat16* const b[3],
+                                     __nv_bfloat16* out, int n, int f, int hc,
+                                     cudaStream_t s) {
+  CUtensorMap m[7];
+  // x [n, f] K-major in 128 × 64 boxes; each W [f, hc] MN-major in atoms of
+  // 64 columns × 64 K rows; each weight's output columns of out (row stride
+  // 3·hc) in boxes of 128 rows × 64 columns
+  if (!make_map(&m[0], x, f, n, f, fwd::BK, fwd::BM, 128))
+    return cudaErrorInvalidValue;
+  for (int i = 0; i < 3; ++i)
+    if (!make_map(&m[1 + i], w[i], hc, f, hc, 64, fwd::BK, 128) ||
+        !make_map(&m[4 + i], out + (size_t)i * hc, hc, n, 3LL * hc, 64, fwd::BM, 128))
+      return cudaErrorInvalidValue;
+  const int tpm = (hc + fwd::BN - 1) / fwd::BN;
+  const fwd::Proj p{{b[0], b[1], b[2]}, n, f, hc, tpm,
+                    ((n + fwd::BM - 1) / fwd::BM) * 3 * tpm};
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fwd::proj_fwd_bf16_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               fwd::kFwdSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int grid = p.tiles < sms ? p.tiles : sms;
+  fwd::proj_fwd_bf16_kernel<<<grid, kThreads, fwd::kFwdSmemBytes, s>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], m[6], p);
+  return cudaGetLastError();
+}
+
 // ------------------------------------------------------------- f32 path
 namespace f32 {
 
@@ -809,6 +1030,94 @@ __global__ void __launch_bounds__(THREADS, 2)
     else
       item_f32<false>(a, it, o, sm);
   }
+}
+
+// The q/k/v projection in f32: one 128 × 128 output tile of weight
+// m = blockIdx.x / tpm per block; x K-major (rows ty + 16·i), W MN-major
+// (columns 4·tx + {0…3} (+64)), K ascending, the bias added in f32.
+__global__ void __launch_bounds__(THREADS, 2)
+    proj_fwd_f32_kernel(const float* __restrict__ x, const float* w0,
+                        const float* w1, const float* w2, const float* b0,
+                        const float* b1, const float* b2,
+                        float* __restrict__ out, int n, int f, int hc, int tpm) {
+  __shared__ __align__(16) float sm[2 * 2 * TILE];
+  const int m = blockIdx.x / tpm;
+  const float* w = m == 0 ? w0 : m == 1 ? w1 : w2;
+  const float* bias = m == 0 ? b0 : m == 1 ? b1 : b2;
+  const int n0 = (blockIdx.x % tpm) * BN, m0 = blockIdx.y * BM;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const int steps = (f + BK - 1) / BK;
+  auto load = [&](int buf, int ks) {
+    float* sa = sm + buf * 2 * TILE;
+    load_km(sa, x, f, m0, n, ks * BK, f);
+    load_mn(sa + TILE, w, hc, n0, hc, ks * BK, f);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  load(0, 0);
+  int buf = 0;
+  for (int ks = 0; ks < steps; ++ks) {
+    if (ks + 1 < steps)
+      load(buf ^ 1, ks + 1);
+    else
+      asm volatile("cp.async.commit_group;" ::: "memory");
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+    __syncthreads();
+    const float* sa = sm + buf * 2 * TILE;
+    const float* sb = sa + TILE;
+#pragma unroll
+    for (int kq = 0; kq < BK / 4; ++kq) {
+      float4 av[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        av[i] = *reinterpret_cast<const float4*>(sa + (ty + 16 * i) * KP + 4 * kq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kk = 4 * kq + e;
+        const float4 c0 = *reinterpret_cast<const float4*>(sb + kk * MP + 4 * tx);
+        const float4 c1 = *reinterpret_cast<const float4*>(sb + kk * MP + 64 + 4 * tx);
+        const float bv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float a = e == 0 ? av[i].x : e == 1 ? av[i].y : e == 2 ? av[i].z : av[i].w;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a, bv[j], acc[i][j]);
+        }
+      }
+    }
+    __syncthreads();
+    buf ^= 1;
+  }
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  const long long ld = 3LL * hc;
+  float* o = out + (long long)m * hc;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = m0 + ty + 16 * i;
+    if (r >= n) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = n0 + 64 * h + 4 * tx;
+      if (c < hc)
+        *reinterpret_cast<float4*>(o + r * ld + c) =
+            make_float4(acc[i][4 * h] + bias[c], acc[i][4 * h + 1] + bias[c + 1],
+                        acc[i][4 * h + 2] + bias[c + 2], acc[i][4 * h + 3] + bias[c + 3]);
+    }
+  }
+}
+
+// qkv = x·[W0 | W1 | W2] + [b0 | b1 | b2] in f32 (f and hc multiples of 4)
+inline cudaError_t run_proj_fwd(const float* x, const float* const w[3],
+                                const float* const b[3], float* out, int n,
+                                int f, int hc, cudaStream_t s) {
+  const int tpm = (hc + BN - 1) / BN;
+  proj_fwd_f32_kernel<<<dim3(3 * tpm, (n + BM - 1) / BM), THREADS, 0, s>>>(
+      x, w[0], w[1], w[2], b[0], b[1], b[2], out, n, f, hc, tpm);
+  return cudaGetLastError();
 }
 
 }  // namespace f32

@@ -68,12 +68,17 @@ class Band:
 
     def transposed(self, name: str) -> torch.Tensor:
         """The ``name`` plane ('gcn' or 'adj') of Aᵀ for the SpMM's
-        backward, computed at first use and kept with this Band (``to``
-        makes a new Band, which computes its own)."""
+        backward, or the attention mask 'bias_self' as [n_tiles, Wcols, T]
+        for the GAT backward's sender pass; computed at first use and kept
+        with this Band (``to`` makes a new Band, which computes its own)."""
         cache = self.__dict__.setdefault("_transposed", {})
         if name not in cache:
-            from ..kernels.banded import transpose_band
-            cache[name] = transpose_band(getattr(self, name))
+            if name == "bias_self":
+                from ..kernels.banded_bwd import transpose_mask
+                cache[name] = transpose_mask(self.bias_self)
+            else:
+                from ..kernels.banded import transpose_band
+                cache[name] = transpose_band(getattr(self, name))
         return cache[name]
 
     def to(self, device: str | torch.device) -> "Band":

@@ -30,7 +30,8 @@
   head-mean conv, the q/k/v projections inside the op
   (``transformer_project`` on ``gemm.cuh``), its backward rows 10, 7 and
   6.  ``banded_transformer_geo_mean_fused`` (row 11) projects q/k/v in the
-  launch, eval only.  Rows 9 and 11 in ``csrc/banded_transformer.cu``.
+  launch (``csrc/gemm_sm90.cuh``: one wgmma launch fed by TMA in bf16),
+  eval only.  Rows 9 and 11 in ``csrc/banded_transformer.cu``.
 
 Each source's header says what bounds it on the card and how the design
 answers that.  Layouts are the JAX package's: ``bias_self`` int8
@@ -228,7 +229,7 @@ class _GatMeanFusedWa(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, bias_self, w, wa, x, heads, negative_slope,
-                dropout_rate, seed):
+                dropout_rate, seed, mask_t):
         # the JAX package's XLA product outside its Pallas kernel
         alphas = (x.float() @ wa.float()).contiguous()
         out, z = banded_gat_mean_fused(bias_self, w, alphas, x, heads,
@@ -236,6 +237,7 @@ class _GatMeanFusedWa(torch.autograd.Function):
                                        emit_z=True)
         ctx.save_for_backward(bias_self, w, wa, alphas, x, z, seed)
         ctx.args = (heads, negative_slope, dropout_rate)
+        ctx.mask_t = mask_t
         return out
 
     @staticmethod
@@ -246,21 +248,35 @@ class _GatMeanFusedWa(torch.autograd.Function):
         heads, negative_slope, dropout_rate = ctx.args
         dz, da = banded_gat_bwd(bias_self, z, alphas,
                                 g.to(z.dtype).contiguous(), heads,
-                                negative_slope, dropout_rate, seed)
+                                negative_slope, dropout_rate, seed,
+                                mask_t=_mask_t(ctx.mask_t, bias_self))
         dx, dw = fold_project_bwd(dz, x, w)
         # the narrow α products stay plain products, as in the JAX package
         dwa = (x.float().t() @ da).to(wa.dtype)
         dx = dx + (da.to(x.dtype).float() @ wa.float().t()).to(x.dtype)
-        return None, dw.to(w.dtype), dwa, dx, None, None, None, None
+        return None, dw.to(w.dtype), dwa, dx, None, None, None, None, None
+
+
+def _mask_t(mask_t, bias_self):
+    """Row 5's transposed mask: the caller's (the convs pass the band's
+    kept ``Band.transposed('bias_self')``), else made from ``bias_self``."""
+    if mask_t is None:
+        from .banded_bwd import transpose_mask
+        mask_t = transpose_mask(bias_self)
+    return mask_t
 
 
 def banded_gat_mean_fused_wa(bias_self, w, wa, x, heads,
-                             negative_slope=0.2, dropout_rate=0.0, seed=None):
+                             negative_slope=0.2, dropout_rate=0.0, seed=None,
+                             mask_t=None):
     """Differentiable fused GAT (head mean) with α = x·wa inside the op.
 
-    ``wa`` is the packed [F, 2H] α factor (W·amat) in x's dtype."""
+    ``wa`` is the packed [F, 2H] α factor (W·amat) in x's dtype.
+    ``mask_t``: ``bias_self`` transposed to [n_tiles, Wcols, T] for row 5's
+    sender pass (the convs pass the band's kept
+    ``Band.transposed('bias_self')``); the backward makes it when None."""
     return _GatMeanFusedWa.apply(bias_self, w, wa, x.contiguous(), heads,
-                                 negative_slope, dropout_rate, seed)
+                                 negative_slope, dropout_rate, seed, mask_t)
 
 
 # ------------------------------------------------------------------ row 4
@@ -349,9 +365,10 @@ class _GatPacked(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, bias_self, z, alphas, heads, negative_slope,
-                dropout_rate, seed, concat):
+                dropout_rate, seed, concat, mask_t):
         ctx.save_for_backward(bias_self, z, alphas, seed)
         ctx.args = (heads, negative_slope, dropout_rate, concat)
+        ctx.mask_t = mask_t
         return _gat_attention(bias_self, z, alphas, heads, negative_slope,
                               dropout_rate, seed, concat)
 
@@ -364,24 +381,29 @@ class _GatPacked(torch.autograd.Function):
         dz, da = banded_gat_bwd(bias_self, z, alphas,
                                 g.to(z.dtype).contiguous(), heads,
                                 negative_slope, dropout_rate, seed,
-                                mean_expand=not concat)
-        return None, dz, da, None, None, None, None, None
+                                mean_expand=not concat,
+                                mask_t=_mask_t(ctx.mask_t, bias_self))
+        return None, dz, da, None, None, None, None, None, None
 
 
 def banded_gat_mean_packed(bias_self, z, alphas, heads, negative_slope=0.2,
-                           dropout_rate=0.0, seed=None):
+                           dropout_rate=0.0, seed=None, mask_t=None):
     """Differentiable head-mean banded GAT on z [N, H·C] and the packed f32
-    α [N, 2H]; the unfused training path (``fuse_train=False``)."""
+    α [N, 2H]; the unfused training path (``fuse_train=False``).
+    ``mask_t`` as :func:`banded_gat_mean_fused_wa`."""
     return _GatPacked.apply(bias_self, z.contiguous(), alphas.contiguous(),
-                            heads, negative_slope, dropout_rate, seed, False)
+                            heads, negative_slope, dropout_rate, seed, False,
+                            mask_t)
 
 
 def banded_gat_packed(bias_self, z, alphas, heads, negative_slope=0.2,
-                      dropout_rate=0.0, seed=None):
+                      dropout_rate=0.0, seed=None, mask_t=None):
     """Differentiable concat banded GAT on z [N, H·C] and the packed f32 α
-    [N, 2H] → [N, H·C]; the concat conv's path in eval and training."""
+    [N, 2H] → [N, H·C]; the concat conv's path in eval and training.
+    ``mask_t`` as :func:`banded_gat_mean_fused_wa`."""
     return _GatPacked.apply(bias_self, z.contiguous(), alphas.contiguous(),
-                            heads, negative_slope, dropout_rate, seed, True)
+                            heads, negative_slope, dropout_rate, seed, True,
+                            mask_t)
 
 
 # ------------------------------------------------------------------ row 8
@@ -935,25 +957,26 @@ def banded_transformer_geo_mean_fused(bias_noself, geo_band, pos, x, wq, wk,
                          f"{tuple(wq.shape)}, wblk {tuple(wblk.shape)}, geo "
                          f"{tuple(geo_band.shape)}, pos {tuple(pos.shape)}, "
                          f"heads {heads}")
-    if any(t.data_ptr() % 16 for t in (x, wq, wk, wv, wblk)) or (
-            x.dtype == torch.bfloat16 and (f % 8 or hc % 8)):
-        raise ValueError("the projection loads 16-byte chunks: F and H·C "
-                         "must be multiples of 8 (bf16) and x, the weights "
-                         "16-byte aligned")
+    vec = 16 // x.element_size()
+    if any(t.data_ptr() % 16 for t in (x, wq, wk, wv, bq, bk, bv, wblk)) \
+            or f % vec or hc % vec:
+        raise ValueError(f"the projection loads 16-byte rows: F and H·C "
+                         f"must be multiples of {vec} and x, the weights "
+                         f"and the biases 16-byte aligned")
     # the projections land in one [N, 3·H·C] buffer, q | k | v per row
     qkv = torch.empty((n, 3 * hc), dtype=x.dtype, device=x.device)
-    bias = torch.cat([bq, bk, bv]).float()    # exact: b widens to f32
     lib = _build.bind(TRANSFORMER_KERNEL,
                       "banded_transformer_geo_mean_fused_launch",
-                      [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+                      [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
                       + [ctypes.c_float, ctypes.c_void_p])
     out = torch.empty((n, c), dtype=x.dtype, device=x.device)
     s = torch.empty((n, heads * 4), dtype=torch.float32, device=x.device)
     rc = lib.banded_transformer_geo_mean_fused_launch(
         bias_noself.data_ptr(), x.data_ptr(), wq.data_ptr(), wk.data_ptr(),
-        wv.data_ptr(), bias.data_ptr(), wblk.data_ptr(), geo_band.data_ptr(),
-        pos.data_ptr(), qkv.data_ptr(), out.data_ptr(), s.data_ptr(), n, f,
-        heads, c, tile, width, _DTYPE_CODE[x.dtype], 1.0 / (c ** 0.5),
+        wv.data_ptr(), bq.data_ptr(), bk.data_ptr(), bv.data_ptr(),
+        wblk.data_ptr(), geo_band.data_ptr(), pos.data_ptr(), qkv.data_ptr(),
+        out.data_ptr(), s.data_ptr(), n, f, heads, c, tile, width,
+        _DTYPE_CODE[x.dtype], 1.0 / (c ** 0.5),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "banded_transformer_geo_mean_fused")
     _build.LAUNCHES["banded_transformer_geo_mean_fused"] += 1

@@ -7,8 +7,10 @@ versions.
   [N, H·C]): softmax recompute, dropout replay, softmax VJP → dz [N, H·C]
   in z's dtype and the packed dα [N, 2H] f32.  Kernel:
   ``csrc/banded_gat_bwd.cu``.  The TPU kernel emits per-window dz partials
-  for ``fold_project_bwd`` to fold; the CUDA kernel gathers each sender's
-  dz row from its receivers and emits dz rows, with one rounding instead of
+  for ``fold_project_bwd`` to fold; the CUDA kernel's receiver pass stores
+  round(ẽ) and round(dpre) at the mask's nonzeros and its sender pass sums
+  them into each sender's dz row and dα_src (through the transposed mask,
+  ``transpose_mask``, which the band keeps), with one rounding instead of
   two (a few bf16 ulps apart in bf16).  It is the backward of kernel 1's op
   and of both row-4 ops (``banded_gat_mean_packed`` and
   ``banded_gat_packed``, the JAX package's ``_gatm_vjp_bwd`` and
@@ -49,16 +51,22 @@ from .banded import (_DTYPE_CODE, _by_head, _check_transformer,
                      _tr_logits, _windows, attention_keep, inv_keep)
 
 
+# the H100's shared memory per block (227 KB)
+_SMEM_MAX = 227 * 1024
+
+
 def _mm_round(v: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """The TPU kernels' bf16 rounding point of a matmul operand."""
     return v.to(dt).float() if dt == torch.bfloat16 else v
 
 
-def banded_gat_bwd_plain(bias_self, z, alphas, g, heads, negative_slope=0.2,
-                         dropout_rate=0.0, seed=None, mean_expand=True):
-    """Plain PyTorch version with the kernel's rounding points: dense over
-    the window like the TPU kernel (masked entries contribute exactly 0),
-    dz summed in f32 over every receiver, then rounded once."""
+def _gat_bwd_rows_plain(bias_self, z, alphas, g, heads, negative_slope=0.2,
+                        dropout_rate=0.0, seed=None, mean_expand=True):
+    """Row 5's receiver pass in plain PyTorch, dense over the window like
+    the TPU kernel (masked entries contribute exactly 0), with its rounding
+    points.  Returns (dα_dst [N, H] f32, round(ẽ), round(dpre), G' =
+    round(gout·inv) [n_tiles, T, H, C]): the two planes [n_tiles, T, Wcols,
+    H] (0 off the mask) the sender pass sums."""
     n_tiles, tile, width = bias_self.shape
     n, hc = z.shape
     c = hc // heads
@@ -87,29 +95,60 @@ def banded_gat_bwd_plain(bias_self, z, alphas, g, heads, negative_slope=0.2,
     rs = (e * dp).sum(dim=2, keepdim=True) * inv
     dpre = e * ((dp - rs) * inv) * torch.where(pre >= 0, 1.0, negative_slope)
     dad = dpre.sum(dim=2).reshape(n, heads)
-    das_win = _mm_round(dpre, dt).sum(dim=1)                  # [n, W, H]
-    gout_s = gout * inv[:, :, 0, :, None]                     # [n, T, H, C]
-    dz_win = torch.einsum("ntwh,nthc->nwhc", _mm_round(e_d, dt),
-                          _mm_round(gout_s, dt))
-    # fold the windows onto sender rows; window rows outside [0, N) go to a
-    # spare row n that is dropped (no data-dependent shapes: no host sync)
+    g_s = _mm_round(gout * inv[:, :, 0, :, None], dt)         # [n, T, H, C]
+    return dad, _mm_round(e_d, dt), _mm_round(dpre, dt), g_s
+
+
+def _fold_windows(win, tile):
+    """[n_tiles, Wcols, F] window rows → [N, F] sender rows (f32 sums);
+    window rows outside [0, N) go to a spare row N that is dropped (no
+    data-dependent shapes: no host sync)."""
+    n_tiles, width, feat = win.shape
+    n = n_tiles * tile
     pad = (width - tile) // 2
-    rows = (torch.arange(n_tiles, device=z.device)[:, None] * tile - pad
-            + torch.arange(width, device=z.device)[None, :]).reshape(-1)
+    rows = (torch.arange(n_tiles, device=win.device)[:, None] * tile - pad
+            + torch.arange(width, device=win.device)[None, :]).reshape(-1)
     rows = torch.where((rows >= 0) & (rows < n), rows, n)
-    dz = torch.zeros(n + 1, hc, dtype=torch.float32, device=z.device)
-    dz.index_add_(0, rows, dz_win.reshape(-1, hc))
-    das = torch.zeros(n + 1, heads, dtype=torch.float32, device=z.device)
-    das.index_add_(0, rows, das_win.reshape(-1, heads))
-    return dz[:n].to(dt), torch.cat([das[:n], dad], dim=1)
+    out = torch.zeros(n + 1, feat, dtype=torch.float32, device=win.device)
+    out.index_add_(0, rows, win.reshape(-1, feat))
+    return out[:n]
+
+
+def banded_gat_bwd_plain(bias_self, z, alphas, g, heads, negative_slope=0.2,
+                         dropout_rate=0.0, seed=None, mean_expand=True):
+    """Plain PyTorch version with the kernel's rounding points: the receiver
+    pass (``_gat_bwd_rows_plain``), then each sender's dα_src and dz summed
+    in f32 over every receiver of its window columns, dz rounded once."""
+    n_tiles, tile, width = bias_self.shape
+    n, hc = z.shape
+    dad, ed_r, dpre_r, g_s = _gat_bwd_rows_plain(
+        bias_self, z, alphas, g, heads, negative_slope, dropout_rate, seed,
+        mean_expand)
+    dz_win = torch.einsum("ntwh,nthc->nwhc", ed_r, g_s)
+    dz = _fold_windows(dz_win.reshape(n_tiles, width, hc), tile)
+    das = _fold_windows(dpre_r.sum(dim=1), tile)
+    return dz.to(z.dtype), torch.cat([das, dad], dim=1)
+
+
+def transpose_mask(bias_self: torch.Tensor) -> torch.Tensor:
+    """The int8 attention mask [n_tiles, T, Wcols] transposed to
+    [n_tiles, Wcols, T]: row 5's sender pass reads a window column's
+    receivers contiguously.  ``Band.transposed('bias_self')`` keeps it."""
+    return bias_self.transpose(1, 2).contiguous()
 
 
 def banded_gat_bwd(bias_self, z, alphas, g, heads, negative_slope=0.2,
-                   dropout_rate=0.0, seed=None, mean_expand=True):
+                   dropout_rate=0.0, seed=None, mean_expand=True, *,
+                   mask_t):
     """(dz, dα) of the banded GAT given z (the forward's projection), the
     packed f32 α and the output cotangent ``g`` in z's dtype: [N, C] of the
-    head mean (``mean_expand``) or [N, H·C] of the concat output.  CPU
-    tensors take the plain version, CUDA tensors the kernel."""
+    head mean (``mean_expand``) or [N, H·C] of the concat output.
+    ``mask_t`` must be ``transpose_mask(bias_self)`` (the band's kept
+    ``Band.transposed('bias_self')``): the sender pass reads the receiver
+    pass's scratch wherever ``mask_t`` is 1, and the receiver pass writes it
+    only where ``bias_self`` is 1, so any other mask sums unwritten memory
+    (only its shape and dtype are checked).  CPU tensors take the plain
+    version (``mask_t`` unread), CUDA tensors the kernel."""
     if z.device.type == "cpu":
         return banded_gat_bwd_plain(bias_self, z, alphas, g, heads,
                                     negative_slope, dropout_rate, seed,
@@ -119,7 +158,8 @@ def banded_gat_bwd(bias_self, z, alphas, g, heads, negative_slope=0.2,
     n_tiles, tile, width = bias_self.shape
     n, hc = z.shape
     c = hc // heads
-    for name, t in (("bias_self", bias_self), ("alphas", alphas), ("g", g)):
+    for name, t in (("bias_self", bias_self), ("mask_t", mask_t),
+                    ("alphas", alphas), ("g", g)):
         if t.device != z.device:
             raise ValueError(f"{name} is on {t.device}, z on {z.device}")
         if not t.is_contiguous():
@@ -129,31 +169,47 @@ def banded_gat_bwd(bias_self, z, alphas, g, heads, negative_slope=0.2,
     if z.dtype not in _DTYPE_CODE or g.dtype != z.dtype:
         raise TypeError(f"z and g must share float32 or bfloat16, got "
                         f"{z.dtype} / {g.dtype}")
-    if bias_self.dtype != torch.int8 or alphas.dtype != torch.float32:
-        raise TypeError("bias_self must be int8 and alphas float32")
+    if (bias_self.dtype != torch.int8 or mask_t.dtype != torch.int8
+            or alphas.dtype != torch.float32):
+        raise TypeError("bias_self and mask_t must be int8 and alphas "
+                        "float32")
     if (n != n_tiles * tile or hc != heads * c
             or g.shape != (n, c if mean_expand else hc)
             or alphas.shape != (n, 2 * heads) or width < tile
-            or (width - tile) % 2):
+            or (width - tile) % 2 or mask_t.shape != (n_tiles, width, tile)):
         raise ValueError(f"shape mismatch: bias_self {tuple(bias_self.shape)}, "
-                         f"z {tuple(z.shape)}, alphas {tuple(alphas.shape)}, "
-                         f"g {tuple(g.shape)}, heads {heads}")
-    if 4 * width * 16 > 48 * 1024 or 4 * (width + tile) * 12 > 48 * 1024:
-        raise ValueError(f"window width {width} exceeds the kernel's "
-                         "shared-memory budget (768 columns)")
+                         f"mask_t {tuple(mask_t.shape)}, z {tuple(z.shape)}, "
+                         f"alphas {tuple(alphas.shape)}, g {tuple(g.shape)}, "
+                         f"heads {heads}")
+    if c % 4 or z.data_ptr() % 16 or g.data_ptr() % 16:
+        raise ValueError(f"the passes move 4 columns or more per access: C "
+                         f"must be a multiple of 4 and z, g 16-byte aligned "
+                         f"(C {c})")
+    if width % 4 or tile % 4 or width > 768 or tile > 256:
+        raise ValueError(f"the passes read the mask in 4-byte words: Wcols "
+                         f"(≤ 768) and T (≤ 256) must be multiples of 4, "
+                         f"got {width} and {tile}")
+    if 4 * (2 + heads) * width * 4 > _SMEM_MAX:
+        raise ValueError(f"window width {width} at {heads} heads exceeds "
+                         "the receiver pass's shared-memory budget")
     seed = _drop.check_seed(seed, dropout_rate, z.device)
     lib = _build.bind("banded_gat_bwd", "banded_gat_bwd_launch",
-                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                          ctypes.c_void_p, ctypes.c_uint, ctypes.c_float,
                          ctypes.c_void_p])
-    stats = torch.empty((n, 3 * heads), dtype=torch.float32, device=z.device)
+    # scratch: 1/denominator per (row, head), and the receiver pass's
+    # (round(ẽ), round(dpre)) pairs, written and read only at the nonzeros
+    inv = torch.empty((n, heads), dtype=torch.float32, device=z.device)
+    plane = torch.empty((n_tiles, width, tile, heads, 2), dtype=z.dtype,
+                        device=z.device)
     dz = torch.empty_like(z)
     da = torch.empty((n, 2 * heads), dtype=torch.float32, device=z.device)
     rc = lib.banded_gat_bwd_launch(
-        bias_self.data_ptr(), alphas.data_ptr(), z.data_ptr(), g.data_ptr(),
-        stats.data_ptr(), dz.data_ptr(), da.data_ptr(), n, heads, c, tile,
-        width, negative_slope, int(mean_expand), _DTYPE_CODE[z.dtype],
+        bias_self.data_ptr(), mask_t.data_ptr(), alphas.data_ptr(),
+        z.data_ptr(), g.data_ptr(), inv.data_ptr(), plane.data_ptr(),
+        dz.data_ptr(), da.data_ptr(), n, heads, c, tile, width,
+        negative_slope, int(mean_expand), _DTYPE_CODE[z.dtype],
         None if seed is None else seed.data_ptr(),
         _drop.threshold(dropout_rate),
         inv_keep(dropout_rate) if seed is not None else 1.0,

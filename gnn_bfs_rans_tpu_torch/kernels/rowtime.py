@@ -1,21 +1,29 @@
-"""Time rows 6 and 10 of one checkout of this package on the card.
+"""Time rows 5, 6, 10 and 11 of one checkout of this package on the card.
 
     python gnn_bfs_rans_tpu_torch/kernels/rowtime.py [--root DIR] [--label L]
+        [--rows 5,6,10,11]
 
 imports ``gnn_bfs_rans_tpu_torch`` from ``DIR`` (default: the checkout this
-file lies in), builds its two CUDA sources and prints one JSON line of
-device times per call (ten calls in one CUDA graph, replayed): row 6,
-``fold_project_bwd``, at the main path's three shapes (the GAT form dz
-[N, 1,024], the Transformer's wblk form dz [N, 16] against q read from its
-q|k|v buffer, the bias form dz [N, 3,072]) in bf16 and f32, with the time of
-the same products as ``torch.matmul`` calls beside them and its kernels'
-device times by name (the products, the fold of dW's slices); and row 10,
-``banded_transformer_bwd``, geo head-mean at dropout 0.1, with its
-kernels' device times by name from ``torch.profiler``.  N 12,032 (the
-400×30 box case), F 256, H 4, C 256: the flagship shape.  Run it once per
-checkout inside one call on the card to compare two versions (parent,
-change, change, parent), since cards and their power limits differ between
-calls.
+file lies in), builds its CUDA sources and prints one JSON line of device
+times per call (ten calls in one CUDA graph, replayed), each beside its
+kernels' device times by name from ``torch.profiler`` and its largest
+error relative to the plain version:
+
+* row 5, ``banded_gat_bwd``, head mean and per head at dropout 0.1 (the
+  receiver and sender passes by kernel name), bf16 and f32;
+* row 6, ``fold_project_bwd``, at the main path's three shapes (the GAT
+  form dz [N, 1,024], the Transformer's wblk form dz [N, 16] against q read
+  from its q|k|v buffer, the bias form dz [N, 3,072]) in bf16 and f32, with
+  the time of the same products as ``torch.matmul`` calls beside them;
+* row 10, ``banded_transformer_bwd``, geo head-mean at dropout 0.1;
+* row 11, ``banded_transformer_geo_mean_fused`` (the projection and the
+  attention by kernel name), bf16 and f32, with one ``torch.addmm`` of x
+  by [Wq | Wk | Wv] beside it as the projection's yardstick.
+
+N 12,032 (the 400×30 box case), F 256, H 4, C 256: the flagship shape.
+Run it once per checkout inside one call on the card to compare two
+versions (parent, change, change, parent), since cards and their power
+limits differ between calls.
 """
 
 from __future__ import annotations
@@ -69,11 +77,20 @@ def _kernel_us(fn, steps=10):
     return out
 
 
+def _rel_err(got, ref):
+    """The largest of the outputs' max |got − ref| / max |ref|."""
+    return max(((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item() for a, b in zip(got, ref))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--label", default="")
+    ap.add_argument("--rows", default="5,6,10,11",
+                    help="comma-separated rows to time")
     args = ap.parse_args(argv)
+    rows = set(args.rows.split(","))
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
 
@@ -83,16 +100,44 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     from gnn_bfs_rans_tpu_torch.foam import generate_box_case
     from gnn_bfs_rans_tpu_torch.infer import load_graph
+    from gnn_bfs_rans_tpu_torch.kernels import banded as bk
     from gnn_bfs_rans_tpu_torch.kernels import banded_bwd as bb
 
     dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(0)
+    gen = torch.Generator()
     n, f, heads, c = 12032, 256, 4, 256
     hc = heads * c
     res = {"root": str(Path(bb.__file__).resolve().parents[2]),
            "label": args.label, "card": torch.cuda.get_device_name(0)}
+    with tempfile.TemporaryDirectory() as tmp:
+        generate_box_case(Path(tmp) / "box", 400, 30, 1)
+        band = load_graph(Path(tmp) / "box", "Transformer").band.to(dev)
+        mask5 = load_graph(Path(tmp) / "box", "GAT").band.bias_self.to(dev)
+    seed = torch.tensor([2025], dtype=torch.int32, device=dev)
+    gen.manual_seed(5)
     for dtype in (torch.bfloat16, torch.float32):
         name = "bf16" if dtype == torch.bfloat16 else "f32"
+        if "5" not in rows:
+            break
+        z = (0.5 * torch.randn(n, hc, generator=gen)).to(dev, dtype)
+        alphas = torch.randn(n, 2 * heads, generator=gen).to(dev)
+        for form, mean in (("mean", True), ("per_head", False)):
+            g = torch.randn(n, c if mean else hc, generator=gen).to(dev, dtype)
+            a5 = (mask5, z, alphas, g, heads, 0.2, 0.1, seed)
+            kw5 = dict(mean_expand=mean)
+            if hasattr(bb, "transpose_mask"):   # kept per band by the convs
+                kw5["mask_t"] = bb.transpose_mask(mask5)
+            res[f"row5_{form}_{name}"] = dict(
+                ms=_graph_ms(lambda: bb.banded_gat_bwd(*a5, **kw5)),
+                kernels_us=_kernel_us(lambda: bb.banded_gat_bwd(*a5, **kw5)),
+                rel_err=_rel_err(bb.banded_gat_bwd(*a5, **kw5),
+                                 bb.banded_gat_bwd_plain(
+                                     *a5, mean_expand=mean)))
+    gen.manual_seed(0)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        if "6" not in rows:
+            break
         x = torch.randn(n, f, generator=gen).to(dev, dtype)
         qkv = torch.randn(n, 3 * hc, generator=gen).to(dev, dtype)
         shapes = {
@@ -108,11 +153,9 @@ def main(argv=None) -> int:
                          dev, dtype), True),
         }
         for form, (dz, xx, w, bias) in shapes.items():
-            got = bb.fold_project_bwd(dz, xx, w, with_bias=bias)
-            ref = bb.fold_project_bwd_plain(dz, xx, w, with_bias=bias)
-            err = max(((a.float() - b.float()).abs().max()
-                       / b.float().abs().max()).item()
-                      for a, b in zip(got, ref))
+            err = _rel_err(bb.fold_project_bwd(dz, xx, w, with_bias=bias),
+                           bb.fold_project_bwd_plain(dz, xx, w,
+                                                     with_bias=bias))
             wt = w.t()
             lib = ((lambda: (dz @ wt, xx.t() @ dz, dz.sum(0))) if bias
                    else (lambda: (dz @ wt, xx.t() @ dz)))
@@ -123,26 +166,47 @@ def main(argv=None) -> int:
             res[f"row6_{form}_{name}"] = dict(
                 ms=_graph_ms(call), library_ms=_graph_ms(lib), rel_err=err,
                 kernels_us=_kernel_us(call))
-    with tempfile.TemporaryDirectory() as tmp:
-        generate_box_case(Path(tmp) / "box", 400, 30, 1)
-        band = load_graph(Path(tmp) / "box", "Transformer").band.to(dev)
     dt = torch.bfloat16
-    q, k, v = (torch.randn(n, hc, generator=gen).to(dev, dt) for _ in range(3))
-    qw = torch.randn(n, heads * 4, generator=gen).to(dev, dt)
-    g = torch.randn(n, c, generator=gen).to(dev, dt)
-    gs = torch.randn(n, heads * 4, generator=gen).to(dev)
-    seed = torch.tensor([2025], dtype=torch.int32, device=dev)
-    a10 = (band.bias_noself, q, k, v, g, heads)
-    kw = dict(geo=band.geo, pos=band.pos, qw=qw, gs=gs, mean_expand=True,
-              dropout_rate=0.1, seed=seed)
-    got = bb.banded_transformer_bwd(*a10, **kw)
-    ref = bb.banded_transformer_bwd_plain(*a10, **kw)
-    err = max(((a.float() - b.float()).abs().max()
-               / b.float().abs().max()).item() for a, b in zip(got, ref))
-    res["row10_geo_mean_bf16"] = dict(
-        ms=_graph_ms(lambda: bb.banded_transformer_bwd(*a10, **kw)),
-        kernels_us=_kernel_us(lambda: bb.banded_transformer_bwd(*a10, **kw)),
-        rel_err=err)
+    gen.manual_seed(10)
+    if "10" in rows:
+        q, k, v = (torch.randn(n, hc, generator=gen).to(dev, dt)
+                   for _ in range(3))
+        qw = torch.randn(n, heads * 4, generator=gen).to(dev, dt)
+        g = torch.randn(n, c, generator=gen).to(dev, dt)
+        gs = torch.randn(n, heads * 4, generator=gen).to(dev)
+        a10 = (band.bias_noself, q, k, v, g, heads)
+        kw = dict(geo=band.geo, pos=band.pos, qw=qw, gs=gs, mean_expand=True,
+                  dropout_rate=0.1, seed=seed)
+        res["row10_geo_mean_bf16"] = dict(
+            ms=_graph_ms(lambda: bb.banded_transformer_bwd(*a10, **kw)),
+            kernels_us=_kernel_us(
+                lambda: bb.banded_transformer_bwd(*a10, **kw)),
+            rel_err=_rel_err(bb.banded_transformer_bwd(*a10, **kw),
+                             bb.banded_transformer_bwd_plain(*a10, **kw)))
+    gen.manual_seed(11)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        if "11" not in rows:
+            break
+        x = torch.randn(n, f, generator=gen).to(dev, dtype)
+        ws = [(torch.randn(f, hc, generator=gen) * f ** -0.5).to(dev, dtype)
+              for _ in range(3)]
+        bs = [(0.1 * torch.randn(hc, generator=gen)).to(dev, dtype)
+              for _ in range(3)]
+        w_e = torch.rand(4, heads, c, generator=gen) - 0.5
+        wblk = (torch.eye(heads)[:, None, :, None]
+                * w_e.permute(1, 2, 0)[:, :, None, :]).reshape(hc, heads * 4)
+        a11 = (band.bias_noself, band.geo, band.pos, x, *ws, *bs,
+               wblk.to(dev, dtype), heads)
+        wcat, bcat = torch.cat(ws, 1), torch.cat(bs)
+        res[f"row11_{name}"] = dict(
+            ms=_graph_ms(lambda: bk.banded_transformer_geo_mean_fused(*a11)),
+            kernels_us=_kernel_us(
+                lambda: bk.banded_transformer_geo_mean_fused(*a11)),
+            addmm_ms=_graph_ms(lambda: torch.addmm(bcat, x, wcat)),
+            rel_err=_rel_err(
+                bk.banded_transformer_geo_mean_fused(*a11),
+                bk.banded_transformer_geo_mean_fused_plain(*a11)))
     print(json.dumps(res))
     return 0
 

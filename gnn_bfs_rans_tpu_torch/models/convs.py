@@ -250,7 +250,7 @@ class GATConv(nn.Module):
         H, C = self.heads, self.features
         if mask is not None and not self.concat and (
                 not train or self.fuse_train):
-            return self._fused(x, mask, train, seed)
+            return self._fused(x, mask, train, seed, graph.band)
         # z = x·W in the compute dtype, α = z·amat in f32 with amat in z's
         # dtype
         z = dense(self.lin, x, self.dtype)                     # [N, H·C]
@@ -261,7 +261,8 @@ class GATConv(nn.Module):
         if mask is not None:
             rate = self.dropout if seed is not None else 0.0
             op = banded_gat_packed if self.concat else banded_gat_mean_packed
-            out = op(mask, z, alphas, H, self.negative_slope, rate, seed)
+            out = op(mask, z, alphas, H, self.negative_slope, rate, seed,
+                     graph.band.transposed("bias_self"))
             return out + self.bias.to(out.dtype)
         rate = self.dropout if generator is not None else 0.0
         z3 = z.view(-1, H, C)
@@ -293,7 +294,7 @@ class GATConv(nn.Module):
         out = out.reshape(-1, H * C) if self.concat else out.mean(dim=1)
         return out + self.bias.to(out.dtype)
 
-    def _fused(self, x, mask, train, seed):
+    def _fused(self, x, mask, train, seed, band):
         """The head-mean conv with the projection inside kernel 1."""
         H, C = self.heads, self.features
         dt = x.dtype
@@ -307,7 +308,8 @@ class GATConv(nn.Module):
                        dim=1).to(dt)
         if train:
             out = banded_gat_mean_fused_wa(mask, w, wa, x, H,
-                                           self.negative_slope, rate, seed)
+                                           self.negative_slope, rate, seed,
+                                           band.transposed("bias_self"))
         else:
             alphas = x.float() @ wa.float()                    # [N, 2H] f32
             out = banded_gat_mean_fused(mask, w, alphas.contiguous(),

@@ -48,6 +48,7 @@ from gnn_bfs_rans_tpu_torch.kernels.banded_bwd import (
     fold_partials_plain,
     fold_project_bwd,
     fold_project_bwd_plain,
+    transpose_mask,
 )
 from gnn_bfs_rans_tpu_torch.kernels.epilogue import (
     _forward,
@@ -236,7 +237,8 @@ def test_gat_backward_kernels_match_plain(card, width, dtype, rate):
     mask = _band(n, width).to(card)
     seed = _seed(card) if rate else None
     _build.reset_launches()
-    dz, da = banded_gat_bwd(mask, z, alphas, g, heads, 0.2, rate, seed)
+    dz, da = banded_gat_bwd(mask, z, alphas, g, heads, 0.2, rate, seed,
+                            mask_t=transpose_mask(mask))
     dx, dw = fold_project_bwd(dz, x, w)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["banded_gat_bwd"] == 1
@@ -522,10 +524,11 @@ def test_gat_concat_kernel_and_op_match_plain(card, width, dtype, rate):
     _close(al.grad, ref_da, 1e-4 if dtype == "float32" else 1e-2)
     with pytest.raises(ValueError, match="shape"):
         banded_gat_bwd(mask, z, alphas, g[:, :c].contiguous(), heads, 0.2,
-                       rate, seed, mean_expand=False)
+                       rate, seed, mean_expand=False,
+                       mask_t=transpose_mask(mask))
 
 
-def _tr_band(n, width, geometric, seed=0):
+def _tr_band(n, width, geometric, seed=0, tile=128):
     """bias_noself with geo planes (features of random positions) or the
     generic edge planes (random features); the last 37 rows are padding
     with no senders."""
@@ -541,7 +544,7 @@ def _tr_band(n, width, geometric, seed=0):
     feat = (compute_edge_features(pos.astype(np.float64), s, r) if geometric
             else rng.normal(size=(s.size, 4)).astype(np.float32))
     deg = np.bincount(r, minlength=n).astype(np.float32)
-    band = build_band(s, r, n, real, deg, tile=128,
+    band = build_band(s, r, n, real, deg, tile=tile,
                       components=("bias_noself", "geo", "edge"),
                       edge_feat=feat, node_pos=pos)
     assert (band.geo is not None) == geometric
@@ -990,3 +993,93 @@ def test_transformer_train_step_card_matches_cpu(card, tmp_path, edge,
     if edge:
         want.update(transformer_project=2, fold_project_bwd=4)
     assert {k: v for k, v in _build.LAUNCHES.items() if v} == want
+
+
+# ------------------------------------------ rows 5 and 11 as redesigned
+@pytest.mark.parametrize("heads,c", [(4, 256), (2, 64), (8, 32), (3, 304),
+                                    (6, 20)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("width", [60, 100])
+@pytest.mark.parametrize("mean", [True, False], ids=["mean", "per_head"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gat_bwd_passes_match_plain(card, dtype, mean, width, rate, heads, c):
+    """Row 5's receiver pass (the planes of round(ẽ) and round(dpre)) and
+    sender pass (their sums, no recompute) against the plain version at
+    C 256 (one 16-byte chunk per lane and head row in bf16, two in f32),
+    C 64 and 32 (lanes past C idle), C 304 (two column blocks, the second
+    partial) and 20 (8-byte chunks in bf16), heads 2, 3, 4, 6, 8 (head
+    groups of 4, the last partial); the same bits call after call."""
+    n = 640
+    gen = torch.Generator().manual_seed(11)
+    dt = getattr(torch, dtype)
+    z = (0.5 * torch.randn(n, heads * c, generator=gen)).to(card, dt)
+    alphas = torch.randn(n, 2 * heads, generator=gen).to(card)
+    g = torch.randn(n, c if mean else heads * c, generator=gen).to(card, dt)
+    mask = _band(n, width).to(card)
+    seed = _seed(card) if rate else None
+    args = (mask, z, alphas, g, heads, 0.2, rate, seed)
+    _build.reset_launches()
+    dz, da = banded_gat_bwd(*args, mean_expand=mean,
+                            mask_t=transpose_mask(mask))
+    dz2, da2 = banded_gat_bwd(*args, mean_expand=mean,
+                              mask_t=transpose_mask(mask))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["banded_gat_bwd"] == 2
+    assert torch.equal(dz, dz2) and torch.equal(da, da2)
+    ref_dz, ref_da = banded_gat_bwd_plain(*args, mean_expand=mean)
+    assert dz.dtype == dt and da.dtype == torch.float32
+    _close(dz, ref_dz, KTOL[dtype])
+    _close(da, ref_da, 1e-4 if dtype == "float32" else 1e-2)
+
+
+def test_gat_bwd_rejects_what_the_passes_do_not_take(card):
+    n, c = 256, 64
+    mask = _band(n, 60).to(card)
+    g = torch.zeros(n, c, device=card)
+    z = torch.zeros(n, 4 * 6, device=card)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        banded_gat_bwd(mask, z, torch.zeros(n, 8, device=card),
+                       torch.zeros(n, 6, device=card), 4,
+                       mask_t=transpose_mask(mask))
+    z = torch.zeros(n, 4 * c, device=card)
+    with pytest.raises(ValueError, match="shape"):
+        banded_gat_bwd(mask, z, torch.zeros(n, 8, device=card), g, 4,
+                       mask_t=mask)
+
+
+@pytest.mark.parametrize("n,heads,c,f,tile,width", [
+    (512, 4, 256, 256, 128, 60),   # the flagship widths: a tile is one head
+    (400, 4, 256, 200, 16, 20),    # ragged N, F not a multiple of the K step
+    (512, 2, 64, 64, 128, 60),     # H·C 128: one tile, half past the weight
+    (2048, 4, 256, 256, 128, 60),  # 192 tiles on 132 SMs: blocks loop
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_transformer_fused_projection_shapes(card, dtype, n, heads, c, f,
+                                             tile, width):
+    """Row 11 with its projection on gemm_sm90.cuh (bf16: wgmma fed by TMA
+    from the three weights; f32: its SIMT tiles) against the plain version
+    at the tolerances of ``test_transformer_fused_kernel_matches_plain``."""
+    band, pad = _tr_band(n, width, geometric=True, seed=2, tile=tile)
+    band = band.to(card)
+    gen = torch.Generator().manual_seed(12)
+    dt = getattr(torch, dtype)
+    x = torch.randn(n, f, generator=gen).to(card, dt)
+    ws = [(torch.randn(f, heads * c, generator=gen) * f ** -0.5).to(card, dt)
+          for _ in range(3)]
+    bs = [(0.1 * torch.randn(heads * c, generator=gen)).to(card, dt)
+          for _ in range(3)]
+    w_e = torch.randn(4, heads, c, generator=gen) * 0.5
+    wblk = (torch.eye(heads)[:, None, :, None] * w_e.permute(1, 2, 0)[:, :, None, :]
+            ).reshape(heads * c, heads * 4).to(card, dt)
+    args = (band.bias_noself, band.geo, band.pos, x, *ws, *bs, wblk, heads)
+    _build.reset_launches()
+    out, s = banded_transformer_geo_mean_fused(*args)
+    out2, s2 = banded_transformer_geo_mean_fused(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["banded_transformer_geo_mean_fused"] == 2
+    assert torch.equal(out, out2) and torch.equal(s, s2)
+    ref, ref_s = banded_transformer_geo_mean_fused_plain(*args)
+    _close(out, ref, 1e-4 if dtype == "float32" else 2e-2)
+    _check_s(band, s, ref_s, 1e-4 if dtype == "float32" else 2e-2)
+    padding = torch.from_numpy(pad).to(card)
+    assert (out[padding] == 0).all() and (s[padding] == 0).all()
