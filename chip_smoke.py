@@ -24,7 +24,8 @@ Phases (any failure raises and exits non-zero):
    time, its device time (replayed as a CUDA graph) and a torch.profiler
    breakdown by kernel with the card's idle share;
 5. kernel 1 in its training form (attention dropout 0.1, z emitted) against
-   its plain version on both bands, in f32 and bf16;
+   its plain version on both bands, in f32 and bf16, timed beside one
+   ``torch.matmul(x, W)``, its projection's yardstick;
 6. the GAT backward, rows 5 and 6 (``banded_gat_bwd``, ``fold_project_bwd``)
    through the autograd op at the flagship width (F 256, H 4, C 256) on both
    bands, f32 and bf16, dropout 0 and 0.1: (dW, dWa, dx) against the op run
@@ -584,12 +585,15 @@ def check_gat_train(graph, dtype_name, gen):
     flops = 2 * n * f * hc + 2 * nnz * hc
     peak = H100_BF16_FLOPS if dt == torch.bfloat16 else H100_FP32_FLOPS
     bound_ms, bound_by = bound(nbytes, flops, peak)
+    # the projection's yardstick: one torch.matmul of x by W (the
+    # attention has no single PyTorch call)
+    library_ms = graph_time_ms(lambda: torch.matmul(x, w))
     log(f"kernel1 training form {dtype_name} dropout {DROPOUT} Wcols "
         f"{mask.shape[-1]}: max_abs_err {err:.3e} (z {z_err:.3e}) ms "
         f"{ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.5f} "
-        f"({bound_by})")
+        f"({bound_by}) library_ms (torch.matmul(x, W)) {library_ms:.4f}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by, library_ms=library_ms)
 
 
 def check_gat_bwd(graph, dtype_name, rate, gen, measure):
@@ -2348,8 +2352,7 @@ def main() -> int:
         dict(name="banded_gat_mean_fused", route="cuda",
              source="gnn_bfs_rans_tpu_torch/csrc/banded_gat.cu",
              replaces="gnn_bfs_rans_tpu/kernels/banded.py:991",
-             launches=launches.get("banded_gat_mean_fused", 0),
-             library_ms=None, **gat),
+             launches=launches.get("banded_gat_mean_fused", 0), **gat),
         dict(name="fused_epilogue_fwd", route="triton",
              source="gnn_bfs_rans_tpu_torch/kernels/epilogue.py",
              replaces="gnn_bfs_rans_tpu/kernels/epilogue.py:217",

@@ -31,22 +31,25 @@
 // it to the backward (the TPU kernel's emit_z residual) at no extra cost.
 //
 // What bounds it on an H100: the projection, 2·N·F·H·C operations (6.3
-// GFLOP per layer at N 12,032, F 256, H 4, C 256), is the only dense work.
-// The attention is a sparse product: the band mask holds ~5 entries per row
-// of 256-640 columns, so the work this data needs is 2·nnz·H·C operations.
-// The TPU kernel computes the whole [T, Wcols] plane because its matrix unit
-// has no gather; here one warp per receiver row compacts the row's mask to
-// its nonzero columns (a ballot), computes only those logits, and gathers
-// only those z rows, so the dense plane is never formed.  The projection is
-// a shared-memory-tiled GEMM (gemm.cuh): on the tensor cores (warp mma, f32
-// accumulate) in bf16, and in true f32 FMA on the SIMT units in f32 (the f32
-// path must not use TF32, matching the TPU kernel's Precision.HIGHEST).
-// Unlike the TPU kernel, z makes one round trip through device memory
-// (N·H·C·dtype bytes: 24.6 MB per layer at the flagship shape in bf16);
-// keeping z on chip, and wgmma/TMA for the projection, are later work.
-// Row 4 has no projection: it reads z, the mask, α and writes out (34.3 MB
-// per layer at the flagship shape in bf16 for the head mean, 52.7 MB for
-// concat, whose output is H times wider), so it is bound by bytes.
+// GFLOP per layer at N 12,032, F 256, H 4, C 256), is the only dense work:
+// 6.4 µs at 989 TFLOP/s in bf16, about as long as writing z (24.6 MB, 7.3
+// µs at 3.35 TB/s).  It runs on gemm_sm90.cuh's forward projection with one
+// weight and no bias: in bf16 persistent blocks, TMA-fed m64n256 wgmmas,
+// tiles staged in shared memory and written by TMA stores; in f32 its SIMT
+// tiles in true f32 FMA (no TF32, the TPU kernel's Precision.HIGHEST).  z
+// makes one round trip through device memory.  The attention
+// is a sparse product: the band mask holds ~5 entries per row of 256–640
+// columns, so the work this data needs is 2·nnz·H·C operations, far below
+// the bytes it moves (z, α, the mask, out: 34.3 MB per layer at the
+// flagship shape in bf16 for the head mean, 52.7 MB for concat), and a
+// row's time is load latency: each receiver gathers the z rows of its
+// senders.  One warp per receiver row compacts the mask row from 4-byte
+// words by a warp prefix sum (no serial scan), loads each sender's source
+// α of a head group at once (one 16-byte load at H 4), forms the logits
+// of all heads lane-parallel over senders, and then keeps the z chunks of
+// several senders and all heads of a group in flight (16-byte loads)
+// before it sums any of them; the dense [T, Wcols] plane of the TPU kernel
+// is never formed.  Row 4 has no projection and runs the attention alone.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,174 +58,293 @@
 
 #include "band_common.cuh"
 #include "dropout.cuh"
-#include "gemm.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
-// ----------------------------------------------------------------- attention
-// One warp per receiver row, 8 rows per block; blockIdx.y picks a chunk of
-// 256 output columns.  A lane covers 4 adjacent columns in each of 2 groups
-// (4·lane + 128·g + q), read and written as one 8-byte (bf16) or 16-byte
-// (f32) access; C must be a multiple of 4.  Per warp, shared memory holds
-// the row's compacted sender list and its probabilities.
-constexpr int ROWS_PER_BLOCK = 8;
-constexpr int GROUPS = 2;
-constexpr int COLS_PER_LANE = 4 * GROUPS;
-constexpr int COL_CHUNK = 32 * COLS_PER_LANE;
-
-using band::load4;
+using band::Chunk;
+using band::compact;
+using band::load_flags;
+using band::load_row;
 using band::mm_round;
-using band::store4;
-using band::warp_max;
-using band::warp_sum;
+using band::warp_maxs;
+using band::warp_sums;
 
-// DROP: training form (seed non-null); the eval form carries no hash code.
+// ----------------------------------------------------------------- attention
+// One warp per receiver row, up to MAX_WARPS rows per block (fewer when a
+// row's shared memory does not fit that often).  Heads go in groups of
+// HG, a head row's columns in blocks of CB (8 a lane in bf16: one 16-byte
+// access; 4 a lane twice in f32, and in bf16 when C is not a multiple of
+// 8); each lane keeps IN_FLIGHT such accesses of z in flight, so a batch
+// holds U = IN_FLIGHT / (HG·accesses per head) senders (2 at the
+// flagship).  The launch bounds hold a thread to 80 registers, so that
+// MIN_BLOCKS blocks (24 warps) share an SM: more rows in flight beat more
+// senders per row (on the H100, 16 accesses a lane at 128 registers and
+// 16 warps took 30.9 µs against 24.2 at the flagship shape,
+// kernels/rowtime.py).  The form with one full group
+// and one block (H 4, C ≤ 256, the flagship) is compiled with those
+// counts fixed.
+constexpr int MAX_WARPS = 4;
+constexpr int MIN_BLOCKS = 6;
+constexpr int SMEM_MAX = 227 * 1024;
+constexpr int MAX_WGROUPS = 6;  // a mask row: Wcols ≤ 768, in 128-byte groups
+constexpr int HG = 4;
+constexpr int CB = 256;
+constexpr int IN_FLIGHT = 8;
+
+template <typename T>
+struct GatArgs {
+  const int8_t* mask;    // [n_tiles, T, Wcols]
+  const float* alphas;   // [n_pad, 2H]: src | dst
+  const T* z;            // [n_pad, H·C]
+  T* out;                // [n_pad, C], or [n_pad, H·C] (CONCAT)
+  int n_pad, heads, C, tile, wcols;
+  float slope;
+  Drop drop;
+};
+
+// 4-byte words of shared memory per warp: the compacted window columns,
+// the probabilities of every head, the 1/denominators
+__host__ __device__ inline int gat_words(int wcols, int heads) {
+  return wcols * (1 + heads) + heads;
+}
+
 // CONCAT: each head's output written to its own C columns (row 4's concat
 // form); else the head mean.
-template <typename T, bool DROP, bool CONCAT>
-__global__ void __launch_bounds__(32 * ROWS_PER_BLOCK) gat_attention_kernel(
-    const int8_t* __restrict__ mask,    // [n_tiles, T, Wcols]
-    const float* __restrict__ alphas,   // [n_pad, 2H]: src | dst
-    const T* __restrict__ z,            // [n_pad, H·C]
-    T* __restrict__ out,                // [n_pad, C], or [n_pad, H·C] (CONCAT)
-    int n_pad, int heads, int C, int tile, int wcols, float slope,
-    const int* __restrict__ seed, uint32_t thresh, float inv_keep) {
+template <typename T, int V, bool EXACT, bool CONCAT>
+__global__ void __launch_bounds__(32 * MAX_WARPS, MIN_BLOCKS)
+    gat_attention_kernel(const GatArgs<T> a) {
+  using Ch = Chunk<T, V>;
+  using R = typename Ch::raw;
+  constexpr int NG = CB / (32 * V), MC = V * NG;
+  constexpr int U = IN_FLIGHT / (HG * NG) > 0 ? IN_FLIGHT / (HG * NG) : 1;
   extern __shared__ unsigned char smem[];
+  const int heads = EXACT ? HG : a.heads, C = a.C;
+  const int blocks = EXACT ? 1 : (C + CB - 1) / CB;
+  const int wcols = a.wcols, tile = a.tile;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * ROWS_PER_BLOCK + warp;
-  if (row >= n_pad) return;  // whole warp: no block-wide barrier below
-  int* idx = reinterpret_cast<int*>(smem) + warp * 2 * wcols;
-  float* pw = reinterpret_cast<float*>(idx + wcols);
+  const int row = blockIdx.x * (blockDim.x / 32) + warp;
+  if (row >= a.n_pad) return;  // whole warp: no block-wide barrier below
+  int* idx = reinterpret_cast<int*>(smem) + (size_t)warp * gat_words(wcols, heads);
+  float* pw = reinterpret_cast<float*>(idx + wcols);  // [heads][wcols]
+  float* invs = pw + (size_t)heads * wcols;           // [heads]
 
-  const int t = row / tile;
+  const int t = row / tile, r = row % tile;
   const int s0 = t * tile - (wcols - tile) / 2;
-  const int8_t* mrow = mask + (size_t)row * wcols;  // [t, row % T] row
-  // dropout stream of receiver tile t over its [H·T, Wcols] plane
-  const uint32_t sv = DROP ? (uint32_t)seed[0] + (uint32_t)t : 0u;
+  // the mask row in 4-byte words, compacted to its in-range nonzero window
+  // columns in ascending order by a warp prefix sum
+  uint32_t mw[MAX_WGROUPS];
+  load_flags<MAX_WGROUPS>(a.mask + (size_t)row * wcols, wcols, lane, mw);
+  const int cnt = compact<MAX_WGROUPS>(
+      mw, wcols, lane, idx, 0,
+      [&](int j) { return s0 + j >= 0 && s0 + j < a.n_pad; },
+      [](int j) { return j; });
+  __syncwarp();
 
-  // compact the mask row to its in-range nonzero sender rows (in order)
-  int cnt = 0;
-  for (int base = 0; base < wcols; base += 32) {
-    const int j = base + lane;
-    const int s = s0 + j;
-    const bool on = j < wcols && s >= 0 && s < n_pad && mrow[j] != 0;
-    const unsigned bal = __ballot_sync(0xffffffffu, on);
-    if (on) idx[cnt + __popc(bal & ((1u << lane) - 1u))] = s;
-    cnt += __popc(bal);
+  // U senders' z chunks of one head group and column block, all loads
+  // issued before any is used (the batch's tail repeats its last sender)
+  const int hc = heads * C;
+  auto load_batch = [&](int hg0, int cb, int k0, R (&buf)[U][HG][NG]) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int s = s0 + idx[k0 + u < cnt ? k0 + u : cnt - 1];
+#pragma unroll
+      for (int h = 0; h < HG; ++h)
+        load_row<T, V, NG>(a.z + (size_t)s * hc + (size_t)(hg0 + h) * C, cb, C, lane,
+                           hg0 + h < heads, buf[u][h]);
+    }
+  };
+
+  // per head group, lanes over senders: the logits of every head from one
+  // load of the sender's source α, the softmax, the dropout (stream seed +
+  // t over tile t's [H·T, Wcols] plane), round(ẽ)
+  const int two_h = 2 * heads;
+  const uint32_t sv = a.drop.seed != nullptr ? (uint32_t)a.drop.seed[0] + (uint32_t)t : 0u;
+  for (int hg0 = 0; hg0 < heads; hg0 += HG) {
+    float ad[HG], mx[HG];
+#pragma unroll
+    for (int h = 0; h < HG; ++h) {
+      ad[h] = hg0 + h < heads ? a.alphas[(size_t)row * two_h + heads + hg0 + h] : 0.f;
+      mx[h] = -CUDART_INF_F;
+    }
+    for (int kk = lane; kk < cnt; kk += 32) {
+      const float* as = a.alphas + (size_t)(s0 + idx[kk]) * two_h + hg0;
+      float src[HG];
+      if (EXACT) {
+        const float4 v4 = *reinterpret_cast<const float4*>(as);
+        src[0] = v4.x; src[1] = v4.y; src[2] = v4.z; src[3] = v4.w;
+      } else {
+#pragma unroll
+        for (int h = 0; h < HG; ++h) src[h] = hg0 + h < heads ? as[h] : 0.f;
+      }
+#pragma unroll
+      for (int h = 0; h < HG; ++h) {
+        if (hg0 + h >= heads) continue;
+        float l = ad[h] + src[h];
+        l = l >= 0.f ? l : a.slope * l;
+        pw[(hg0 + h) * wcols + kk] = l;
+        mx[h] = fmaxf(mx[h], l);
+      }
+    }
+    warp_maxs<HG>(mx);
+    float sum[HG];
+#pragma unroll
+    for (int h = 0; h < HG; ++h) sum[h] = 0.f;
+    for (int kk = lane; kk < cnt; kk += 32) {
+      const uint32_t j = (uint32_t)idx[kk];
+#pragma unroll
+      for (int h = 0; h < HG; ++h) {
+        if (hg0 + h >= heads) continue;
+        float* pp = pw + (hg0 + h) * wcols + kk;
+        const float e = expf(*pp - mx[h]);
+        sum[h] += e;  // the denominator is fixed before dropout
+        float p = e;
+        if (a.drop.seed != nullptr)
+          p = dropout_hash(sv, (uint32_t)((hg0 + h) * tile + r) * (uint32_t)wcols + j)
+                      >= a.drop.thresh
+                  ? e * a.drop.inv_keep : 0.f;
+        *pp = mm_round<T>(p);
+      }
+    }
+    warp_sums<HG>(sum);
+    if (lane == 0)
+#pragma unroll
+      for (int h = 0; h < HG; ++h)
+        if (hg0 + h < heads) invs[hg0 + h] = 1.f / fmaxf(sum[h], 1e-16f);
   }
   __syncwarp();
 
-  const int hc = heads * C;
-  const int two_h = 2 * heads;
-  const int c_base = blockIdx.y * COL_CHUNK;
-  float total[COLS_PER_LANE];
-#pragma unroll
-  for (int j = 0; j < COLS_PER_LANE; ++j) total[j] = 0.f;
-
-  for (int h = 0; h < heads; ++h) {
-    const float ad = alphas[(size_t)row * two_h + heads + h];
-    float mx = -CUDART_INF_F;
-    for (int k = lane; k < cnt; k += 32) {
-      float a = ad + alphas[(size_t)idx[k] * two_h + h];
-      a = a >= 0.f ? a : slope * a;
-      pw[k] = a;
-      mx = fmaxf(mx, a);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    const uint32_t plane_row = (uint32_t)(h * tile + row % tile) * (uint32_t)wcols;
-    for (int k = lane; k < cnt; k += 32) {
-      const float e = expf(pw[k] - mx);
-      sum += e;  // the denominator is fixed before dropout
-      float p = e;
-      if (DROP)
-        p = dropout_hash(sv, plane_row + (uint32_t)(idx[k] - s0)) >= thresh
-                ? e * inv_keep : 0.f;
-      pw[k] = mm_round<T>(p);
-    }
-    sum = warp_sum(sum);
-    __syncwarp();
-    const float inv = 1.f / fmaxf(sum, 1e-16f);
-
-    float acc[COLS_PER_LANE];
-#pragma unroll
-    for (int j = 0; j < COLS_PER_LANE; ++j) acc[j] = 0.f;
-    for (int k = 0; k < cnt; ++k) {
-      const float p = pw[k];
-      const T* zr = z + (size_t)idx[k] * hc + (size_t)h * C;
-#pragma unroll
-      for (int g = 0; g < GROUPS; ++g) {
-        const int c = c_base + 4 * lane + 128 * g;
-        if (c < C) {
-          float v[4];
-          load4(zr + c, v);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[4 * g + q] = fmaf(p, v[q], acc[4 * g + q]);
-        }
-      }
-    }
-    if (CONCAT) {
-#pragma unroll
-      for (int g = 0; g < GROUPS; ++g) {
-        const int c = c_base + 4 * lane + 128 * g;
-        if (c < C) {
-          float v[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) v[q] = acc[4 * g + q] * inv;
-          store4(out + (size_t)row * hc + (size_t)h * C + c, v);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < COLS_PER_LANE; ++j) total[j] += acc[j] * inv;
-    }
-    __syncwarp();  // pw is rewritten by the next head
-  }
-  if (CONCAT) return;
-
+  // out: per column block and head group, U senders' z chunks of all the
+  // group's heads in flight, summed in ascending sender order; the head
+  // mean sums the heads in order
   const float inv_heads = 1.f / (float)heads;
+  for (int b = 0; b < blocks; ++b) {
+    const int cb = b * CB;
+    float total[MC];
 #pragma unroll
-  for (int g = 0; g < GROUPS; ++g) {
-    const int c = c_base + 4 * lane + 128 * g;
-    if (c < C) {
-      float v[4];
+    for (int e = 0; e < MC; ++e) total[e] = 0.f;
+    for (int hg0 = 0; hg0 < heads; hg0 += HG) {
+      float acc[HG][MC];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) v[q] = total[4 * g + q] * inv_heads;
-      store4(out + (size_t)row * C + c, v);
+      for (int h = 0; h < HG; ++h)
+#pragma unroll
+        for (int e = 0; e < MC; ++e) acc[h][e] = 0.f;
+      R zb[U][HG][NG];
+      for (int k0 = 0; k0 < cnt; k0 += U) {
+        load_batch(hg0, cb, k0, zb);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (k0 + u >= cnt) break;
+#pragma unroll
+          for (int h = 0; h < HG; ++h) {
+            const float p = hg0 + h < heads ? pw[(hg0 + h) * wcols + k0 + u] : 0.f;
+#pragma unroll
+            for (int gi = 0; gi < NG; ++gi) {
+              float zv[V];
+              Ch::unpack(zb[u][h][gi], zv);
+#pragma unroll
+              for (int e = 0; e < V; ++e)
+                acc[h][V * gi + e] = fmaf(p, zv[e], acc[h][V * gi + e]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < HG; ++h) {
+        if (hg0 + h >= heads) continue;
+        const float iv = invs[hg0 + h];
+        if (CONCAT) {
+#pragma unroll
+          for (int gi = 0; gi < NG; ++gi) {
+            const int c = cb + V * lane + 32 * V * gi;
+            if (c < C) {
+              float o[V];
+#pragma unroll
+              for (int e = 0; e < V; ++e) o[e] = acc[h][V * gi + e] * iv;
+              *reinterpret_cast<R*>(a.out + (size_t)row * hc + (size_t)(hg0 + h) * C + c) =
+                  Ch::pack(o);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < MC; ++e) total[e] += acc[h][e] * iv;
+        }
+      }
     }
+    if (!CONCAT) {
+#pragma unroll
+      for (int gi = 0; gi < NG; ++gi) {
+        const int c = cb + V * lane + 32 * V * gi;
+        if (c < C) {
+          float o[V];
+#pragma unroll
+          for (int e = 0; e < V; ++e) o[e] = total[V * gi + e] * inv_heads;
+          *reinterpret_cast<R*>(a.out + (size_t)row * C + c) = Ch::pack(o);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int V, bool EXACT, bool CONCAT>
+int run(const GatArgs<T>& a, cudaStream_t stream) {
+  const size_t per_warp = (size_t)4 * gat_words(a.wcols, a.heads);
+  if (a.heads < 1 || a.wcols % 4 || a.wcols > 128 * MAX_WGROUPS
+      || per_warp > (size_t)SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  const size_t fit = (size_t)SMEM_MAX / per_warp;
+  const int warps = fit < (size_t)MAX_WARPS ? (int)fit : MAX_WARPS;
+  const size_t smem = (size_t)warps * per_warp;
+  auto kernel = gat_attention_kernel<T, V, EXACT, CONCAT>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(a.n_pad + warps - 1) / warps, 32 * warps, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// 16-byte accesses, or 8-byte ones for a bf16 C that is not a multiple of
+// 8; the fixed-count form when the heads fill one group and C one block
+template <typename T, bool CONCAT>
+int attention_v(const GatArgs<T>& a, cudaStream_t stream) {
+  const bool exact = a.heads == HG && a.C <= CB;
+  if constexpr (sizeof(T) == 2) {
+    if (a.C % 8) return run<T, 4, false, CONCAT>(a, stream);
+    return exact ? run<T, 8, true, CONCAT>(a, stream) : run<T, 8, false, CONCAT>(a, stream);
+  } else {
+    return exact ? run<T, 4, true, CONCAT>(a, stream) : run<T, 4, false, CONCAT>(a, stream);
   }
 }
 
 template <typename T>
 int attention(const int8_t* mask, const float* alphas, const void* z,
               void* out, int n_pad, int heads, int c, int tile, int wcols,
-              float slope, bool concat, const int* seed, uint32_t thresh,
-              float inv_keep, cudaStream_t stream) {
-  dim3 agrid((n_pad + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK,
-             (c + COL_CHUNK - 1) / COL_CHUNK);
-  const size_t smem = (size_t)ROWS_PER_BLOCK * wcols * (sizeof(int) + sizeof(float));
-  auto kernel = concat ? (seed != nullptr ? gat_attention_kernel<T, true, true>
-                                          : gat_attention_kernel<T, false, true>)
-                       : (seed != nullptr ? gat_attention_kernel<T, true, false>
-                                          : gat_attention_kernel<T, false, false>);
-  kernel<<<agrid, 32 * ROWS_PER_BLOCK, smem, stream>>>(
-      mask, alphas, static_cast<const T*>(z), static_cast<T*>(out), n_pad,
-      heads, c, tile, wcols, slope, seed, thresh, inv_keep);
-  return (int)cudaGetLastError();
+              float slope, bool concat, Drop drop, cudaStream_t stream) {
+  const GatArgs<T> a{mask, alphas, static_cast<const T*>(z), static_cast<T*>(out),
+                     n_pad, heads, c, tile, wcols, slope, drop};
+  return concat ? attention_v<T, true>(a, stream) : attention_v<T, false>(a, stream);
 }
 
 template <typename T>
 int launch(const int8_t* mask, const void* w, const float* alphas,
            const void* x, void* z, void* out, int n_pad, int f, int heads,
-           int c, int tile, int wcols, float slope, const int* seed,
-           uint32_t thresh, float inv_keep, cudaStream_t stream) {
-  // z = x·W: A = x [n_pad, F] K-contiguous, B = W [F, H·C] N-contiguous
-  cudaError_t err = gemm::matmul(
-      static_cast<const T*>(x), f, static_cast<const T*>(w), heads * c,
-      static_cast<T*>(z), heads * c, n_pad, heads * c, f, stream);
+           int c, int tile, int wcols, float slope, Drop drop,
+           cudaStream_t stream) {
+  // z = x·W (gemm_sm90.cuh, one weight, no bias); its operands move in
+  // 16-byte chunks
+  if (f % (16 / (int)sizeof(T)) || (heads * c) % (16 / (int)sizeof(T)))
+    return (int)cudaErrorInvalidValue;
+  const T* const ws[1] = {static_cast<const T*>(w)};
+  cudaError_t err;
+  if constexpr (sizeof(T) == 2)
+    err = sm90::run_proj_fwd_bf16(static_cast<const T*>(x), ws, nullptr, 1,
+                                  static_cast<T*>(z), n_pad, f, heads * c, stream);
+  else
+    err = sm90::f32::run_proj_fwd(static_cast<const T*>(x), ws, nullptr, 1,
+                                  static_cast<T*>(z), n_pad, f, heads * c, stream);
   if (err != cudaSuccess) return (int)err;
   return attention<T>(mask, alphas, z, out, n_pad, heads, c, tile, wcols,
-                      slope, false, seed, thresh, inv_keep, stream);
+                      slope, false, drop, stream);
 }
 
 }  // namespace
@@ -241,13 +363,13 @@ int banded_gat_mean_fused_launch(const int8_t* mask, const void* w,
                                  const int* seed, unsigned int thresh,
                                  float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Drop drop{seed, thresh, inv_keep};
   if (dtype == 0)
     return launch<float>(mask, w, alphas, x, z, out, n_pad, f, heads, c, tile,
-                         wcols, slope, seed, thresh, inv_keep, s);
+                         wcols, slope, drop, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(mask, w, alphas, x, z, out, n_pad, f, heads,
-                                 c, tile, wcols, slope, seed, thresh, inv_keep,
-                                 s);
+                                 c, tile, wcols, slope, drop, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -260,14 +382,13 @@ int banded_gat_launch(const int8_t* mask, const float* alphas, const void* z,
                       const int* seed, unsigned int thresh, float inv_keep,
                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Drop drop{seed, thresh, inv_keep};
   if (dtype == 0)
     return attention<float>(mask, alphas, z, out, n_pad, heads, c, tile,
-                            wcols, slope, concat != 0, seed, thresh, inv_keep,
-                            s);
+                            wcols, slope, concat != 0, drop, s);
   if (dtype == 1)
     return attention<__nv_bfloat16>(mask, alphas, z, out, n_pad, heads, c,
-                                    tile, wcols, slope, concat != 0, seed,
-                                    thresh, inv_keep, s);
+                                    tile, wcols, slope, concat != 0, drop, s);
   return (int)cudaErrorInvalidValue;
 }
 

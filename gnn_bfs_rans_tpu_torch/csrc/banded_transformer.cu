@@ -53,16 +53,24 @@
 // What bounds it on an H100: the attention is a sparse product.  The band
 // mask holds ~4 senders per row of 256–640 columns; the TPU kernel computes
 // the whole [T, Wcols] plane per head because its matrix unit has no
-// gather.  Here one warp per receiver row compacts the row's mask to its
-// nonzero columns (a ballot) and touches only those: 2·C operations per
-// sender and head for the logit and 2·C for the value, ≈0.2 GFLOP at the
-// flagship shape, far below the bytes it must move — q, k, v, the mask,
-// out and s, each once, and the edge or geo planes at the mask's nonzeros
-// only: ≈85 MB in bf16 geo form, ≈0.025 ms at 3.35 TB/s.  It is bound by
-// bytes.  The fused form is bound by
-// its projection, 3·2·N·F·H·C operations (18.9 GFLOP per layer, 19 µs at
-// 989 TFLOP/s in bf16), about as much as it writes of q|k|v (73.9 MB, 22
-// µs at 3.35 TB/s).
+// gather.  Here each receiver row touches only its senders: 2·C operations
+// per sender and head for the logit and 2·C for the value, ≈0.2 GFLOP at
+// the flagship shape, far below the bytes it must move — q, k, v, the
+// mask, out and s, each once, and the edge or geo planes at the mask's
+// nonzeros only: ≈85 MB in bf16 geo form, ≈0.025 ms at 3.35 TB/s.  It is
+// bound by bytes, and a row's time by load latency: a receiver gathers
+// the k and v rows of its senders.  So one warp per receiver row compacts
+// its mask row from 4-byte words by a warp prefix sum (senders in
+// ascending window order), stages the head-independent conditioning of
+// the compacted columns (dist, 1/dist and pos_j, or the edge features) in
+// shared memory once, keeps the k chunks of several senders and all heads
+// of a group in flight before it reduces any of them (all their dot
+// products reduced together), forms every head's logits, softmax, dropout
+// and s lane-parallel over senders, and gathers v the same way as k.  The
+// fused form stages wblk's diagonal blocks in shared memory once per block
+// and is bound by its projection, 3·2·N·F·H·C operations (18.9 GFLOP per
+// layer, 19 µs at 989 TFLOP/s in bf16), about as much as it writes of
+// q|k|v (73.9 MB, 22 µs at 3.35 TB/s).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,287 +84,553 @@
 
 namespace {
 
-// One warp per receiver row, 8 rows per block.  A lane covers 4 adjacent
-// columns of a head in each of up to MAX_GROUPS groups of 128
-// (4·lane + 128·g), read as one 8-byte (bf16) or 16-byte (f32) access; C
-// must be a multiple of 4 and at most 512.  Per warp, shared memory holds
-// the row's compacted window columns and their logits / probabilities.
-constexpr int ROWS_PER_BLOCK = 8;
-constexpr int MAX_GROUPS = 4;
-constexpr int MAX_COLS = 4 * MAX_GROUPS;
-constexpr int MAX_DE = 8;
-
-enum Mode { PLAIN = 0, EDGE = 1, GEO = 2 };
-
+using band::Chunk;
+using band::compact;
 using band::load4;
+using band::load_flags;
+using band::load_row;
 using band::mm_round;
 using band::store4;
 using band::to_f;
-using band::warp_max;
+using band::warp_maxs;
 using band::warp_sum;
+using band::warp_sums;
+
+// One warp per receiver row, up to MAX_WARPS rows per block (fewer when
+// a row's shared memory does not fit that often): 4, so that blocks of
+// 45 KB pack an SM four at a time at the flagship shape, and 8 in the
+// fused form, whose block stages wblk first (4 rows a block there took
+// 129 µs against 97 on the H100, kernels/rowtime.py).  Heads go in groups
+// of HG, a head row's columns in blocks of CB, 8 a lane.  v and out move
+// in V-column accesses (bf16: one 16-byte access, or two 8-byte ones when
+// C or the row stride is not a multiple of 8; f32: two 16-byte ones); q
+// and k in VK = 4-column ones (columns 4·lane + 128·g + e), so that each
+// lane's part of a logit's dot product, and so each logit, is the one the
+// kernel's earlier one-sender-at-a-time form computed, bit for bit.  A
+// batch holds U = IN_FLIGHT / (HG·v accesses per head) senders (4 at the
+// flagship: one batch for most rows of a 2-D mesh), whose k or v chunks
+// of all the group's heads a lane loads before it uses any.  The form with one full group and one block (H 4, C ≤ 256, the
+// flagship) is compiled with those counts fixed.
+template <bool FUSED> constexpr int MAX_WARPS = FUSED ? 8 : 4;
+template <bool FUSED> constexpr int MIN_BLOCKS = FUSED ? 2 : 4;
+constexpr int SMEM_MAX = 227 * 1024;
+constexpr int MAX_WGROUPS = 6;  // a mask row: Wcols ≤ 768, in 128-byte groups
+constexpr int MAX_DE = 8;
+constexpr int HG = 4;
+constexpr int CB = 256;
+constexpr int IN_FLIGHT = 16;
+constexpr int VK = 4;
+constexpr int NCOEF = 10;       // per head: 8 coefficients, qself, 1/denominator
+
+enum Mode { PLAIN = 0, EDGE = 1, GEO = 2 };
+
+template <typename T>
+struct TrArgs {
+  const int8_t* mask;   // [n_tiles, T, Wcols]
+  const T* q;           // row i at q + i·ld, heads h·C…
+  const T* k;
+  const T* v;
+  const float* feat;    // EDGE [nt, D, T, Wc]; GEO [nt, 2, T, Wc]
+  const float* pos;     // GEO [n_pad, 4]
+  const T* qw;          // [n_pad, H·D] (FUSED: wblk [H·C, H·4])
+  T* out;               // [n_pad, C] (mean) or [n_pad, H·C]
+  float* s;             // [n_pad, H·D] f32 (EDGE, GEO)
+  int ld, n_pad, heads, C, tile, wcols, edge_dim, mean;
+  float scale;
+  Drop drop;
+};
+
+// features staged per compacted column: GEO dist, invd, pos_j (4); EDGE
+// the D edge features
+template <int MODE>
+__host__ __device__ constexpr int n_feat(int d_e) { return MODE == GEO ? 6 : MODE == EDGE ? d_e : 0; }
+
+// 4-byte words of shared memory per warp: the compacted columns, the
+// logits (then probabilities) of every head, the staged features, the
+// per-head coefficients
+__host__ __device__ inline int warp_words(int wcols, int heads, int nf) {
+  return wcols * (1 + heads + nf) + heads * NCOEF;
+}
+
+// FUSED: wblk's columns per head in shared memory, C padded to whole
+// spans of 32·VK (32 lanes × VK columns)
+__host__ __device__ constexpr int fused_cols(int C) {
+  return (C + 32 * VK - 1) / (32 * VK) * (32 * VK);
+}
 
 // MODE: conditioning.  FUSED (geo only): qw is not given; ``qw`` points at
-// wblk [H·C, H·4] and qw = q·wblk is formed here in f32.
-template <typename T, int MODE, bool FUSED>
-__global__ void __launch_bounds__(32 * ROWS_PER_BLOCK) transformer_kernel(
-    const int8_t* __restrict__ mask,  // [n_tiles, T, Wcols]
-    const T* __restrict__ q,          // row i at q + i·ld, heads h·C…
-    const T* __restrict__ k,
-    const T* __restrict__ v,
-    int ld,
-    const float* __restrict__ feat,   // EDGE [nt, D, T, Wc]; GEO [nt, 2, T, Wc]
-    const float* __restrict__ pos,    // GEO [n_pad, 4]
-    const T* __restrict__ qw,         // [n_pad, H·D] (FUSED: wblk [H·C, H·4])
-    T* __restrict__ out,              // [n_pad, C] (mean) or [n_pad, H·C]
-    float* __restrict__ s_out,        // [n_pad, H·D] f32 (EDGE, GEO)
-    int n_pad, int heads, int C, int tile, int wcols, int edge_dim, int mean,
-    float scale, Drop drop) {
-  extern __shared__ unsigned char smem[];
+// wblk [H·C, H·4], whose diagonal blocks the block stages in shared memory,
+// and qw = q·wblk is formed here in f32.
+template <typename T, int MODE, bool FUSED, int V, bool EXACT>
+__global__ void __launch_bounds__(32 * MAX_WARPS<FUSED>, MIN_BLOCKS<FUSED>)
+    transformer_kernel(const TrArgs<T> a) {
+  using Ch = Chunk<T, V>;
+  using R = typename Ch::raw;
+  using ChK = Chunk<T, VK>;
+  using RK = typename ChK::raw;
+  constexpr int NG = CB / (32 * V), MC = V * NG;   // v and out
+  constexpr int NGK = CB / (32 * VK);              // q and k: MC values too
+  constexpr int U = IN_FLIGHT / (HG * NG) > 0 ? IN_FLIGHT / (HG * NG) : 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int heads = EXACT ? HG : a.heads, C = a.C;
+  const int blocks = EXACT ? 1 : (C + CB - 1) / CB;
+  const int wcols = a.wcols, tile = a.tile;
+  const int d_e = MODE == GEO ? 4 : MODE == EDGE ? a.edge_dim : 0;
+  const int nf = n_feat<MODE>(d_e);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * ROWS_PER_BLOCK + warp;
-  if (row >= n_pad) return;  // whole warp: no block-wide barrier below
-  int* idx = reinterpret_cast<int*>(smem) + warp * 2 * wcols;
-  float* pw = reinterpret_cast<float*>(idx + wcols);
-
-  const int t = row / tile, r = row % tile;
-  const int s0 = t * tile - (wcols - tile) / 2;
-  const int8_t* mrow = mask + (size_t)row * wcols;
-
-  // compact the mask row to its in-range nonzero window columns (in order)
-  int cnt = 0;
-  for (int base = 0; base < wcols; base += 32) {
-    const int j = base + lane;
-    const int s = s0 + j;
-    const bool on = j < wcols && s >= 0 && s < n_pad && mrow[j] != 0;
-    const unsigned bal = __ballot_sync(0xffffffffu, on);
-    if (on) idx[cnt + __popc(bal & ((1u << lane) - 1u))] = j;
-    cnt += __popc(bal);
-  }
-  __syncwarp();
-
-  const int d_e = MODE == GEO ? 4 : MODE == EDGE ? edge_dim : 0;
-  const size_t plane = (size_t)tile * wcols;
-  // row r of receiver tile t in plane 0 of its conditioning planes
-  const float* frow = MODE == PLAIN ? nullptr
-                      : feat + (size_t)t * (MODE == GEO ? 2 : d_e) * plane
-                            + (size_t)r * wcols;
-  float pos_i[4] = {0.f, 0.f, 0.f, 0.f};
-  if (MODE == GEO)
+  // FUSED: wblk's diagonal blocks, [H, wbc, 4]: wblk[h·C + c, 4·h + d]
+  // for column c = 32·VK·span + VK·l + e of head h at slot 32·VK·span +
+  // 32·e + l, so that lane l's reads of column VK·l + e are conflict-free
+  float* wb = reinterpret_cast<float*>(smem);
+  const int wbc = fused_cols(C);
+  if (FUSED) {
+    constexpr int PER = 4;   // rows of wblk a thread loads before it stores
+    for (int i0 = 0; i0 < heads * C; i0 += PER * (int)blockDim.x) {
+      float w4[PER][4];
 #pragma unroll
-    for (int d = 0; d < 4; ++d) pos_i[d] = pos[(size_t)row * 4 + d];
-  const float scale_q = mm_round<T>(scale);
-  const int hc = heads * C;
-
-  float total[MAX_COLS];
+      for (int k = 0; k < PER; ++k) {
+        const int i = i0 + k * blockDim.x + threadIdx.x;
+        if (i < heads * C) load4(a.qw + (size_t)i * 4 * heads + 4 * (i / C), w4[k]);
+      }
 #pragma unroll
-  for (int j = 0; j < MAX_COLS; ++j) total[j] = 0.f;
-
-  for (int h = 0; h < heads; ++h) {
-    float qv[MAX_COLS];
-    const T* qrow = q + (size_t)row * ld + (size_t)h * C;
-#pragma unroll
-    for (int g = 0; g < MAX_GROUPS; ++g) {
-      const int c = 4 * lane + 128 * g;
-      if (c < C) {
-        load4(qrow + c, &qv[4 * g]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) qv[4 * g + e] = 0.f;
+      for (int k = 0; k < PER; ++k) {
+        const int i = i0 + k * blockDim.x + threadIdx.x;
+        if (i < heads * C) {
+          const int h = i / C, c = i % C, w = c % (32 * VK);
+          store4(wb + 4 * (h * wbc + (c - w) + 32 * (w % VK) + w / VK), w4[k]);
+        }
       }
     }
-    // per-head conditioning coefficients
-    float qe[MAX_DE];
-    float qself = 0.f;
-    if (MODE == EDGE) {
+    __syncthreads();
+  }
+  int* idx = reinterpret_cast<int*>(smem) + (FUSED ? 4 * heads * wbc : 0)
+             + (size_t)warp * warp_words(wcols, heads, nf);
+  float* lg = reinterpret_cast<float*>(idx + wcols);  // [heads][wcols]
+  float* fs = lg + (size_t)heads * wcols;             // [nf][wcols]
+  float* coef = fs + (size_t)nf * wcols;              // [heads][NCOEF]
+
+  // one row a warp; FUSED: persistent blocks, whose warps walk the rows
+  // so that one staging of wblk serves many of them (no block-wide
+  // barrier below)
+  for (int row = blockIdx.x * (blockDim.x / 32) + warp; row < a.n_pad;
+       row += gridDim.x * (blockDim.x / 32)) {
+    const int t = row / tile, r = row % tile;
+    const int s0 = t * tile - (wcols - tile) / 2;
+    // the mask row in 4-byte words, compacted to its in-range nonzero window
+    // columns in ascending order by a warp prefix sum
+    uint32_t mw[MAX_WGROUPS];
+    load_flags<MAX_WGROUPS>(a.mask + (size_t)row * wcols, wcols, lane, mw);
+    const int cnt = compact<MAX_WGROUPS>(
+        mw, wcols, lane, idx, 0,
+        [&](int j) { return s0 + j >= 0 && s0 + j < a.n_pad; },
+        [](int j) { return j; });
+    __syncwarp();
+
+    // U senders' chunks of one head group and column block of k or v, all
+    // loads issued before any is used (the batch's tail repeats its last
+    // sender)
+    auto sender = [&](int k0, int u) { return s0 + idx[k0 + u < cnt ? k0 + u : cnt - 1]; };
+    auto load_k = [&](int hg0, int cb, int k0, RK (&buf)[U][HG][NGK]) {
 #pragma unroll
-      for (int d = 0; d < MAX_DE; ++d)
-        qe[d] = d < d_e ? to_f(qw[(size_t)row * heads * d_e + h * d_e + d]) * scale_q
-                        : 0.f;
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int h = 0; h < HG; ++h)
+          load_row<T, VK, NGK>(a.k + (size_t)sender(k0, u) * a.ld + (size_t)(hg0 + h) * C,
+                               cb, C, lane, hg0 + h < heads, buf[u][h]);
+    };
+    auto load_v = [&](int hg0, int cb, int k0, R (&buf)[U][HG][NG]) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int h = 0; h < HG; ++h)
+          load_row<T, V, NG>(a.v + (size_t)sender(k0, u) * a.ld + (size_t)(hg0 + h) * C,
+                             cb, C, lane, hg0 + h < heads, buf[u][h]);
+    };
+    auto load_q = [&](int hg0, int cb, RK (&qr)[HG][NGK]) {
+#pragma unroll
+      for (int h = 0; h < HG; ++h)
+        load_row<T, VK, NGK>(a.q + (size_t)row * a.ld + (size_t)(hg0 + h) * C, cb, C, lane,
+                             hg0 + h < heads, qr[h]);
+    };
+
+    // One round of loads before any is used: the first q chunks, the
+    // head-independent conditioning of the first 32 compacted columns (lane
+    // kk holds column kk's) and the per-head coefficients; then the staging
+    // in shared memory, once per row (and the columns past 32 after it)
+    RK qr[HG][NGK];
+    load_q(0, 0, qr);
+    const size_t plane = (size_t)tile * wcols;
+    const float* frow = MODE == PLAIN ? nullptr
+                        : a.feat + (size_t)t * (MODE == GEO ? 2 : d_e) * plane
+                              + (size_t)r * wcols;
+    float pos_i[4] = {0.f, 0.f, 0.f, 0.f};
+    auto stage = [&](int kk) {   // column kk's features into fs
+      const int j = idx[kk];
+      if (MODE == GEO) {
+        const float dist = frow[j], invd = frow[plane + j];
+        const float4 pj = *reinterpret_cast<const float4*>(a.pos + (size_t)(s0 + j) * 4);
+        fs[kk] = dist;
+        fs[wcols + kk] = invd;
+        fs[2 * wcols + kk] = pj.x;
+        fs[3 * wcols + kk] = pj.y;
+        fs[4 * wcols + kk] = pj.z;
+        fs[5 * wcols + kk] = pj.w;
+      }
+      if (MODE == EDGE) {
+        float f[MAX_DE];
+#pragma unroll
+        for (int d = 0; d < MAX_DE; ++d) f[d] = d < d_e ? frow[d * plane + j] : 0.f;
+#pragma unroll
+        for (int d = 0; d < MAX_DE; ++d)
+          if (d < d_e) fs[d * wcols + kk] = f[d];
+      }
+    };
+    // the coefficients: EDGE qw_d·scale_q, GEO qd = qw_h·scale (FUSED: from
+    // q·wblk below)
+    const int n_coef = MODE == PLAIN || FUSED ? 0 : heads * d_e;
+    const float cscale = MODE == EDGE ? mm_round<T>(a.scale) : a.scale;
+    auto coef_of = [&](int i) { return to_f(a.qw[(size_t)row * n_coef + i]) * cscale; };
+    if (MODE != PLAIN) {
+      if (MODE == GEO) {
+        const float4 p = *reinterpret_cast<const float4*>(a.pos + (size_t)row * 4);
+        pos_i[0] = p.x; pos_i[1] = p.y; pos_i[2] = p.z; pos_i[3] = p.w;
+      }
+      const float c0 = lane < n_coef ? coef_of(lane) : 0.f;
+      if (lane < cnt) stage(lane);
+      if (lane < n_coef) coef[(lane / d_e) * NCOEF + lane % d_e] = c0;
+      for (int kk = lane + 32; kk < cnt; kk += 32) stage(kk);
+      for (int i = lane + 32; i < n_coef; i += 32) coef[(i / d_e) * NCOEF + i % d_e] = coef_of(i);
     }
-    if (MODE == GEO) {
-      float w4[4];
-      if (FUSED) {
-        // qw_h = q_h · wblk[h·C:(h+1)·C, h·4:(h+1)·4], f32
-        float part[4] = {0.f, 0.f, 0.f, 0.f};
+    // GEO: qself = qd·pos_i of each head
+    auto geo_self = [&]() {
+      __syncwarp();
+      for (int h = lane; h < heads; h += 32) {
+        float* cf = coef + h * NCOEF;
+        cf[8] = cf[0] * pos_i[0] + cf[1] * pos_i[1] + cf[2] * pos_i[2] + cf[3] * pos_i[3];
+      }
+    };
+    if (MODE == GEO && !FUSED) geo_self();
+
+    // q·k at every (sender, head): per head group and column block, the q
+    // chunks once, then U senders' k chunks of all the group's heads in
+    // flight and their U·HG dot products reduced together, added to the
+    // earlier blocks' in lg.  FUSED: each block's q·wblk partials reduced
+    // before the k chunks are loaded, summed over the blocks in coef
+    for (int hg0 = 0; hg0 < heads; hg0 += HG) {
+      for (int b = 0; b < blocks; ++b) {
+        const int cb = b * CB;
+        if (hg0 > 0 || b > 0) load_q(hg0, cb, qr);
+        float qf[HG][MC];
 #pragma unroll
-        for (int g = 0; g < MAX_GROUPS; ++g) {
+        for (int h = 0; h < HG; ++h)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = 4 * lane + 128 * g + e;
-            if (c < C) {
-              float wv4[4];
-              load4(qw + (size_t)(h * C + c) * (4 * heads) + 4 * h, wv4);
+          for (int gi = 0; gi < NGK; ++gi) ChK::unpack(qr[h][gi], &qf[h][VK * gi]);
+        if (FUSED) {
+          // wb holds head h's columns of each 32·VK span lane-interleaved:
+          // lane l's column VK·l + e at slot 32·e + l, conflict-free
+          float qwp[4 * HG];
 #pragma unroll
-              for (int d = 0; d < 4; ++d) part[d] = fmaf(qv[4 * g + e], wv4[d], part[d]);
+          for (int i = 0; i < 4 * HG; ++i) qwp[i] = 0.f;
+#pragma unroll
+          for (int h = 0; h < HG; ++h)
+#pragma unroll
+            for (int gi = 0; gi < NGK; ++gi)
+#pragma unroll
+              for (int e = 0; e < VK; ++e) {
+                const int c = cb + VK * lane + 32 * VK * gi + e;
+                if (hg0 + h < heads && c < C) {
+                  const float4 w = *reinterpret_cast<const float4*>(
+                      wb + 4 * ((hg0 + h) * wbc + cb + 32 * VK * gi + 32 * e + lane));
+                  const float x = qf[h][VK * gi + e];
+                  qwp[4 * h] = fmaf(x, w.x, qwp[4 * h]);
+                  qwp[4 * h + 1] = fmaf(x, w.y, qwp[4 * h + 1]);
+                  qwp[4 * h + 2] = fmaf(x, w.z, qwp[4 * h + 2]);
+                  qwp[4 * h + 3] = fmaf(x, w.w, qwp[4 * h + 3]);
+                }
+              }
+          warp_sums<4 * HG>(qwp);
+#pragma unroll
+          for (int i = 0; i < 4 * HG; ++i)
+            if (lane == i && hg0 + i / 4 < heads) {
+              float* d = coef + (hg0 + i / 4) * NCOEF + i % 4;
+              *d = b == 0 ? qwp[i] : *d + qwp[i];
+            }
+        }
+        RK kb[U][HG][NGK];
+        for (int k0 = 0; k0 < cnt; k0 += U) {
+          load_k(hg0, cb, k0, kb);
+          float p[U * HG];
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+#pragma unroll
+            for (int h = 0; h < HG; ++h) {
+              float part = 0.f;
+#pragma unroll
+              for (int gi = 0; gi < NGK; ++gi) {
+                float kv[VK];
+                ChK::unpack(kb[u][h][gi], kv);
+#pragma unroll
+                for (int e = 0; e < VK; ++e) part = fmaf(qf[h][VK * gi + e], kv[e], part);
+              }
+              p[u * HG + h] = part;
+            }
+          warp_sums<U * HG>(p);
+#pragma unroll
+          for (int i = 0; i < U * HG; ++i) {
+            const int k = k0 + i / HG, h = hg0 + i % HG;
+            if (lane == i && k < cnt && h < heads) {
+              float* d = lg + h * wcols + k;
+              *d = b == 0 ? p[i] : *d + p[i];
+            }
+          }
+        }
+      }
+    }
+    if (FUSED) {
+      __syncwarp();
+      for (int i = lane; i < heads * 4; i += 32) coef[(i / 4) * NCOEF + i % 4] *= a.scale;
+      geo_self();
+    }
+    __syncwarp();
+
+    // per head group, lanes over senders: the logits from the dot products
+    // and the staged conditioning, the softmax, the dropout, s
+    const uint32_t sv = a.drop.seed != nullptr ? (uint32_t)a.drop.seed[0] + (uint32_t)t : 0u;
+    for (int hg0 = 0; hg0 < heads; hg0 += HG) {
+      float mx[HG];
+#pragma unroll
+      for (int h = 0; h < HG; ++h) mx[h] = -CUDART_INF_F;
+      for (int kk = lane; kk < cnt; kk += 32) {
+        float dist = 0.f, invd = 0.f, pj[4] = {0.f, 0.f, 0.f, 0.f};
+        if (MODE == GEO) {
+          dist = fs[kk];
+          invd = fs[wcols + kk];
+#pragma unroll
+          for (int d = 0; d < 4; ++d) pj[d] = fs[(2 + d) * wcols + kk];
+        }
+#pragma unroll
+        for (int h = 0; h < HG; ++h) {
+          if (hg0 + h >= heads) continue;
+          const float* cf = coef + (hg0 + h) * NCOEF;
+          float* lp = lg + (hg0 + h) * wcols + kk;
+          float l = *lp * a.scale;
+          if (MODE == EDGE) {
+#pragma unroll
+            for (int d = 0; d < MAX_DE; ++d)
+              if (d < d_e) l += cf[d] * fs[d * wcols + kk];
+          }
+          if (MODE == GEO) {
+            const float qpos = cf[0] * pj[0] + cf[1] * pj[1] + cf[2] * pj[2] + cf[3] * pj[3];
+            l = l + (cf[8] - qpos) * invd + cf[3] * dist;
+          }
+          *lp = l;
+          mx[h] = fmaxf(mx[h], l);
+        }
+      }
+      warp_maxs<HG>(mx);
+      float sum[HG];
+#pragma unroll
+      for (int h = 0; h < HG; ++h) sum[h] = 0.f;
+      for (int kk = lane; kk < cnt; kk += 32)
+#pragma unroll
+        for (int h = 0; h < HG; ++h) {
+          if (hg0 + h >= heads) continue;
+          float* lp = lg + (hg0 + h) * wcols + kk;
+          const float e = expf(*lp - mx[h]);
+          sum[h] += e;
+          *lp = e;
+        }
+      warp_sums<HG>(sum);
+      float inv[HG];
+#pragma unroll
+      for (int h = 0; h < HG; ++h) inv[h] = 1.f / fmaxf(sum[h], 1e-16f);
+      if (a.drop.seed != nullptr) {
+        // the dropped ẽ replaces e in the value product and in s
+        for (int kk = lane; kk < cnt; kk += 32) {
+          const uint32_t flat = (uint32_t)r * (uint32_t)wcols + (uint32_t)idx[kk];
+#pragma unroll
+          for (int h = 0; h < HG; ++h) {
+            if (hg0 + h >= heads) continue;
+            float* lp = lg + (hg0 + h) * wcols + kk;
+            *lp = dropout_hash(sv, flat, (uint32_t)(hg0 + h)) >= a.drop.thresh
+                      ? *lp * a.drop.inv_keep : 0.f;
+          }
+        }
+      }
+      if (lane == 0)
+#pragma unroll
+        for (int h = 0; h < HG; ++h)
+          if (hg0 + h < heads) coef[(hg0 + h) * NCOEF + 9] = inv[h];
+
+      // s: the attention-weighted raw features, unrounded ẽ
+      if (MODE == GEO) {
+        // t0 = Σẽ·invd, t1..3 = Σẽ·invd·pos_j, s3 = Σẽ·dist of each head
+        float ts[5 * HG];
+#pragma unroll
+        for (int i = 0; i < 5 * HG; ++i) ts[i] = 0.f;
+        for (int kk = lane; kk < cnt; kk += 32) {
+          const float dist = fs[kk], invd = fs[wcols + kk];
+          const float p0 = fs[2 * wcols + kk], p1 = fs[3 * wcols + kk], p2 = fs[4 * wcols + kk];
+#pragma unroll
+          for (int h = 0; h < HG; ++h) {
+            if (hg0 + h >= heads) continue;
+            const float e = lg[(hg0 + h) * wcols + kk];
+            const float ew = e * invd;
+            float* tt = ts + 5 * h;
+            tt[0] += ew;
+            tt[1] = fmaf(ew, p0, tt[1]);
+            tt[2] = fmaf(ew, p1, tt[2]);
+            tt[3] = fmaf(ew, p2, tt[3]);
+            tt[4] = fmaf(e, dist, tt[4]);
+          }
+        }
+        warp_sums<5 * HG>(ts);
+        if (lane == 0)
+#pragma unroll
+          for (int h = 0; h < HG; ++h) {
+            if (hg0 + h >= heads) continue;
+            const float* tt = ts + 5 * h;
+            float* srow = a.s + (size_t)row * heads * 4 + (hg0 + h) * 4;
+            srow[0] = (pos_i[0] * tt[0] - tt[1]) * inv[h];
+            srow[1] = (pos_i[1] * tt[0] - tt[2]) * inv[h];
+            srow[2] = (pos_i[2] * tt[0] - tt[3]) * inv[h];
+            srow[3] = tt[4] * inv[h];
+          }
+      }
+      if (MODE == EDGE) {
+#pragma unroll
+        for (int h = 0; h < HG; ++h) {
+          if (hg0 + h >= heads) continue;
+          float* srow = a.s + (size_t)row * heads * d_e + (hg0 + h) * d_e;
+          for (int d = 0; d < d_e; ++d) {
+            float part = 0.f;
+            for (int kk = lane; kk < cnt; kk += 32)
+              part = fmaf(lg[(hg0 + h) * wcols + kk], fs[d * wcols + kk], part);
+            part = warp_sum(part);
+            if (lane == 0) srow[d] = part * inv[h];
+          }
+        }
+      }
+    }
+    __syncwarp();
+
+    // out: per column block and head group, U senders' v chunks of all the
+    // group's heads in flight, summed in ascending sender order with
+    // round(ẽ); the head mean sums the heads in order
+    const int hc = heads * C;
+    const float inv_heads = 1.f / (float)heads;
+    for (int b = 0; b < blocks; ++b) {
+      const int cb = b * CB;
+      float total[MC];
+#pragma unroll
+      for (int e = 0; e < MC; ++e) total[e] = 0.f;
+      for (int hg0 = 0; hg0 < heads; hg0 += HG) {
+        float acc[HG][MC];
+#pragma unroll
+        for (int h = 0; h < HG; ++h)
+#pragma unroll
+          for (int e = 0; e < MC; ++e) acc[h][e] = 0.f;
+        R vb[U][HG][NG];
+        for (int k0 = 0; k0 < cnt; k0 += U) {
+          load_v(hg0, cb, k0, vb);
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (k0 + u >= cnt) break;
+#pragma unroll
+            for (int h = 0; h < HG; ++h) {
+              const float p = hg0 + h < heads ? mm_round<T>(lg[(hg0 + h) * wcols + k0 + u]) : 0.f;
+#pragma unroll
+              for (int gi = 0; gi < NG; ++gi) {
+                float vv[V];
+                Ch::unpack(vb[u][h][gi], vv);
+#pragma unroll
+                for (int e = 0; e < V; ++e)
+                  acc[h][V * gi + e] = fmaf(p, vv[e], acc[h][V * gi + e]);
+              }
             }
           }
         }
 #pragma unroll
-        for (int d = 0; d < 4; ++d) w4[d] = warp_sum(part[d]);
-      } else {
+        for (int h = 0; h < HG; ++h) {
+          if (hg0 + h >= heads) continue;
+          const float iv = coef[(hg0 + h) * NCOEF + 9];
+          if (a.mean) {
 #pragma unroll
-        for (int d = 0; d < 4; ++d) w4[d] = to_f(qw[(size_t)row * heads * 4 + h * 4 + d]);
-      }
+            for (int e = 0; e < MC; ++e) total[e] += acc[h][e] * iv;
+          } else {
 #pragma unroll
-      for (int d = 0; d < 4; ++d) qe[d] = w4[d] * scale;
-      qself = qe[0] * pos_i[0] + qe[1] * pos_i[1] + qe[2] * pos_i[2] + qe[3] * pos_i[3];
-    }
-
-    // logits at the compacted columns: a lane-split dot product, reduced
-    float mx = -CUDART_INF_F;
-    for (int kk = 0; kk < cnt; ++kk) {
-      const int j = idx[kk];
-      const int s = s0 + j;
-      const T* krow = k + (size_t)s * ld + (size_t)h * C;
-      float part = 0.f;
+            for (int gi = 0; gi < NG; ++gi) {
+              const int c = cb + V * lane + 32 * V * gi;
+              if (c < C) {
+                float o[V];
 #pragma unroll
-      for (int g = 0; g < MAX_GROUPS; ++g) {
-        const int c = 4 * lane + 128 * g;
-        if (c < C) {
-          float kv[4];
-          load4(krow + c, kv);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part = fmaf(qv[4 * g + e], kv[e], part);
+                for (int e = 0; e < V; ++e) o[e] = acc[h][V * gi + e] * iv;
+                *reinterpret_cast<R*>(a.out + (size_t)row * hc + (size_t)(hg0 + h) * C + c) =
+                    Ch::pack(o);
+              }
+            }
+          }
         }
       }
-      float l = warp_sum(part) * scale;
-      if (MODE == EDGE) {
+      if (a.mean) {
 #pragma unroll
-        for (int d = 0; d < MAX_DE; ++d)
-          if (d < d_e) l += qe[d] * frow[d * plane + j];
-      }
-      if (MODE == GEO) {
-        const float dist = frow[j], invd = frow[plane + j];
-        const float* pj = pos + (size_t)s * 4;
-        const float qpos = qe[0] * pj[0] + qe[1] * pj[1] + qe[2] * pj[2] + qe[3] * pj[3];
-        l = l + (qself - qpos) * invd + qe[3] * dist;
-      }
-      if (lane == 0) pw[kk] = l;  // every lane holds the same l
-      mx = fmaxf(mx, l);
-    }
-    __syncwarp();
-    float sum = 0.f;
-    for (int kk = lane; kk < cnt; kk += 32) {
-      const float e = expf(pw[kk] - mx);
-      sum += e;
-      pw[kk] = e;
-    }
-    sum = warp_sum(sum);
-    __syncwarp();
-    const float inv = 1.f / fmaxf(sum, 1e-16f);
-    if (drop.seed != nullptr) {
-      // the dropped ẽ replaces e in the value product and in s
-      const uint32_t sv = (uint32_t)drop.seed[0] + (uint32_t)t;
-      for (int kk = lane; kk < cnt; kk += 32) {
-        const uint32_t flat = (uint32_t)r * (uint32_t)wcols + (uint32_t)idx[kk];
-        pw[kk] = dropout_hash(sv, flat, (uint32_t)h) >= drop.thresh
-                     ? pw[kk] * drop.inv_keep : 0.f;
-      }
-      __syncwarp();
-    }
-
-    float acc[MAX_COLS];
+        for (int gi = 0; gi < NG; ++gi) {
+          const int c = cb + V * lane + 32 * V * gi;
+          if (c < C) {
+            float o[V];
 #pragma unroll
-    for (int j = 0; j < MAX_COLS; ++j) acc[j] = 0.f;
-    for (int kk = 0; kk < cnt; ++kk) {
-      const float p = mm_round<T>(pw[kk]);
-      const T* vrow = v + (size_t)(s0 + idx[kk]) * ld + (size_t)h * C;
-#pragma unroll
-      for (int g = 0; g < MAX_GROUPS; ++g) {
-        const int c = 4 * lane + 128 * g;
-        if (c < C) {
-          float vv[4];
-          load4(vrow + c, vv);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[4 * g + e] = fmaf(p, vv[e], acc[4 * g + e]);
+            for (int e = 0; e < V; ++e) o[e] = total[V * gi + e] * inv_heads;
+            *reinterpret_cast<R*>(a.out + (size_t)row * C + c) = Ch::pack(o);
+          }
         }
       }
     }
-    if (mean) {
-#pragma unroll
-      for (int j = 0; j < MAX_COLS; ++j) total[j] += acc[j] * inv;
-    } else {
-#pragma unroll
-      for (int g = 0; g < MAX_GROUPS; ++g) {
-        const int c = 4 * lane + 128 * g;
-        if (c < C) {
-          float o[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) o[e] = acc[4 * g + e] * inv;
-          store4(out + (size_t)row * hc + (size_t)h * C + c, o);
-        }
-      }
-    }
-
-    // s: the attention-weighted raw features, unrounded ẽ, lanes over senders
-    if (MODE == EDGE) {
-      float* srow = s_out + (size_t)row * heads * d_e + h * d_e;
-      for (int d = 0; d < d_e; ++d) {
-        float part = 0.f;
-        for (int kk = lane; kk < cnt; kk += 32)
-          part = fmaf(pw[kk], frow[d * plane + idx[kk]], part);
-        part = warp_sum(part);
-        if (lane == 0) srow[d] = part * inv;
-      }
-    }
-    if (MODE == GEO) {
-      float t0 = 0.f, t1 = 0.f, t2 = 0.f, t3 = 0.f, s3 = 0.f;
-      for (int kk = lane; kk < cnt; kk += 32) {
-        const int j = idx[kk];
-        const float e = pw[kk];
-        const float ew = e * frow[plane + j];
-        const float* pj = pos + (size_t)(s0 + j) * 4;
-        t0 += ew;
-        t1 = fmaf(ew, pj[0], t1);
-        t2 = fmaf(ew, pj[1], t2);
-        t3 = fmaf(ew, pj[2], t3);
-        s3 = fmaf(e, frow[j], s3);
-      }
-      t0 = warp_sum(t0);
-      t1 = warp_sum(t1);
-      t2 = warp_sum(t2);
-      t3 = warp_sum(t3);
-      s3 = warp_sum(s3);
-      if (lane == 0) {
-        float* srow = s_out + (size_t)row * heads * 4 + h * 4;
-        srow[0] = (pos_i[0] * t0 - t1) * inv;
-        srow[1] = (pos_i[1] * t0 - t2) * inv;
-        srow[2] = (pos_i[2] * t0 - t3) * inv;
-        srow[3] = s3 * inv;
-      }
-    }
-    __syncwarp();  // pw is rewritten by the next head
-  }
-
-  if (mean) {
-    const float inv_heads = 1.f / (float)heads;
-#pragma unroll
-    for (int g = 0; g < MAX_GROUPS; ++g) {
-      const int c = 4 * lane + 128 * g;
-      if (c < C) {
-        float o[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[e] = total[4 * g + e] * inv_heads;
-        store4(out + (size_t)row * C + c, o);
-      }
-    }
+    if (!FUSED) break;   // one row a warp: no loop for the compiler to carry
+    __syncwarp();  // the warp's next row rewrites its shared memory
   }
 }
 
-template <typename T, int MODE, bool FUSED>
-int attention(const int8_t* mask, const void* q, const void* k, const void* v,
-              int ld, const float* feat, const float* pos, const void* qw,
-              void* out, float* s, int n_pad, int heads, int c, int tile,
-              int wcols, int edge_dim, int mean, float scale, Drop drop,
-              cudaStream_t stream) {
-  const dim3 grid((n_pad + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK);
-  const size_t smem = (size_t)ROWS_PER_BLOCK * wcols * (sizeof(int) + sizeof(float));
-  transformer_kernel<T, MODE, FUSED><<<grid, 32 * ROWS_PER_BLOCK, smem, stream>>>(
-      mask, static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), ld, feat, pos, static_cast<const T*>(qw),
-      static_cast<T*>(out), s, n_pad, heads, c, tile, wcols, edge_dim, mean,
-      scale, drop);
+template <typename T, int MODE, bool FUSED, int V, bool EXACT>
+int run(const TrArgs<T>& a, cudaStream_t stream) {
+  const int nf = n_feat<MODE>(MODE == GEO ? 4 : a.edge_dim);
+  const size_t fixed = FUSED ? (size_t)16 * a.heads * fused_cols(a.C) : 0;
+  const size_t per_warp = (size_t)4 * warp_words(a.wcols, a.heads, nf);
+  if (a.heads < 1 || a.wcols % 4 || a.wcols > 128 * MAX_WGROUPS
+      || fixed + per_warp > (size_t)SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  const size_t fit = ((size_t)SMEM_MAX - fixed) / per_warp;
+  const int warps = fit < (size_t)MAX_WARPS<FUSED> ? (int)fit : MAX_WARPS<FUSED>;
+  const size_t smem = fixed + (size_t)warps * per_warp;
+  auto kernel = transformer_kernel<T, MODE, FUSED, V, EXACT>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int grid = (a.n_pad + warps - 1) / warps;
+  if (FUSED) {   // MIN_BLOCKS resident blocks per SM walk the rows
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    grid = grid < MIN_BLOCKS<FUSED> * sms ? grid : MIN_BLOCKS<FUSED> * sms;
+  }
+  kernel<<<grid, 32 * warps, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// 16-byte accesses, or 8-byte ones for a bf16 C or row stride that is not
+// a multiple of 8; the fixed-count form when the heads fill one group and
+// C one block
+template <typename T, int MODE, bool FUSED>
+int attention(const TrArgs<T>& a, cudaStream_t stream) {
+  const bool exact = a.heads == HG && a.C <= CB;
+  if constexpr (sizeof(T) == 2) {
+    if (a.C % 8 || a.ld % 8) return run<T, MODE, FUSED, 4, false>(a, stream);
+    return exact ? run<T, MODE, FUSED, 8, true>(a, stream)
+                 : run<T, MODE, FUSED, 8, false>(a, stream);
+  } else {
+    return exact ? run<T, MODE, FUSED, 4, true>(a, stream)
+                 : run<T, MODE, FUSED, 4, false>(a, stream);
+  }
 }
 
 template <typename T>
@@ -365,19 +639,14 @@ int dispatch(const int8_t* mask, const void* q, const void* k, const void* v,
              void* out, float* s, int n_pad, int heads, int c, int tile,
              int wcols, int mode, int edge_dim, int mean, float scale,
              Drop drop, cudaStream_t stream) {
+  const TrArgs<T> a{mask, static_cast<const T*>(q), static_cast<const T*>(k),
+                    static_cast<const T*>(v), feat, pos,
+                    static_cast<const T*>(qw), static_cast<T*>(out), s, ld,
+                    n_pad, heads, c, tile, wcols, edge_dim, mean, scale, drop};
   switch (mode) {
-    case PLAIN:
-      return attention<T, PLAIN, false>(mask, q, k, v, ld, feat, pos, qw, out,
-                                        s, n_pad, heads, c, tile, wcols,
-                                        edge_dim, mean, scale, drop, stream);
-    case EDGE:
-      return attention<T, EDGE, false>(mask, q, k, v, ld, feat, pos, qw, out,
-                                       s, n_pad, heads, c, tile, wcols,
-                                       edge_dim, mean, scale, drop, stream);
-    case GEO:
-      return attention<T, GEO, false>(mask, q, k, v, ld, feat, pos, qw, out,
-                                      s, n_pad, heads, c, tile, wcols,
-                                      edge_dim, mean, scale, drop, stream);
+    case PLAIN: return attention<T, PLAIN, false>(a, stream);
+    case EDGE: return attention<T, EDGE, false>(a, stream);
+    case GEO: return attention<T, GEO, false>(a, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -398,16 +667,17 @@ int fused(const int8_t* mask, const void* x, const void* wq, const void* wk,
   // persistent blocks, f32 one block per tile
   cudaError_t err;
   if constexpr (sizeof(T) == 2)
-    err = sm90::run_proj_fwd_bf16(static_cast<const T*>(x), ws, bs, base, n_pad,
-                                  f, hc, stream);
+    err = sm90::run_proj_fwd_bf16(static_cast<const T*>(x), ws, bs, 3, base,
+                                  n_pad, f, hc, stream);
   else
-    err = sm90::f32::run_proj_fwd(static_cast<const T*>(x), ws, bs, base, n_pad,
-                                  f, hc, stream);
+    err = sm90::f32::run_proj_fwd(static_cast<const T*>(x), ws, bs, 3, base,
+                                  n_pad, f, hc, stream);
   if (err != cudaSuccess) return (int)err;
-  return attention<T, GEO, true>(mask, base, base + hc, base + 2 * hc, 3 * hc,
-                                 geo, pos, wblk, out, s, n_pad, heads, c, tile,
-                                 wcols, 4, 1, scale, Drop{nullptr, 0u, 1.f},
-                                 stream);
+  const TrArgs<T> a{mask, base, base + hc, base + 2 * hc, geo, pos,
+                    static_cast<const T*>(wblk), static_cast<T*>(out), s,
+                    3 * hc, n_pad, heads, c, tile, wcols, 4, 1, scale,
+                    Drop{nullptr, 0u, 1.f}};
+  return attention<T, GEO, true>(a, stream);
 }
 
 template <typename T>

@@ -1,11 +1,11 @@
-// Tiled matrix products for the forward kernels of this package (header
-// only; the projection backward and row 11's projection have their own,
-// gemm_sm90.cuh).
+// Tiled matrix products for the Transformer training path's projection
+// (header only; the projection backward and the forward projections of
+// rows 1 and 11 have their own, gemm_sm90.cuh).
 //
 //   C[m, n] = Σ_k A[m·lda + k] · B[k·ldb + n] (+ bias[n]),   f32 accumulate:
 //
-// z = x·W (banded_gat.cu), the training path's q/k/v projection and qw =
-// q·wblk (banded_transformer.cu; row 11's projection runs on gemm_sm90.cuh).
+// the q/k/v projection and qw = q·wblk of transformer_project
+// (banded_transformer.cu).
 // An optional f32 bias (one per output column) is added to the f32 sum
 // before the one rounding to C's type (the q/k/v projection).
 //

@@ -1,7 +1,8 @@
-// Matrix products on Hopper: the projection backward (fold_project_bwd.cu)
-// and the fused Transformer's q/k/v projection (banded_transformer.cu, row
-// 11; header only).  Row 1 and the training projection transformer_project
-// stay on gemm.cuh.
+// Matrix products on Hopper (header only): the projection backward
+// (fold_project_bwd.cu), and the forward projection of row 11's q/k/v
+// (banded_transformer.cu) and row 1's z (banded_gat.cu).  Only the
+// Transformer training path's projection, transformer_project, stays on
+// gemm.cuh.
 //
 // The projection backward: one persistent launch computes both products
 //
@@ -39,15 +40,16 @@
 // buffering with 16-byte loads along each operand's contiguous dimension,
 // fragments read from shared memory as float4, the same items and fold.
 //
-// The q/k/v projection (namespace fwd, and f32::proj_fwd_f32_kernel):
+// The forward projection (namespace fwd, and f32::proj_fwd_f32_kernel):
 //
-//   qkv [N, 3·H·C] = x [N, F] · [Wq | Wk | Wv] + [bq | bk | bv]
+//   out [N, nw·H·C] = x [N, F] · [W0 | … | W(nw−1)] (+ [b0 | … ])
 //
-// from the three weights [F, H·C] as they are (three TMA maps, no
+// for nw 3 (row 11's q|k|v, with the biases) or 1 (row 1's z, no bias),
+// from the weights [F, H·C] as they are (one TMA map each, no
 // concatenated copy), f32 accumulate, the bias (x's dtype) added in f32,
 // one rounding to x's dtype.  bf16: one persistent launch, at most one
 // block per SM, walking output tiles of 128 rows × 256 columns of one
-// weight (one head of q, k or v at C 256), column tile fastest so the
+// weight (one head of q, k, v or z at C 256), column tile fastest so the
 // blocks running at once share x's rows in L2; x K-major (row 6's dx
 // operand), W MN-major (row 6's dW operand), m64n256 wgmmas through a
 // three-stage ring; the tile is staged in shared memory and written by TMA
@@ -667,15 +669,15 @@ constexpr int kOutBytes = BM * BN * 2;
 constexpr int kFwdSmemBytes = kFwdStages * kStageBytes + kOutBytes + 1024 + 2 * kFwdStages * 8;
 
 // the walk: tile id → row tile tm, weight m, first column col0 (ids column
-// tile fastest, kernels/banded.py::_qkv_plan's order)
+// tile fastest)
 struct Proj {
-  const __nv_bfloat16* bias[3];   // [hc] each
-  int n, f, hc, tpm, tiles;       // tpm: column tiles per weight
+  const __nv_bfloat16* bias[3];   // [hc] each, or null: no bias
+  int n, f, hc, nw, tpm, tiles;   // nw weights; tpm: column tiles per weight
 };
 
 __device__ __forceinline__ void tile_of(const Proj& p, int id, int& tm, int& m,
                                         int& col0) {
-  const int per_row = 3 * p.tpm, j = id % per_row;
+  const int per_row = p.nw * p.tpm, j = id % per_row;
   tm = id / per_row;
   m = j / p.tpm;
   col0 = (j % p.tpm) * BN;
@@ -793,7 +795,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int q = 0; q < BN / 8; ++q) {
       const int c = col0 + 8 * q + 2 * (lane % 4);
-      const float2 b = c < p.hc ? __bfloat1622float2(
+      const float2 b = bias != nullptr && c < p.hc ? __bfloat1622float2(
                                       *reinterpret_cast<const __nv_bfloat162*>(bias + c))
                                 : make_float2(0.f, 0.f);
 #pragma unroll
@@ -820,27 +822,35 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 }  // namespace fwd
 
-// qkv = x·[W0 | W1 | W2] + [b0 | b1 | b2] in bf16 on persistent blocks,
+// out = x·[W0 | … | W(nw−1)] (+ [b0 | … ]) in bf16 on persistent blocks,
 // one per SM or one per tile if fewer (x [n, f], each W [f, hc], f and hc
-// multiples of 8; out [n, 3·hc])
+// multiples of 8; out [n, nw·hc]; nw 1 or 3; b null: no bias, else each
+// b[i] [hc])
 inline cudaError_t run_proj_fwd_bf16(const __nv_bfloat16* x,
-                                     const __nv_bfloat16* const w[3],
-                                     const __nv_bfloat16* const b[3],
+                                     const __nv_bfloat16* const* w,
+                                     const __nv_bfloat16* const* b, int nw,
                                      __nv_bfloat16* out, int n, int f, int hc,
                                      cudaStream_t s) {
+  if (nw < 1 || nw > 3) return cudaErrorInvalidValue;
   CUtensorMap m[7];
   // x [n, f] K-major in 128 × 64 boxes; each W [f, hc] MN-major in atoms of
   // 64 columns × 64 K rows; each weight's output columns of out (row stride
-  // 3·hc) in boxes of 128 rows × 64 columns
+  // nw·hc) in boxes of 128 rows × 64 columns; the maps of absent weights
+  // repeat the first (never read)
   if (!make_map(&m[0], x, f, n, f, fwd::BK, fwd::BM, 128))
     return cudaErrorInvalidValue;
-  for (int i = 0; i < 3; ++i)
-    if (!make_map(&m[1 + i], w[i], hc, f, hc, 64, fwd::BK, 128) ||
-        !make_map(&m[4 + i], out + (size_t)i * hc, hc, n, 3LL * hc, 64, fwd::BM, 128))
+  for (int i = 0; i < 3; ++i) {
+    const int wi = i < nw ? i : 0;
+    if (!make_map(&m[1 + i], w[wi], hc, f, hc, 64, fwd::BK, 128) ||
+        !make_map(&m[4 + i], out + (size_t)wi * hc, hc, n, (long long)nw * hc, 64,
+                  fwd::BM, 128))
       return cudaErrorInvalidValue;
+  }
   const int tpm = (hc + fwd::BN - 1) / fwd::BN;
-  const fwd::Proj p{{b[0], b[1], b[2]}, n, f, hc, tpm,
-                    ((n + fwd::BM - 1) / fwd::BM) * 3 * tpm};
+  fwd::Proj p{{nullptr, nullptr, nullptr}, n, f, hc, nw, tpm,
+              ((n + fwd::BM - 1) / fwd::BM) * nw * tpm};
+  if (b != nullptr)
+    for (int i = 0; i < nw; ++i) p.bias[i] = b[i];
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -1032,14 +1042,16 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-// The q/k/v projection in f32: one 128 × 128 output tile of weight
+// The forward projection in f32: one 128 × 128 output tile of weight
 // m = blockIdx.x / tpm per block; x K-major (rows ty + 16·i), W MN-major
-// (columns 4·tx + {0…3} (+64)), K ascending, the bias added in f32.
+// (columns 4·tx + {0…3} (+64)), K ascending, the bias (if any) added in
+// f32; out's row stride nw·hc.
 __global__ void __launch_bounds__(THREADS, 2)
     proj_fwd_f32_kernel(const float* __restrict__ x, const float* w0,
                         const float* w1, const float* w2, const float* b0,
                         const float* b1, const float* b2,
-                        float* __restrict__ out, int n, int f, int hc, int tpm) {
+                        float* __restrict__ out, int n, int f, int hc, int nw,
+                        int tpm) {
   __shared__ __align__(16) float sm[2 * 2 * TILE];
   const int m = blockIdx.x / tpm;
   const float* w = m == 0 ? w0 : m == 1 ? w1 : w2;
@@ -1093,7 +1105,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     buf ^= 1;
   }
   asm volatile("cp.async.wait_group 0;" ::: "memory");
-  const long long ld = 3LL * hc;
+  const long long ld = (long long)nw * hc;
   float* o = out + (long long)m * hc;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -1104,19 +1116,30 @@ __global__ void __launch_bounds__(THREADS, 2)
       const int c = n0 + 64 * h + 4 * tx;
       if (c < hc)
         *reinterpret_cast<float4*>(o + r * ld + c) =
-            make_float4(acc[i][4 * h] + bias[c], acc[i][4 * h + 1] + bias[c + 1],
-                        acc[i][4 * h + 2] + bias[c + 2], acc[i][4 * h + 3] + bias[c + 3]);
+            bias != nullptr
+                ? make_float4(acc[i][4 * h] + bias[c], acc[i][4 * h + 1] + bias[c + 1],
+                              acc[i][4 * h + 2] + bias[c + 2], acc[i][4 * h + 3] + bias[c + 3])
+                : make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                              acc[i][4 * h + 3]);
     }
   }
 }
 
-// qkv = x·[W0 | W1 | W2] + [b0 | b1 | b2] in f32 (f and hc multiples of 4)
-inline cudaError_t run_proj_fwd(const float* x, const float* const w[3],
-                                const float* const b[3], float* out, int n,
-                                int f, int hc, cudaStream_t s) {
+// out = x·[W0 | … | W(nw−1)] (+ [b0 | … ]) in f32 (f and hc multiples of
+// 4; nw 1 or 3; b null: no bias)
+inline cudaError_t run_proj_fwd(const float* x, const float* const* w,
+                                const float* const* b, int nw, float* out,
+                                int n, int f, int hc, cudaStream_t s) {
+  if (nw < 1 || nw > 3) return cudaErrorInvalidValue;
+  const float* ws[3] = {w[0], w[0], w[0]};
+  const float* bs[3] = {nullptr, nullptr, nullptr};
+  for (int i = 0; i < nw; ++i) {
+    ws[i] = w[i];
+    if (b != nullptr) bs[i] = b[i];
+  }
   const int tpm = (hc + BN - 1) / BN;
-  proj_fwd_f32_kernel<<<dim3(3 * tpm, (n + BM - 1) / BM), THREADS, 0, s>>>(
-      x, w[0], w[1], w[2], b[0], b[1], b[2], out, n, f, hc, tpm);
+  proj_fwd_f32_kernel<<<dim3(nw * tpm, (n + BM - 1) / BM), THREADS, 0, s>>>(
+      x, ws[0], ws[1], ws[2], bs[0], bs[1], bs[2], out, n, f, hc, nw, tpm);
   return cudaGetLastError();
 }
 

@@ -159,6 +159,9 @@ def _check_attention(bias_self, alphas, like, n, hc, heads):
     if (hc // heads) % 4:
         raise ValueError("the attention kernel moves 4 columns per access: "
                          "C must be a multiple of 4")
+    if alphas.data_ptr() % 16:
+        raise ValueError("the attention kernel reads α in 16-byte accesses: "
+                         "alphas must be 16-byte aligned")
     if 8 * width * 8 > 48 * 1024:
         raise ValueError(f"window width {width} exceeds the kernel's "
                          "shared-memory budget (768 columns)")
@@ -197,11 +200,11 @@ def banded_gat_mean_fused(
     if w.shape[0] != f:
         raise ValueError(f"shape mismatch: w {tuple(w.shape)}, x "
                          f"{tuple(x.shape)}")
-    if x.dtype == torch.bfloat16 and (
-            f % 8 or hc % 8 or x.data_ptr() % 16 or w.data_ptr() % 16):
-        raise ValueError("the bf16 projection loads 16-byte chunks: F and "
-                         "H·C must be multiples of 8 and x, w 16-byte "
-                         "aligned")
+    per16 = 16 // x.element_size()
+    if f % per16 or hc % per16 or x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(f"the projection loads 16-byte chunks: F and H·C "
+                         f"must be multiples of {per16} and x, w 16-byte "
+                         f"aligned")
     seed = _drop.check_seed(seed, dropout_rate, x.device)
     lib = _build.bind(
         KERNEL, "banded_gat_mean_fused_launch",
@@ -501,7 +504,7 @@ def banded_spmm(band_coeff: torch.Tensor, x: torch.Tensor,
 
 # ------------------------------------------------------------ rows 9, 11
 TRANSFORMER_KERNEL = "banded_transformer"
-_MAX_C = 512    # columns per head: 4 per lane in up to 4 groups of 128
+_MAX_C = 512    # columns per head rows 9, 10 and 11 take
 _MAX_DE = 8     # edge features per edge held in the kernel's registers
 
 

@@ -1,20 +1,31 @@
-"""Time rows 5, 6, 10 and 11 of one checkout of this package on the card.
+"""Time rows 1, 4, 5, 6, 9, 10 and 11 of one checkout of the port on the card.
 
     python gnn_bfs_rans_tpu_torch/kernels/rowtime.py [--root DIR] [--label L]
-        [--rows 5,6,10,11]
+        [--rows 1,4,5,6,9,10,11]
 
 imports ``gnn_bfs_rans_tpu_torch`` from ``DIR`` (default: the checkout this
 file lies in), builds its CUDA sources and prints one JSON line of device
 times per call (ten calls in one CUDA graph, replayed), each beside its
-kernels' device times by name from ``torch.profiler`` and its largest
-error relative to the plain version:
+kernels' device times by name from ``torch.profiler``, its largest error
+relative to the plain version and a digest of its outputs' bits (two
+checkouts whose digests agree compute bit-identical outputs):
 
+* row 1, ``banded_gat_mean_fused``, eval and training (dropout 0.1, z
+  emitted) forms (the projection and the attention by kernel name), bf16
+  and f32, with one ``torch.matmul(x, W)`` beside it as the projection's
+  yardstick;
+* row 4, ``banded_gat_mean`` (head mean) and ``banded_gat`` (concat) at
+  dropout 0.1, bf16 and f32;
 * row 5, ``banded_gat_bwd``, head mean and per head at dropout 0.1 (the
   receiver and sender passes by kernel name), bf16 and f32;
 * row 6, ``fold_project_bwd``, at the main path's three shapes (the GAT
   form dz [N, 1,024], the Transformer's wblk form dz [N, 16] against q read
   from its q|k|v buffer, the bias form dz [N, 3,072]) in bf16 and f32, with
   the time of the same products as ``torch.matmul`` calls beside them;
+* row 9, ``banded_transformer_fwd``: geo head mean in eval (also on q, k
+  and v as column blocks of one q|k|v buffer, as row 11 reads them) and at
+  dropout 0.1, and the plain and edge (4 random features per edge)
+  head-mean and the geo concat forms in eval, bf16 and f32;
 * row 10, ``banded_transformer_bwd``, geo head-mean at dropout 0.1;
 * row 11, ``banded_transformer_geo_mean_fused`` (the projection and the
   attention by kernel name), bf16 and f32, with one ``torch.addmm`` of x
@@ -29,6 +40,7 @@ limits differ between calls.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import sys
 import tempfile
@@ -77,28 +89,51 @@ def _kernel_us(fn, steps=10):
     return out
 
 
+def _tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
 def _rel_err(got, ref):
     """The largest of the outputs' max |got − ref| / max |ref|."""
     return max(((a.float() - b.float()).abs().max()
                 / b.float().abs().max()).item() for a, b in zip(got, ref))
 
 
+def _entry(call, plain, **extra):
+    """One row's reading: device ms per call, µs by kernel name, the largest
+    relative error against the plain version, and ``sha``, a digest of the
+    outputs' bits (equal digests from two checkouts: bit-identical
+    outputs)."""
+    import torch
+
+    got = _tuple(call())
+    digest = hashlib.sha256()
+    for t in got:
+        digest.update(t.contiguous().cpu().view(-1).view(torch.uint8).numpy())
+    return dict(ms=_graph_ms(call), kernels_us=_kernel_us(call),
+                rel_err=_rel_err(got, _tuple(plain())),
+                sha=digest.hexdigest()[:16], **extra)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--label", default="")
-    ap.add_argument("--rows", default="5,6,10,11",
+    ap.add_argument("--rows", default="1,4,5,6,9,10,11",
                     help="comma-separated rows to time")
     args = ap.parse_args(argv)
     rows = set(args.rows.split(","))
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
 
+    dtypes = (torch.bfloat16, torch.float32)
     if not torch.cuda.is_available():
         print("rowtime: needs a CUDA card", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    import numpy as np
     from gnn_bfs_rans_tpu_torch.foam import generate_box_case
+    from gnn_bfs_rans_tpu_torch.graph.band import LAYER_COMPONENTS, build_band
     from gnn_bfs_rans_tpu_torch.infer import load_graph
     from gnn_bfs_rans_tpu_torch.kernels import banded as bk
     from gnn_bfs_rans_tpu_torch.kernels import banded_bwd as bb
@@ -111,11 +146,69 @@ def main(argv=None) -> int:
            "label": args.label, "card": torch.cuda.get_device_name(0)}
     with tempfile.TemporaryDirectory() as tmp:
         generate_box_case(Path(tmp) / "box", 400, 30, 1)
-        band = load_graph(Path(tmp) / "box", "Transformer").band.to(dev)
+        g = load_graph(Path(tmp) / "box", "Transformer")
+        band = g.band.to(dev)
         mask5 = load_graph(Path(tmp) / "box", "GAT").band.bias_self.to(dev)
+    # row 9's generic edge form: the same edges with 4 random features
+    feat = np.random.default_rng(400).normal(
+        size=(g.n_edges, 4)).astype(np.float32)
+    edge_band = build_band(
+        g.senders.numpy()[: g.n_edges], g.receivers.numpy()[: g.n_edges],
+        g.n_pad, g.node_mask.numpy(), g.in_degree.numpy(),
+        components=LAYER_COMPONENTS["Transformer"], edge_feat=feat,
+        node_pos=g.node_feat.numpy()).to(dev)
     seed = torch.tensor([2025], dtype=torch.int32, device=dev)
+    gen.manual_seed(1)
+    for dtype in dtypes:
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        x = torch.randn(n, f, generator=gen).to(dev, dtype)
+        w = (torch.randn(f, hc, generator=gen) * f ** -0.5).to(dev, dtype)
+        wa = (torch.randn(f, 2 * heads, generator=gen) * f ** -0.5).to(
+            dev, dtype)
+        alphas = (x.float() @ wa.float()).contiguous()
+        z = (x.float() @ w.float()).to(dtype)
+        if "1" in rows:
+            for form, extra in (("eval", ()), ("train", (0.1, seed))):
+                a1 = (mask5, w, alphas, x, heads, 0.2, *extra)
+                kw1 = dict(emit_z=bool(extra))
+                res[f"row1_{form}_{name}"] = _entry(
+                    lambda: bk.banded_gat_mean_fused(*a1, **kw1),
+                    lambda: bk.banded_gat_mean_fused_plain(*a1, **kw1),
+                    matmul_ms=_graph_ms(lambda: torch.matmul(x, w)))
+        if "4" in rows:
+            a4 = (mask5, z, alphas, heads, 0.2, 0.1, seed)
+            for form, fn, plain in (
+                    ("mean", bk.banded_gat_mean, bk.banded_gat_mean_plain),
+                    ("concat", bk.banded_gat, bk.banded_gat_plain)):
+                res[f"row4_{form}_{name}"] = _entry(lambda: fn(*a4),
+                                                    lambda: plain(*a4))
+    gen.manual_seed(9)
+    for dtype in dtypes:
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        if "9" not in rows:
+            break
+        q, k, v = (torch.randn(n, hc, generator=gen).to(dev, dtype)
+                   for _ in range(3))
+        qw = torch.randn(n, heads * 4, generator=gen).to(dev, dtype)
+        geo = dict(geo=band.geo, pos=band.pos, qw=qw)
+        edge = dict(edge=edge_band.edge, qw=qw)
+        qkv = torch.cat([q, k, v], 1)
+        for form, b9, kw9 in (
+                ("geo_mean", band, dict(geo, mean_heads=True)),
+                ("geo_mean_qkv", band, dict(geo, mean_heads=True)),
+                ("geo_mean_drop", band, dict(geo, mean_heads=True,
+                                             dropout_rate=0.1, seed=seed)),
+                ("plain_mean", band, dict(mean_heads=True)),
+                ("edge_mean", edge_band, dict(edge, mean_heads=True)),
+                ("geo_concat", band, dict(geo))):
+            a9 = (b9.bias_noself, q, k, v, heads)
+            if form.endswith("_qkv"):   # column blocks of one q|k|v buffer
+                a9 = (b9.bias_noself, *qkv.split(hc, 1), heads)
+            res[f"row9_{form}_{name}"] = _entry(
+                lambda: bk.banded_transformer_fwd(*a9, **kw9),
+                lambda: bk.banded_transformer_fwd_plain(*a9, **kw9))
     gen.manual_seed(5)
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         name = "bf16" if dtype == torch.bfloat16 else "f32"
         if "5" not in rows:
             break
@@ -127,14 +220,11 @@ def main(argv=None) -> int:
             kw5 = dict(mean_expand=mean)
             if hasattr(bb, "transpose_mask"):   # kept per band by the convs
                 kw5["mask_t"] = bb.transpose_mask(mask5)
-            res[f"row5_{form}_{name}"] = dict(
-                ms=_graph_ms(lambda: bb.banded_gat_bwd(*a5, **kw5)),
-                kernels_us=_kernel_us(lambda: bb.banded_gat_bwd(*a5, **kw5)),
-                rel_err=_rel_err(bb.banded_gat_bwd(*a5, **kw5),
-                                 bb.banded_gat_bwd_plain(
-                                     *a5, mean_expand=mean)))
+            res[f"row5_{form}_{name}"] = _entry(
+                lambda: bb.banded_gat_bwd(*a5, **kw5),
+                lambda: bb.banded_gat_bwd_plain(*a5, mean_expand=mean))
     gen.manual_seed(0)
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         name = "bf16" if dtype == torch.bfloat16 else "f32"
         if "6" not in rows:
             break
@@ -153,19 +243,13 @@ def main(argv=None) -> int:
                          dev, dtype), True),
         }
         for form, (dz, xx, w, bias) in shapes.items():
-            err = _rel_err(bb.fold_project_bwd(dz, xx, w, with_bias=bias),
-                           bb.fold_project_bwd_plain(dz, xx, w,
-                                                     with_bias=bias))
             wt = w.t()
             lib = ((lambda: (dz @ wt, xx.t() @ dz, dz.sum(0))) if bias
                    else (lambda: (dz @ wt, xx.t() @ dz)))
-
-            def call():
-                return bb.fold_project_bwd(dz, xx, w, with_bias=bias)
-
-            res[f"row6_{form}_{name}"] = dict(
-                ms=_graph_ms(call), library_ms=_graph_ms(lib), rel_err=err,
-                kernels_us=_kernel_us(call))
+            res[f"row6_{form}_{name}"] = _entry(
+                lambda: bb.fold_project_bwd(dz, xx, w, with_bias=bias),
+                lambda: bb.fold_project_bwd_plain(dz, xx, w, with_bias=bias),
+                library_ms=_graph_ms(lib))
     dt = torch.bfloat16
     gen.manual_seed(10)
     if "10" in rows:
@@ -177,14 +261,11 @@ def main(argv=None) -> int:
         a10 = (band.bias_noself, q, k, v, g, heads)
         kw = dict(geo=band.geo, pos=band.pos, qw=qw, gs=gs, mean_expand=True,
                   dropout_rate=0.1, seed=seed)
-        res["row10_geo_mean_bf16"] = dict(
-            ms=_graph_ms(lambda: bb.banded_transformer_bwd(*a10, **kw)),
-            kernels_us=_kernel_us(
-                lambda: bb.banded_transformer_bwd(*a10, **kw)),
-            rel_err=_rel_err(bb.banded_transformer_bwd(*a10, **kw),
-                             bb.banded_transformer_bwd_plain(*a10, **kw)))
+        res["row10_geo_mean_bf16"] = _entry(
+            lambda: bb.banded_transformer_bwd(*a10, **kw),
+            lambda: bb.banded_transformer_bwd_plain(*a10, **kw))
     gen.manual_seed(11)
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         name = "bf16" if dtype == torch.bfloat16 else "f32"
         if "11" not in rows:
             break
@@ -199,14 +280,10 @@ def main(argv=None) -> int:
         a11 = (band.bias_noself, band.geo, band.pos, x, *ws, *bs,
                wblk.to(dev, dtype), heads)
         wcat, bcat = torch.cat(ws, 1), torch.cat(bs)
-        res[f"row11_{name}"] = dict(
-            ms=_graph_ms(lambda: bk.banded_transformer_geo_mean_fused(*a11)),
-            kernels_us=_kernel_us(
-                lambda: bk.banded_transformer_geo_mean_fused(*a11)),
-            addmm_ms=_graph_ms(lambda: torch.addmm(bcat, x, wcat)),
-            rel_err=_rel_err(
-                bk.banded_transformer_geo_mean_fused(*a11),
-                bk.banded_transformer_geo_mean_fused_plain(*a11)))
+        res[f"row11_{name}"] = _entry(
+            lambda: bk.banded_transformer_geo_mean_fused(*a11),
+            lambda: bk.banded_transformer_geo_mean_fused_plain(*a11),
+            addmm_ms=_graph_ms(lambda: torch.addmm(bcat, x, wcat)))
     print(json.dumps(res))
     return 0
 

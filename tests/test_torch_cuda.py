@@ -81,14 +81,14 @@ def card():
     return torch.device("cuda")
 
 
-def _band(n, width, seed=0):
+def _band(n, width, seed=0, tile=128):
     rng = np.random.default_rng(seed)
     i, j = np.triu_indices(n, 1)
     keep = (((j - i) < width) & (rng.random(i.size) < 0.05)) | ((j - i) == 1)
     s = np.concatenate([i[keep], j[keep]]).astype(np.int32)
     r = np.concatenate([j[keep], i[keep]]).astype(np.int32)
     deg = np.bincount(r, minlength=n).astype(np.float32)
-    return build_band(s, r, n, np.ones(n, bool), deg, tile=128,
+    return build_band(s, r, n, np.ones(n, bool), deg, tile=tile,
                       components=("bias_self",)).bias_self
 
 
@@ -1083,3 +1083,140 @@ def test_transformer_fused_projection_shapes(card, dtype, n, heads, c, f,
     _check_s(band, s, ref_s, 1e-4 if dtype == "float32" else 2e-2)
     padding = torch.from_numpy(pad).to(card)
     assert (out[padding] == 0).all() and (s[padding] == 0).all()
+
+
+# ------------------------------------------ rows 9 and 1 as redesigned
+def _dense_rows(mask, rows):
+    """``mask`` with every in-range window column of ``rows`` on: more
+    senders than one batch of the kernels (and than 32 lanes)."""
+    mask = mask.clone()
+    n_tiles, tile, width = mask.shape
+    for i in rows:
+        t = i // tile
+        s = t * tile - (width - tile) // 2 + torch.arange(width)
+        mask[t, i % tile] = ((s >= 0) & (s < n_tiles * tile)).to(mask.dtype)
+    return mask
+
+
+# the first rows of the first tile, one inside, the last of the last tile
+_DENSE = (0, 1, 5, 200, 511)
+
+
+@pytest.mark.parametrize("width", [60, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gat_dense_rows_match_plain(card, dtype, width):
+    """Rows 1 and 4 (head mean and concat, rate 0 and 0.1) on a mask with
+    some rows fully on: 256 or 384 senders, many batches and their tail."""
+    n, heads, c, f = 512, 4, 64, 64
+    gen = torch.Generator().manual_seed(13)
+    dt = getattr(torch, dtype)
+    x = torch.randn(n, f, generator=gen).to(card, dt)
+    w = (torch.randn(f, heads * c, generator=gen) * f ** -0.5).to(card, dt)
+    alphas = torch.randn(n, 2 * heads, generator=gen).to(card)
+    mask = _dense_rows(_band(n, width).to(card), _DENSE)
+    for rate in (0.0, 0.1):
+        seed = _seed(card) if rate else None
+        args = (mask, w, alphas, x, heads, 0.2, rate, seed)
+        out, z = banded_gat_mean_fused(*args, emit_z=True)
+        ref, ref_z = banded_gat_mean_fused_plain(*args, emit_z=True)
+        _close(z, ref_z, 1e-6 if dtype == "float32" else 1e-2)
+        _close(out, ref, KTOL[dtype])
+        for fn, plain in ((banded_gat_mean, banded_gat_mean_plain),
+                          (banded_gat, banded_gat_plain)):
+            a4 = (mask, ref_z, alphas, heads, 0.2, rate, seed)
+            _close(fn(*a4), plain(*a4), KTOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", ["plain", "edge", "geo"])
+def test_transformer_dense_rows_match_plain(card, form, dtype):
+    """Row 9 in every form, head mean and concat, rate 0 and 0.1, on a mask
+    with some rows fully on (the staged conditioning is 0 where the band
+    has no edge, as in the plain version)."""
+    n, heads, c = 512, 4, 64
+    band, pad = _tr_band(n, 60, geometric=form != "edge", seed=3)
+    band = dataclasses.replace(band, bias_noself=_dense_rows(
+        band.bias_noself, (0, 1, 5, 200, 300))).to(card)
+    gen = torch.Generator().manual_seed(14)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(n, heads * c, generator=gen).to(card, dt)
+               for _ in range(3))
+    extra = {}
+    if form == "edge":
+        extra = dict(edge=band.edge)
+    elif form == "geo":
+        extra = dict(geo=band.geo, pos=band.pos)
+    if extra:
+        extra["qw"] = torch.randn(n, heads * 4, generator=gen).to(card, dt)
+    for mean in (False, True):
+        for rate in (0.0, 0.1):
+            kw = dict(extra, mean_heads=mean, dropout_rate=rate,
+                      seed=_seed(card) if rate else None)
+            got = banded_transformer_fwd(band.bias_noself, q, k, v, heads, **kw)
+            ref = banded_transformer_fwd_plain(band.bias_noself, q, k, v,
+                                               heads, **kw)
+            got, ref = (got, ref) if extra else ((got,), (ref,))
+            _close(got[0], ref[0], 1e-4 if dtype == "float32" else 1e-2)
+            if extra:
+                _check_s(band, got[1], ref[1], 1e-4)
+
+
+@pytest.mark.parametrize("heads", [1, 2, 4, 8])
+@pytest.mark.parametrize("c", [16, 64, 256, 512])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_transformer_kernel_heads_and_widths(card, dtype, c, heads):
+    """Row 9's geo form, head mean and concat, at dropout 0.1, at C 16 (8
+    columns a lane: half the lanes idle in bf16), 64, 256 (one column
+    block) and 512 (two) and H 1, 2, 4 (one full group), 8 (two)."""
+    n = 384
+    band, pad = _tr_band(n, 60, geometric=True, seed=4)
+    band = band.to(card)
+    gen = torch.Generator().manual_seed(15)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(n, heads * c, generator=gen).to(card, dt)
+               for _ in range(3))
+    qw = torch.randn(n, heads * 4, generator=gen).to(card, dt)
+    for mean in (False, True):
+        kw = dict(geo=band.geo, pos=band.pos, qw=qw, mean_heads=mean,
+                  dropout_rate=0.1, seed=_seed(card))
+        _build.reset_launches()
+        got = banded_transformer_fwd(band.bias_noself, q, k, v, heads, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["banded_transformer_fwd"] == 1
+        ref = banded_transformer_fwd_plain(band.bias_noself, q, k, v, heads,
+                                           **kw)
+        assert got[0].shape == ref[0].shape and got[0].dtype == dt
+        _close(got[0], ref[0], 1e-4 if dtype == "float32" else 1e-2)
+        _check_s(band, got[1], ref[1], 1e-4)
+        padding = torch.from_numpy(pad).to(card)
+        assert (got[0][padding] == 0).all() and (got[1][padding] == 0).all()
+
+
+@pytest.mark.parametrize("n,tile,heads,c,f", [
+    (400, 16, 4, 256, 256),   # ragged N (not a multiple of 128), H·C 1,024
+    (400, 16, 2, 32, 64),     # ragged N, H·C 64: one tile, 3/4 past z
+    (8192, 128, 4, 256, 256),  # 256 tiles on 132 SMs: blocks loop
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gat_one_weight_projection_shapes(card, dtype, n, tile, heads, c, f):
+    """Row 1's z = x·W on gemm_sm90.cuh with one weight and no bias (bf16:
+    wgmma fed by TMA; f32: its SIMT tiles): z and out against the plain
+    version at ragged N and H·C 64, and with more tiles than SMs; the same
+    bits call after call."""
+    gen = torch.Generator().manual_seed(16)
+    dt = getattr(torch, dtype)
+    x = torch.randn(n, f, generator=gen).to(card, dt)
+    w = (torch.randn(f, heads * c, generator=gen) * f ** -0.5).to(card, dt)
+    alphas = torch.randn(n, 2 * heads, generator=gen).to(card)
+    mask = _band(n, 12 if tile == 16 else 60, tile=tile).to(card)
+    args = (mask, w, alphas, x, heads, 0.2, 0.1, _seed(card))
+    _build.reset_launches()
+    out, z = banded_gat_mean_fused(*args, emit_z=True)
+    out2, z2 = banded_gat_mean_fused(*args, emit_z=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["banded_gat_mean_fused"] == 2
+    assert torch.equal(out, out2) and torch.equal(z, z2)
+    ref, ref_z = banded_gat_mean_fused_plain(*args, emit_z=True)
+    assert z.shape == (n, heads * c) and out.shape == (n, c)
+    _close(z, ref_z, 1e-6 if dtype == "float32" else 1e-2)
+    _close(out, ref, KTOL[dtype])
