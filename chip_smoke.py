@@ -30,8 +30,11 @@ Phases (any failure raises and exits non-zero):
    through the autograd op at the flagship width (F 256, H 4, C 256) on both
    bands, f32 and bf16, dropout 0 and 0.1: (dW, dWa, dx) against the op run
    through the plain versions;
-7. the BN epilogue backward, row 3 (``fused_epilogue_bwd``), and the forward
-   at rate 0.1, at [12,032, 256] in f32, bf16 and mixed;
+7. the BN epilogue backward, row 3 (``fused_epilogue_bwd``, one
+   cooperative CUDA launch), and the forward at rate 0.1, at [12,032, 256]
+   in f32, bf16 and mixed; row 3 at 40,000 rows (its re-read branch) in
+   each mode, and three calls of it captured in a CUDA graph whose
+   replays must agree byte for byte with each other and an eager call;
 8. one train step of the 4×256 GAT from the same seeded parameters through
    the kernels and through the plain versions, in f32, bf16 and mixed: the
    loss and each parameter group's gradient (f32: the largest relative gap
@@ -83,7 +86,8 @@ Phases (any failure raises and exits non-zero):
     mean and concat; row 10 with the cotangent of s, rate 0 and 0.1), f32
     and bf16; row 7, ``fold_partials`` (CUDA), on row 10's partials, with
     ``index_add_``'s time beside it; row 6's bias form at the projgrad
-    backward's shape and the projection ``transformer_project``; the
+    backward's shape and the projection ``transformer_project`` (on
+    ``gemm_sm90.cuh``, timed beside ``torch.addmm`` + ``torch.matmul``); the
     projgrad op (projection, rows 9, 10, 7, 6) through the kernels vs the
     plain versions, f32 and bf16, rate 0 and 0.1; one train step of the
     4×256 Transformer, kernels vs plain versions, in f32, bf16 and mixed
@@ -116,7 +120,9 @@ overhead does not enter them; the eager per-call time is printed beside
 them.  ``launches`` counts each wrapper's launches on its training path
 (phase 12: the flagship GAT's for rows 1, 2, 3, 5, 6; the GCN run's for
 row 8; the unfused GAT run's for row 4; phase 15's Transformer run for
-rows 10 and 7; phase 16's concat conv, bf16, for row 4's concat form and
+rows 10 and 7 and ``transformer_project``, which is no TPU kernel but the
+hand-written form of the JAX op's XLA products; phase 16's concat conv,
+bf16, for row 4's concat form and
 row 5's per-head form); rows 9 and 11 count theirs on the Transformer
 serving path (the 4×256 bf16 ``--bn_exact off`` run and the ``fuse_eval``
 run).
@@ -331,9 +337,10 @@ def check_epilogue(mode, n_pad, n_valid, gen):
     ms = graph_time_ms(lambda: fused_epilogue_fwd(*args))
     eager_ms = cuda_time_ms(lambda: fused_epilogue_fwd(*args))
     plain_ms = graph_time_ms(lambda: fused_epilogue_fwd_plain(*args))
-    # each input read once (x, x_new, scale, bias), y written once
+    # each input read once (x, x_new, scale, bias), y and the residual xr
+    # (kept for the backward) written once
     nbytes = (x.numel() * x.element_size() + xn.numel() * xn.element_size()
-              + 2 * HIDDEN * 4 + got.numel() * got.element_size())
+              + 2 * HIDDEN * 4 + 2 * got.numel() * got.element_size())
     flops = 8 * x.numel()   # add, square, 2 accumulates, sub, mul, add, max
     bound_ms, bound_by = bound(nbytes, flops, H100_FP32_FLOPS)
     log(f"kernel2 fused_epilogue_fwd {mode} [{n_pad}, {HIDDEN}]: max_abs_err "
@@ -748,7 +755,7 @@ def check_epilogue_bwd(mode, n_pad, n_valid, gen):
     flops = 16 * xr_k.numel()   # affine recompute, mask, x̂, 2 sums, dx
     bound_ms, bound_by = bound(nbytes, flops, H100_FP32_FLOPS)
     f_bytes = (x.numel() * x.element_size() + xn.numel() * xn.element_size()
-               + 2 * HIDDEN * 4 + y_k.numel() * y_k.element_size())
+               + 2 * HIDDEN * 4 + 2 * y_k.numel() * y_k.element_size())
     f_bound, f_by = bound(f_bytes, 10 * x.numel(), H100_FP32_FLOPS)
     log(f"kernel2 fused_epilogue_fwd {mode} rate {DROPOUT}: max_abs_err "
         f"{err_y:.3e} ms {fwd_ms:.4f} plain_ms {fwd_plain:.4f} bound_ms "
@@ -760,6 +767,68 @@ def check_epilogue_bwd(mode, n_pad, n_valid, gen):
                  bound_ms=f_bound, bound_by=f_by, library_ms=None),
             dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                  bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+
+
+def check_row3_branches(gen):
+    """Row 3 where a block's rows do not fit in shared memory (40,000 rows
+    at C 256: phase 3 reads g and xr again), f32, bf16 and mixed, against
+    the plain version (f32 1e-4, bf16 one rounding: 2^-7 of the max; g
+    with a per-column offset, so that the statistics terms are of the order
+    of g in dx); and three calls captured in one CUDA graph, two replays
+    identical in every byte to each other and to an eager call."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.kernels.epilogue import (
+        _forward, fused_epilogue_bwd, fused_epilogue_bwd_plain)
+
+    dev = torch.device("cuda")
+    seed = torch.tensor([4321], dtype=torch.int32, device=dev)
+    for mode, (dx, dxn), n in (
+            ("float32", ("float32", "float32"), 40000),
+            ("bfloat16", ("bfloat16", "bfloat16"), 40000),
+            ("mixed", ("float32", "bfloat16"), 40000),
+            ("bfloat16", ("bfloat16", "bfloat16"), 12032)):
+        x = (torch.randn(n, HIDDEN, generator=gen) + 1).to(
+            dev, getattr(torch, dx))
+        xn = torch.randn(n, HIDDEN, generator=gen).to(dev, getattr(torch, dxn))
+        scale = (1 + 0.1 * torch.randn(HIDDEN, generator=gen)).to(dev)
+        bias = (0.1 * torch.randn(HIDDEN, generator=gen)).to(dev)
+        n_valid = n - 32
+        _, mean, _, xr, vec = _forward(x, xn, scale, bias, n_valid, 1e-5,
+                                       DROPOUT, seed)
+        g = (torch.randn(n, HIDDEN, generator=gen)
+             + torch.randn(HIDDEN, generator=gen)).to(dev, xr.dtype)
+        args = (g, xr, vec, mean, n_valid, DROPOUT, seed, x.dtype, xn.dtype)
+        got = [t.clone() for t in fused_epilogue_bwd(*args)]
+        ref = fused_epilogue_bwd_plain(*args)
+        errs = []
+        for name, a, r in zip(("dx", "dx_new", "dscale", "dbias"), got, ref):
+            err, sc = _rel_err(a, r)
+            tol = 1e-4 if r.dtype == torch.float32 else 2.0 ** -7
+            if not (a.dtype == r.dtype and torch.isfinite(a).all()
+                    and err <= tol * sc):
+                raise AssertionError(f"row 3 {mode} N {n} {name}: {err} "
+                                     f"(tol {tol} x {sc})")
+            errs.append(f"{name} {err:.2e}")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fused_epilogue_bwd(*args)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(3):
+                outs = fused_epilogue_bwd(*args)
+        graph.replay()
+        torch.cuda.synchronize()
+        first = [t.clone() for t in outs]
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) and torch.equal(a, e)
+                   for a, b, e in zip(outs, first, got)):
+            raise AssertionError(f"row 3 {mode} N {n}: graph replays differ")
+        ms = graph_time_ms(lambda: fused_epilogue_bwd(*args))
+        log(f"row 3 {mode} N {n} rate {DROPOUT}: {', '.join(errs)}; graph "
+            f"replays identical; ms {ms:.4f}")
 
 
 @contextlib.contextmanager
@@ -1571,7 +1640,9 @@ def check_fold(part, tile):
 def check_project_bias(n, dtype_name, gen):
     """Row 6's bias form at the projgrad backward's shape (dz [N, 3·H·C]
     against [Wq | Wk | Wv], x [N, F]) and the projection (q|k|v = x·W + b,
-    qw = q·wblk) against their plain versions; the projection's time."""
+    qw = q·wblk on ``gemm_sm90.cuh``) against their plain versions; the
+    projection's time beside ``torch.addmm`` + ``torch.matmul`` and its
+    bound.  Returns the projection's kernel-table entry."""
     import torch
     from gnn_bfs_rans_tpu_torch.kernels.banded import (
         transformer_project, transformer_project_plain)
@@ -1580,21 +1651,27 @@ def check_project_bias(n, dtype_name, gen):
 
     dev = torch.device("cuda")
     dt = getattr(torch, dtype_name)
-    f, hc3 = HIDDEN, 3 * HEADS * HIDDEN
+    f, hc = HIDDEN, HEADS * HIDDEN
     x = torch.randn(n, f, generator=gen).to(dev, dt)
-    w = (torch.randn(f, hc3, generator=gen) * f ** -0.5).to(dev, dt)
-    b = (0.1 * torch.randn(hc3, generator=gen)).to(dev)
-    wblk = (torch.randn(hc3 // 3, HEADS * 4, generator=gen) * 0.1).to(dev, dt)
-    qkv, qw = transformer_project(x, w, b, wblk)
-    ref_qkv, _ = transformer_project_plain(x, w, b, wblk)
-    ref_qw = (qkv[:, :hc3 // 3].float() @ wblk.float()).to(dt)
-    dz = torch.randn(n, hc3, generator=gen).to(dev, dt)
+    ws = [(torch.randn(f, hc, generator=gen) * f ** -0.5).to(dev, dt)
+          for _ in range(3)]
+    bs = [(0.1 * torch.randn(hc, generator=gen)).to(dev, dt) for _ in range(3)]
+    w_e = torch.rand(4, HEADS, HIDDEN, generator=gen) - 0.5
+    wblk = (torch.eye(HEADS)[:, None, :, None]
+            * w_e.permute(1, 2, 0)[:, :, None, :]).reshape(hc, HEADS * 4)
+    wblk = wblk.to(dev, dt)
+    args = (x, *ws, *bs, wblk)
+    qkv, qw = transformer_project(*args)
+    ref_qkv, _ = transformer_project_plain(*args)
+    ref_qw = (qkv[:, :hc].float() @ wblk.float()).to(dt)
+    w = torch.cat(ws, 1)
+    dz = torch.randn(n, 3 * hc, generator=gen).to(dev, dt)
     got = fold_project_bwd(dz, x, w, with_bias=True)
     ref = fold_project_bwd_plain(dz, x, w, with_bias=True)
     torch.cuda.synchronize()
     # the projection: f32 summation order, or one bf16 rounding (2^-8)
     ptol = 1e-5 if dt == torch.float32 else 2.0 ** -7
-    texts, ok = [], True
+    texts, ok, errs = [], True, []
     for name, a, r, tol in (("qkv", qkv, ref_qkv, ptol), ("qw", qw, ref_qw, ptol),
                             ("dx", got[0], ref[0], BWD_TOL[dtype_name]),
                             ("dW", got[1], ref[1], BWD_TOL["float32"]),
@@ -1602,12 +1679,28 @@ def check_project_bias(n, dtype_name, gen):
         err, scale = _rel_err(a, r)
         ok = ok and bool(torch.isfinite(a).all()) and err <= tol * scale
         texts.append(f"{name} {err:.3e} (tol {tol} x {scale:.3e})")
+        errs.append(err)
     label = f"row 6 bias form and the projection {dtype_name} N {n}"
     log(f"{label}: " + ", ".join(texts))
     if not ok:
         raise AssertionError(f"{label}: " + ", ".join(texts))
-    proj_ms = graph_time_ms(lambda: transformer_project(x, w, b, wblk))
-    log(f"projection transformer_project {dtype_name} N {n}: ms {proj_ms:.4f}")
+    ms = graph_time_ms(lambda: transformer_project(*args))
+    plain_ms = graph_time_ms(lambda: transformer_project_plain(*args))
+    bcat, q = torch.cat(bs), qkv[:, :hc]
+    library_ms = graph_time_ms(lambda: (torch.addmm(bcat, x, w),
+                                        torch.matmul(q, wblk)))
+    isz = x.element_size()
+    # x, the weights, biases and wblk read once; qkv and qw written once
+    nbytes = isz * (x.numel() + w.numel() + bcat.numel() + wblk.numel()
+                    + qkv.numel() + qw.numel())
+    flops = 2 * n * f * 3 * hc + 2 * n * hc * 4
+    bound_ms, bound_by = bound(nbytes, flops, H100_BF16_FLOPS
+                               if dt == torch.bfloat16 else H100_FP32_FLOPS)
+    log(f"projection transformer_project {dtype_name} N {n}: ms {ms:.4f} "
+        f"plain_ms {plain_ms:.4f} library_ms (addmm + matmul) "
+        f"{library_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by})")
+    return dict(max_abs_err=max(errs[:2]), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
 # row 6 at the main path's three shapes: (label, dz width, F, x's row
@@ -1858,7 +1951,8 @@ def transformer_train_phase(tmp, case, train_info, edge_bands, gen):
             for rate in (0.0, DROPOUT):
                 check_projgrad(band, dt, rate, gen)
     for dt in ("float32", "bfloat16"):
-        check_project_bias(band.bias_noself.shape[0] * band.tile, dt, gen)
+        rows[("project", dt)] = check_project_bias(
+            band.bias_noself.shape[0] * band.tile, dt, gen)
     graph = load_graph(case, "Transformer").to("cuda")
     for dt in ("float32", "bfloat16", "mixed"):
         compare_train_step(graph, dt, "transformer4x256",
@@ -2247,6 +2341,7 @@ def main() -> int:
         for mode in ("float32", "mixed", "bfloat16"):
             rows[("epi_train", mode)], rows[("row3", mode)] = \
                 check_epilogue_bwd(mode, n_pad, n_valid, gen)
+        check_row3_branches(gen)
         for dt in ("float32", "bfloat16", "mixed"):
             compare_train_step(graphs[400], dt)
         # the f32 step's gap at dropout 0 through every kernel, and through
@@ -2358,8 +2453,8 @@ def main() -> int:
              replaces="gnn_bfs_rans_tpu/kernels/epilogue.py:217",
              launches=launches.get("fused_epilogue_fwd", 0),
              **rows[("epi_train", "bfloat16")]),
-        dict(name="fused_epilogue_bwd", route="triton",
-             source="gnn_bfs_rans_tpu_torch/kernels/epilogue.py",
+        dict(name="fused_epilogue_bwd", route="cuda",
+             source="gnn_bfs_rans_tpu_torch/csrc/epilogue_bwd.cu",
              replaces="gnn_bfs_rans_tpu/kernels/epilogue.py:260",
              launches=launches.get("fused_epilogue_bwd", 0),
              **rows[("row3", "bfloat16")]),
@@ -2410,6 +2505,13 @@ def main() -> int:
              source="gnn_bfs_rans_tpu_torch/csrc/fold_partials.cu",
              replaces="gnn_bfs_rans_tpu/kernels/banded_bwd.py:86",
              launches=launches_tr.get("fold_partials", 0), **rows["row7"]),
+        # not a TPU kernel: the XLA products of the JAX op's forward
+        dict(name="transformer_project", route="cuda",
+             source="gnn_bfs_rans_tpu_torch/csrc/banded_transformer.cu",
+             replaces="gnn_bfs_rans_tpu/kernels/banded.py:1476 (XLA "
+                      "products of banded_transformer_geo_mean_projgrad)",
+             launches=launches_tr.get("transformer_project", 0),
+             **rows[("project", "bfloat16")]),
         # the concat GAT conv's path (bf16, dropout 0.1): row 4's concat
         # form and row 5's per-head cotangent
         dict(name="banded_gat (concat)", route="cuda",

@@ -46,9 +46,12 @@
 // trip through device memory (3·N·H·C·dtype bytes, 73.9 MB per layer at N
 // 12,032, H·C 1,024 in bf16); keeping them on chip is later work.  The
 // training path's projection (entry transformer_project_launch) is the
-// shared gemm.cuh GEMM into the same buffer, then qw = q·wblk rounded to
-// q's dtype, as banded_transformer_geo_mean_projgrad forms them outside its
-// kernel.
+// same gemm_sm90.cuh launch into the same buffer, with qw = q·wblk rounded
+// to q's dtype, as banded_transformer_geo_mean_projgrad forms them outside
+// its kernel: in bf16 from each staged q tile in the launch's epilogue on
+// the tensor cores (C a multiple of 16 dividing its 256-column tile), else
+// by qw_kernel over the written q (one thread per output, one ascending
+// chain, wblk's diagonal blocks in shared memory).
 //
 // What bounds it on an H100: the attention is a sparse product.  The band
 // mask holds ~4 senders per row of 256–640 columns; the TPU kernel computes
@@ -79,7 +82,6 @@
 
 #include "band_common.cuh"
 #include "dropout.cuh"
-#include "gemm.cuh"
 #include "gemm_sm90.cuh"
 
 namespace {
@@ -680,22 +682,78 @@ int fused(const int8_t* mask, const void* x, const void* wq, const void* wk,
   return attention<T, GEO, true>(a, stream);
 }
 
+// qw[row, 4h + d] = Σ_k q[row, hC + k]·wblk[hC + k, 4h + d], rounded to
+// T: one thread per output, k ascending in one chain of fused multiply-adds
+// (the order of a plain f32 product over the block-diagonal wblk, whose
+// off-diagonal zeros add nothing, so f32 gives its bits); wblk's diagonal
+// blocks staged once a block in shared memory as f32, head h at h·(4C + 8)
+// + 4k + d (the pad puts a warp's 16 (head, d) pairs on distinct banks);
+// q the first H·C columns of qkv (row stride 3·H·C)
 template <typename T>
-int project(const void* x, const void* w, const float* bias, const void* wblk,
+__global__ void __launch_bounds__(256) qw_kernel(const T* __restrict__ qkv,
+                                                 const T* __restrict__ wblk,
+                                                 T* __restrict__ qw, int n,
+                                                 int heads, int c) {
+  extern __shared__ float wd[];
+  const int hc = heads * c, per = 4 * c + 8, outs = 4 * heads;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < 4 * hc; i += blockDim.x) {
+    const int col = i / 4, d = i % 4, h = col / c;
+    wd[h * per + 4 * (col % c) + d] = to_f(wblk[(size_t)col * outs + 4 * h + d]);
+  }
+  __syncthreads();
+  const long long total = (long long)n * outs;
+  for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x; t < total;
+       t += (long long)gridDim.x * blockDim.x) {
+    const int row = (int)(t / outs), j = (int)(t % outs), h = j / 4;
+    const T* q = qkv + (size_t)row * 3 * hc + (size_t)h * c;
+    const float* w = wd + h * per + j % 4;
+    float s = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < c; ++k) s = fmaf(to_f(q[k]), w[4 * k], s);
+    qw[t] = band::from_f<T>(s);
+  }
+}
+
+template <typename T>
+int project(const void* x, const void* wq, const void* wk, const void* wv,
+            const void* bq, const void* bk, const void* bv, const void* wblk,
             void* qkv, void* qw, int n_pad, int f, int heads, int c,
             cudaStream_t stream) {
   const int hc = heads * c;
-  // qkv = x·[Wq | Wk | Wv] + [bq | bk | bv]: A = x [n_pad, F] K-contiguous,
-  // B = W [F, 3·H·C] N-contiguous
-  cudaError_t err = gemm::matmul(
-      static_cast<const T*>(x), f, static_cast<const T*>(w), 3 * hc,
-      static_cast<T*>(qkv), 3 * hc, n_pad, 3 * hc, f, stream, bias);
+  T* out = static_cast<T*>(qkv);
+  const T* const ws[3] = {static_cast<const T*>(wq), static_cast<const T*>(wk),
+                          static_cast<const T*>(wv)};
+  const T* const bs[3] = {static_cast<const T*>(bq), static_cast<const T*>(bk),
+                          static_cast<const T*>(bv)};
+  // qkv = x·[Wq | Wk | Wv] + [bq | bk | bv] (gemm_sm90.cuh, as row 11's);
+  // bf16 forms qw in the q tiles' epilogue where it can
+  bool done = false;
+  cudaError_t err;
+  if constexpr (sizeof(T) == 2) {
+    done = sm90::fwd::qw_in_epilogue(hc, c);
+    err = sm90::run_proj_fwd_bf16(static_cast<const T*>(x), ws, bs, 3, out,
+                                  n_pad, f, hc, stream,
+                                  done ? static_cast<T*>(qw) : nullptr,
+                                  static_cast<const T*>(wblk), c);
+  } else {
+    err = sm90::f32::run_proj_fwd(static_cast<const T*>(x), ws, bs, 3, out,
+                                  n_pad, f, hc, stream);
+  }
+  if (err != cudaSuccess || done) return (int)err;
+  // persistent blocks, eight a SM, each staging wblk's diagonal blocks once
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const size_t smem = sizeof(float) * (size_t)heads * (4 * c + 8);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(qw_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
   if (err != cudaSuccess) return (int)err;
-  // qw = q·wblk, rounded to q's dtype: A = q (row stride 3·H·C)
-  return (int)gemm::matmul(
-      static_cast<const T*>(qkv), 3 * hc, static_cast<const T*>(wblk),
-      4 * heads, static_cast<T*>(qw), 4 * heads, n_pad, 4 * heads, hc,
-      stream);
+  const long long blocks = ((long long)n_pad * 4 * heads + 255) / 256;
+  qw_kernel<T><<<(int)(blocks < 8 * sms ? blocks : 8 * sms), 256, smem, stream>>>(
+      out, static_cast<const T*>(wblk), static_cast<T*>(qw), n_pad, heads, c);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -752,20 +810,26 @@ int banded_transformer_geo_mean_fused_launch(
   return (int)cudaErrorInvalidValue;
 }
 
-// The training path's projection.  x [n_pad, f], w [f, 3·heads·c] (Wq | Wk
-// | Wv), wblk [heads·c, heads·4] in dtype; bias f32 [3·heads·c]; qkv the
-// caller-allocated [n_pad, 3·heads·c] output, qw [n_pad, heads·4] in dtype.
+// The training path's projection.  x [n_pad, f], wq/wk/wv [f, heads·c],
+// bq/bk/bv [heads·c] and wblk [heads·c, heads·4] (only its diagonal head
+// blocks are read: qw[:, 4h + d] = q_h·wblk[hC:(h + 1)C, 4h + d]) in dtype
+// (f and heads·c multiples of 16 bytes' worth of elements, every pointer
+// 16-byte aligned); qkv the caller-allocated [n_pad, 3·heads·c] output, qw
+// [n_pad, heads·4] in dtype.  qw is formed in the q tiles' epilogue where
+// it can (bf16, C a multiple of 16 dividing 256), else by qw_kernel.
 // Returns the CUDA error code of the launches.
-int transformer_project_launch(const void* x, const void* w, const float* bias,
-                               const void* wblk, void* qkv, void* qw,
-                               int n_pad, int f, int heads, int c, int dtype,
-                               void* stream) {
+int transformer_project_launch(const void* x, const void* wq, const void* wk,
+                               const void* wv, const void* bq, const void* bk,
+                               const void* bv, const void* wblk, void* qkv,
+                               void* qw, int n_pad, int f, int heads, int c,
+                               int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return project<float>(x, w, bias, wblk, qkv, qw, n_pad, f, heads, c, st);
+    return project<float>(x, wq, wk, wv, bq, bk, bv, wblk, qkv, qw, n_pad, f,
+                          heads, c, st);
   if (dtype == 1)
-    return project<__nv_bfloat16>(x, w, bias, wblk, qkv, qw, n_pad, f, heads,
-                                  c, st);
+    return project<__nv_bfloat16>(x, wq, wk, wv, bq, bk, bv, wblk, qkv, qw,
+                                  n_pad, f, heads, c, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,7 @@
 // Matrix products on Hopper (header only): the projection backward
-// (fold_project_bwd.cu), and the forward projection of row 11's q/k/v
-// (banded_transformer.cu) and row 1's z (banded_gat.cu).  Only the
-// Transformer training path's projection, transformer_project, stays on
-// gemm.cuh.
+// (fold_project_bwd.cu), and the forward projection of the Transformer's
+// q/k/v (row 11 and the training path's transformer_project,
+// banded_transformer.cu) and row 1's z (banded_gat.cu).
 //
 // The projection backward: one persistent launch computes both products
 //
@@ -44,10 +43,15 @@
 //
 //   out [N, nw·H·C] = x [N, F] · [W0 | … | W(nw−1)] (+ [b0 | … ])
 //
-// for nw 3 (row 11's q|k|v, with the biases) or 1 (row 1's z, no bias),
-// from the weights [F, H·C] as they are (one TMA map each, no
+// for nw 3 (the Transformer's q|k|v, with the biases) or 1 (row 1's z, no
+// bias), from the weights [F, H·C] as they are (one TMA map each, no
 // concatenated copy), f32 accumulate, the bias (x's dtype) added in f32,
-// one rounding to x's dtype.  bf16: one persistent launch, at most one
+// one rounding to x's dtype.  The training path also asks for qw = q·wblk
+// ([N, H·4], wblk block-diagonal [H·C, H·4]): in bf16, when C is a
+// multiple of 16 dividing the 256-column tile, each q tile's epilogue
+// forms it from the rounded tile it has staged in shared memory
+// (mma.m16n8k16 over k16 chunks, one rounding), so q is not read again.
+// bf16: one persistent launch, at most one
 // block per SM, walking output tiles of 128 rows × 256 columns of one
 // weight (one head of q, k, v or z at C 256), column tile fastest so the
 // blocks running at once share x's rows in L2; x K-major (row 6's dx
@@ -667,18 +671,99 @@ static_assert(A_BYTES + B_BYTES <= kStageBytes, "stage too small");
 constexpr int kFwdStages = 3;
 constexpr int kOutBytes = BM * BN * 2;
 constexpr int kFwdSmemBytes = kFwdStages * kStageBytes + kOutBytes + 1024 + 2 * kFwdStages * 8;
+constexpr int kSmemMax = 232448;   // dynamic shared memory a block may use
 
-// the walk: tile id → row tile tm, weight m, first column col0 (ids column
-// tile fastest)
+// qw in the q tiles' epilogue: C a multiple of 16 dividing the tile, and
+// wblk's diagonal blocks (8 bytes a column) staged beside the ring
+inline bool qw_in_epilogue(int hc, int c) {
+  return c >= 16 && c % 16 == 0 && BN % c == 0 && hc % c == 0
+         && kFwdSmemBytes + 8 * hc <= kSmemMax;
+}
+
+// the walk (tile_of) and the epilogue's arguments
 struct Proj {
   const __nv_bfloat16* bias[3];   // [hc] each, or null: no bias
   int n, f, hc, nw, tpm, tiles;   // nw weights; tpm: column tiles per weight
+  __nv_bfloat16* qw;              // [n, H·4], or null: no qw
+  const __nv_bfloat16* wblk;      // [hc, H·4] block-diagonal
+  int c;                          // a head's columns (divides BN)
 };
 
+// qw[row, 4h + d] = Σ_k q[row, hC + k]·wblk[hC + k, 4h + d] for the heads
+// of q tile (tm, col0), from its staged rounded values and wblk's diagonal
+// blocks staged in shared memory (wdiag[col]: the 4 values of column col's
+// head), on the tensor cores: consumer warp w takes rows 16w … 16w + 15,
+// and per head its C/16 column chunks in ascending order, each one
+// mma.m16n8k16 (A by ldmatrix from the swizzled tile, B the chunk's 16 × 4
+// values padded to 8 columns with zeros) into f32, then one rounding.
+// That is the order and the instruction of a bf16 tensor-core product
+// q·wblk over k16 chunks (wblk's off-diagonal zeros add nothing).
+__device__ __forceinline__ void qw_epilogue(const Proj& p, const uint8_t* staged,
+                                            const uint2* wdiag, int tm, int col0,
+                                            int tid) {
+  const int warp = tid / 32, lane = tid % 32;
+  const int heads4 = 4 * (p.hc / p.c);
+  // ldmatrix.x4: lane l gives row l % 8 (+ 8 for l / 8 odd) of the 8 × 8
+  // matrix l / 8: (rows 0–7, k 0–7), (8–15, 0–7), (0–7, 8–15), (8–15, 8–15)
+  const int r_ld = 16 * warp + lane % 8 + 8 * ((lane / 8) % 2), k_ld = 8 * (lane / 16);
+  const int n = lane / 4, kq = 2 * (lane % 4);   // B's column, A/B's k pair
+  for (int lh = 0; lh < BN / p.c; ++lh) {
+    const int head = col0 / p.c + lh;
+    if ((head + 1) * p.c > p.hc) break;   // past the last head: the tile's ragged edge
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k0 = lh * p.c; k0 < (lh + 1) * p.c; k0 += 16) {
+      const int cc = k0 + k_ld;
+      const uint32_t addr = smem_u32(staged + (cc / 64) * (BM * 128) + r_ld * 128 +
+                                     ((((cc % 64) / 8) ^ (r_ld % 8)) << 4));
+      uint32_t a0, a1, a2, a3;
+      asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+                   : "=r"(a0), "=r"(a1), "=r"(a2), "=r"(a3) : "r"(addr));
+      // B[k][n] = wblk[col0 + k0 + k, 4·head + n] for n < 4, else 0: a
+      // register holds rows kq, kq + 1 (b0) and kq + 8, kq + 9 (b1)
+      uint32_t b[2] = {0u, 0u};
+      if (n < 4) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint2 w0 = wdiag[col0 + k0 + kq + 8 * h];
+          const uint2 w1 = wdiag[col0 + k0 + kq + 8 * h + 1];
+          const uint32_t e0 = n < 2 ? w0.x : w0.y, e1 = n < 2 ? w1.x : w1.y;
+          b[h] = (n % 2 ? e0 >> 16 : e0 & 0xffffu) | (n % 2 ? e1 & 0xffff0000u : e1 << 16);
+        }
+      }
+      asm volatile(
+          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+          : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
+          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b[0]), "r"(b[1]));
+    }
+    // acc: rows 16w + lane/4 (acc 0, 1) and + 8 (acc 2, 3), columns kq, kq +
+    // 1: the 4 real columns sit in lanes with kq < 4
+    if (kq < 4) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = tm * BM + 16 * warp + lane / 4 + 8 * h;
+        if (row < p.n)
+          *reinterpret_cast<uint32_t*>(p.qw + (size_t)row * heads4 + 4 * head + kq) =
+              __bfloat16_as_ushort(__float2bfloat16_rn(acc[2 * h])) |
+              (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(acc[2 * h + 1])) << 16;
+      }
+    }
+  }
+}
+
+// Tile id → (row tile tm, weight m, first column col0): the ids of a row
+// tile are its nw·tpm column tiles, column tile fastest.  With qw the
+// weights are rotated by tm, so that a grid that is a multiple of nw·tpm
+// (132 blocks, 12 tiles a row) does not give every q tile, and so every
+// qw epilogue, to the same third of the blocks: a block's weight then
+// steps through all nw.  Without qw the rotation is left out: it cost row
+// 11's projection 7 µs (kernels/rowtime.py on the H100), the blocks no
+// longer keeping one weight's slice each.
 __device__ __forceinline__ void tile_of(const Proj& p, int id, int& tm, int& m,
                                         int& col0) {
-  const int per_row = p.nw * p.tpm, j = id % per_row;
+  const int per_row = p.nw * p.tpm;
   tm = id / per_row;
+  const int j = (id % per_row + (p.qw != nullptr ? tm * p.tpm : 0)) % per_row;
   m = j / p.tpm;
   col0 = (j % p.tpm) * BN;
 }
@@ -707,6 +792,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint8_t* staged = smem + kFwdStages * kStageBytes;
   uint64_t* full = reinterpret_cast<uint64_t*>(staged + kOutBytes);
   uint64_t* empty = full + kFwdStages;
+  uint2* wdiag = reinterpret_cast<uint2*>(empty + kFwdStages);   // [hc] with qw
   if (threadIdx.x == 0) {
     for (int s = 0; s < kFwdStages; ++s) {
       mbar_init(&full[s], 1);
@@ -746,6 +832,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32,
             lane = tid % 32;
+  if (p.qw != nullptr) {   // read after the first epilogue's consumers_sync
+    const int heads4 = 4 * (p.hc / p.c);
+    for (int col = tid; col < p.hc; col += 256)
+      wdiag[col] = __ldg(reinterpret_cast<const uint2*>(
+          p.wblk + (size_t)col * heads4 + 4 * (col / p.c)));
+  }
   for (int id = blockIdx.x; id < p.tiles; id += gridDim.x) {
     int tm, m, col0;
     tile_of(p, id, tm, m, col0);
@@ -816,6 +908,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         tma_store(om, staged + a * (BM * 128), col0 + a * 64, tm * BM);
       asm volatile("cp.async.bulk.commit_group;" ::: "memory");
     }
+    // qw from the staged q tile while the TMA store reads it; the next
+    // tile's epilogue rewrites the staging only after every consumer has
+    // passed its consumers_sync
+    if (p.qw != nullptr && m == 0) qw_epilogue(p, staged, wdiag, tm, col0, tid);
   }
   if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
@@ -825,13 +921,19 @@ __global__ void __launch_bounds__(kThreads, 1)
 // out = x·[W0 | … | W(nw−1)] (+ [b0 | … ]) in bf16 on persistent blocks,
 // one per SM or one per tile if fewer (x [n, f], each W [f, hc], f and hc
 // multiples of 8; out [n, nw·hc]; nw 1 or 3; b null: no bias, else each
-// b[i] [hc])
+// b[i] [hc]); qw (null: none) [n, H·4] = q·wblk from the q tiles, q = out's
+// first hc columns, heads of c columns (fwd::qw_in_epilogue(hc, c); wblk
+// [hc, H·4] and qw 8-byte aligned)
 inline cudaError_t run_proj_fwd_bf16(const __nv_bfloat16* x,
                                      const __nv_bfloat16* const* w,
                                      const __nv_bfloat16* const* b, int nw,
                                      __nv_bfloat16* out, int n, int f, int hc,
-                                     cudaStream_t s) {
+                                     cudaStream_t s, __nv_bfloat16* qw = nullptr,
+                                     const __nv_bfloat16* wblk = nullptr,
+                                     int c = 0) {
   if (nw < 1 || nw > 3) return cudaErrorInvalidValue;
+  if (qw != nullptr && (!fwd::qw_in_epilogue(hc, c) || wblk == nullptr))
+    return cudaErrorInvalidValue;
   CUtensorMap m[7];
   // x [n, f] K-major in 128 × 64 boxes; each W [f, hc] MN-major in atoms of
   // 64 columns × 64 K rows; each weight's output columns of out (row stride
@@ -848,20 +950,20 @@ inline cudaError_t run_proj_fwd_bf16(const __nv_bfloat16* x,
   }
   const int tpm = (hc + fwd::BN - 1) / fwd::BN;
   fwd::Proj p{{nullptr, nullptr, nullptr}, n, f, hc, nw, tpm,
-              ((n + fwd::BM - 1) / fwd::BM) * nw * tpm};
+              ((n + fwd::BM - 1) / fwd::BM) * nw * tpm, qw, wblk, c};
   if (b != nullptr)
     for (int i = 0; i < nw; ++i) p.bias[i] = b[i];
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int smem = fwd::kFwdSmemBytes + (qw != nullptr ? 8 * hc : 0);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(fwd::proj_fwd_bf16_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               fwd::kFwdSmemBytes);
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int grid = p.tiles < sms ? p.tiles : sms;
-  fwd::proj_fwd_bf16_kernel<<<grid, kThreads, fwd::kFwdSmemBytes, s>>>(
+  fwd::proj_fwd_bf16_kernel<<<grid, kThreads, smem, s>>>(
       m[0], m[1], m[2], m[3], m[4], m[5], m[6], p);
   return cudaGetLastError();
 }

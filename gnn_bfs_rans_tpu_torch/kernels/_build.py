@@ -8,7 +8,8 @@ its source is newer.  A failed build raises.
 
 ``LAUNCHES`` counts launches per kernel wrapper, added only where the
 wrapper launches on the card (never for the plain CPU version): one count
-per ``pallas_call`` site of the TPU kernel it replaces, or per call for
+per ``pallas_call`` site of the TPU kernel it replaces (so two per call of
+``fused_epilogue_bwd``, whose one launch replaces two), or per call for
 ``transformer_project`` (XLA products in the JAX package).
 """
 

@@ -28,8 +28,8 @@
   ``banded_bwd.fold_partials`` (row 7).
   ``banded_transformer_geo_mean_projgrad``: the training path of the geo
   head-mean conv, the q/k/v projections inside the op
-  (``transformer_project`` on ``gemm.cuh``), its backward rows 10, 7 and
-  6.  ``banded_transformer_geo_mean_fused`` (row 11) projects q/k/v in the
+  (``transformer_project`` on ``csrc/gemm_sm90.cuh``, qw = q·wblk formed
+  from its q tiles), its backward rows 10, 7 and 6.  ``banded_transformer_geo_mean_fused`` (row 11) projects q/k/v in the
   launch (``csrc/gemm_sm90.cuh``: one wgmma launch fed by TMA in bf16),
   eval only.  Rows 9 and 11 in ``csrc/banded_transformer.cu``.
 
@@ -779,53 +779,69 @@ def banded_transformer_fwd(bias_noself, q, k, v, heads, edge=None, qw=None,
                               mean_heads, dropout_rate, seed)
 
 
-def transformer_project_plain(x, w, b, wblk):
+def _qw_plain(q, wblk, heads):
+    """q·wblk over wblk's diagonal head blocks only, f32 accumulate:
+    qw[:, 4h + d] = q_h·wblk[hC:(h + 1)C, 4h + d] (what the kernels read;
+    the block-diagonal wblk the conv builds gives q·wblk)."""
+    c = q.shape[1] // heads
+    blocks = wblk.float().reshape(heads, c, heads, 4).diagonal(0, 0, 2)
+    return torch.einsum("nhc,cdh->nhd", q.float().reshape(-1, heads, c),
+                        blocks).reshape(-1, heads * 4)
+
+
+def transformer_project_plain(x, wq, wk, wv, bq, bk, bv, wblk):
     """Plain PyTorch version of :func:`transformer_project`."""
-    hc = w.shape[1] // 3
-    qkv = (x.float() @ w.float() + b).to(x.dtype)
-    return qkv, (qkv[:, :hc].float() @ wblk.float()).to(x.dtype)
+    qkv = torch.cat([(x.float() @ w.float() + b.float()).to(x.dtype)
+                     for w, b in ((wq, bq), (wk, bk), (wv, bv))], 1)
+    heads = wblk.shape[1] // 4
+    return qkv, _qw_plain(qkv[:, :wq.shape[1]], wblk, heads).to(x.dtype)
 
 
-def transformer_project(x, w, b, wblk):
+def transformer_project(x, wq, wk, wv, bq, bk, bv, wblk):
     """The q/k/v projection of ``banded_transformer_geo_mean_projgrad``:
-    (qkv [N, 3·H·C] = x·w + b, f32 accumulate, the f32 bias added in f32,
-    one rounding to x's dtype; qw = q·wblk [N, H·4], f32 accumulate,
-    rounded to x's dtype).  ``w`` [F, 3·H·C] (Wq | Wk | Wv) and ``wblk``
-    in x's dtype, ``b`` f32.  Plain version for CPU tensors, ``gemm.cuh``
-    on the card (or a raise)."""
+    (qkv [N, 3·H·C] = x·[Wq | Wk | Wv] + [bq | bk | bv], f32 accumulate, the
+    bias added in f32, one rounding to x's dtype; qw = q·wblk [N, H·4] over
+    wblk's diagonal head blocks, f32 accumulate, rounded to x's dtype).
+    ``wq``, ``wk``, ``wv`` [F, H·C], ``bq``, ``bk``, ``bv`` [H·C] and
+    ``wblk`` [H·C, H·4] in x's dtype; wblk's off-diagonal blocks are not
+    read (the conv's wblk is block-diagonal).  Plain version for CPU
+    tensors; on the card row 11's projection launch
+    (``csrc/gemm_sm90.cuh``), qw formed in its q tiles' epilogue (bf16, C a
+    multiple of 16 dividing 256) or by a kernel over the written q."""
     if x.device.type == "cpu":
-        return transformer_project_plain(x, w, b, wblk)
+        return transformer_project_plain(x, wq, wk, wv, bq, bk, bv, wblk)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     n, f = x.shape
-    hc3 = w.shape[1]
+    hc = wq.shape[1]
     heads = wblk.shape[1] // 4
-    for name, t in (("w", w), ("b", b), ("wblk", wblk)):
+    named = (("x", x), ("wq", wq), ("wk", wk), ("wv", wv), ("bq", bq),
+             ("bk", bk), ("bv", bv), ("wblk", wblk))
+    for name, t in named:
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x.device}")
-    if (x.dtype not in _DTYPE_CODE or w.dtype != x.dtype
-            or wblk.dtype != x.dtype or b.dtype != torch.float32):
-        raise TypeError("x, w and wblk must share float32 or bfloat16; b "
-                        "float32")
-    if (not x.is_contiguous() or w.shape[0] != f or hc3 % 3
-            or b.shape != (hc3,) or wblk.shape != (hc3 // 3, 4 * heads)):
+        if t.dtype != x.dtype or x.dtype not in _DTYPE_CODE:
+            raise TypeError("x, the weights, the biases and wblk must share "
+                            "float32 or bfloat16")
+    if (any(w.shape != (f, hc) for w in (wq, wk, wv))
+            or any(b.shape != (hc,) for b in (bq, bk, bv))
+            or heads < 1 or hc % heads or wblk.shape != (hc, 4 * heads)):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w "
-                         f"{tuple(w.shape)}, b {tuple(b.shape)}, wblk "
-                         f"{tuple(wblk.shape)}")
-    if any(t.data_ptr() % 16 for t in (x, w, wblk)) or (
-            x.dtype == torch.bfloat16 and (f % 8 or hc3 % 24)):
-        raise ValueError("the projection loads 16-byte chunks: F and H·C "
-                         "must be multiples of 8 (bf16) and x, w, wblk "
-                         "16-byte aligned")
-    qkv = torch.empty((n, hc3), dtype=x.dtype, device=x.device)
+                         f"{tuple(wq.shape)}, wblk {tuple(wblk.shape)}")
+    vec = 16 // x.element_size()
+    if any(t.data_ptr() % 16 for _, t in named) or f % vec or hc % vec:
+        raise ValueError(f"the projection loads 16-byte rows: F and H·C "
+                         f"must be multiples of {vec} and every input "
+                         f"16-byte aligned")
+    qkv = torch.empty((n, 3 * hc), dtype=x.dtype, device=x.device)
     qw = torch.empty((n, 4 * heads), dtype=x.dtype, device=x.device)
     lib = _build.bind(TRANSFORMER_KERNEL, "transformer_project_launch",
-                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                      [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                       + [ctypes.c_void_p])
     rc = lib.transformer_project_launch(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), wblk.data_ptr(),
-        qkv.data_ptr(), qw.data_ptr(), n, f, heads, hc3 // 3 // heads,
-        _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        *(t.data_ptr() for _, t in named), qkv.data_ptr(), qw.data_ptr(), n,
+        f, heads, hc // heads, _DTYPE_CODE[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "transformer_project")
     _build.LAUNCHES["transformer_project"] += 1
     return qkv, qw
@@ -845,14 +861,13 @@ class _TransformerProjgrad(torch.autograd.Function):
     def forward(ctx, bias_noself, geo, pos, x, wq, wk, wv, bq, bk, bv, wblk,
                 heads, dropout_rate, seed):
         hc = wq.shape[1]
-        w = torch.cat([wq, wk, wv], 1)
-        qkv, qw = transformer_project(x, w, torch.cat([bq, bk, bv]).float(),
-                                      wblk)
+        qkv, qw = transformer_project(x, wq, wk, wv, bq, bk, bv, wblk)
         out, s = _transformer_fwd(bias_noself, qkv[:, :hc], qkv[:, hc:2 * hc],
                                   qkv[:, 2 * hc:], heads, qw=qw, geo=geo,
                                   pos=pos, mean_heads=True,
                                   dropout_rate=dropout_rate, seed=seed)
-        ctx.save_for_backward(bias_noself, geo, pos, x, w, qkv, qw, wblk, seed)
+        ctx.save_for_backward(bias_noself, geo, pos, x, wq, wk, wv, qkv, qw,
+                              wblk, seed)
         ctx.args = (heads, dropout_rate, wq.dtype, bq.dtype)
         return out, s
 
@@ -861,9 +876,10 @@ class _TransformerProjgrad(torch.autograd.Function):
         from .banded_bwd import (banded_transformer_bwd, fold_partials,
                                  fold_project_bwd)
 
-        bias_noself, geo, pos, x, w, qkv, qw, wblk, seed = ctx.saved_tensors
+        (bias_noself, geo, pos, x, wq, wk, wv, qkv, qw, wblk,
+         seed) = ctx.saved_tensors
         heads, dropout_rate, w_dt, b_dt = ctx.args
-        hc = w.shape[1] // 3
+        hc = wq.shape[1]
         q, k, v = qkv[:, :hc], qkv[:, hc:2 * hc], qkv[:, 2 * hc:]
         dq, dk_part, dv_part, dqw = banded_transformer_bwd(
             bias_noself, q, k, v, g.to(q.dtype).contiguous(), heads, qw=qw,
@@ -877,7 +893,8 @@ class _TransformerProjgrad(torch.autograd.Function):
         tile = bias_noself.shape[1]
         fold_partials(dk_part, tile, out=dz[:, hc:2 * hc])
         fold_partials(dv_part, tile, out=dz[:, 2 * hc:])
-        dx, dw, db = fold_project_bwd(dz, x, w, with_bias=True)
+        dx, dw, db = fold_project_bwd(dz, x, torch.cat([wq, wk, wv], 1),
+                                      with_bias=True)
         cols = [slice(i * hc, (i + 1) * hc) for i in range(3)]
         return (None, None, None, dx, *(dw[:, c].to(w_dt) for c in cols),
                 *(db[c].to(b_dt) for c in cols), dwblk.to(wblk.dtype), None,
@@ -890,9 +907,10 @@ def banded_transformer_geo_mean_projgrad(bias_noself, geo, pos, x, wq, wk,
     """The geo head-mean Transformer with the q/k/v projections inside the
     op (the JAX package's op of that name) → (out [N, C], s [N, H·4]).
     ``wq``, ``wk``, ``wv`` [F, H·C], ``bq``, ``bk``, ``bv`` [H·C] and the
-    block-diagonal ``wblk`` [H·C, H·4] in x's dtype; attention dropout at
-    ``dropout_rate`` from ``seed``.  Differentiable in x, the weights, the
-    biases and wblk."""
+    block-diagonal ``wblk`` [H·C, H·4] in x's dtype (the forward reads its
+    diagonal head blocks only; the backward is the JAX op's, dwblk = qᵀ·dqw
+    in full); attention dropout at ``dropout_rate`` from ``seed``.
+    Differentiable in x, the weights, the biases and wblk."""
     return _TransformerProjgrad.apply(bias_noself, geo, pos, x.contiguous(),
                                       wq, wk, wv, bq, bk, bv,
                                       wblk.contiguous(), heads, dropout_rate,
@@ -904,11 +922,12 @@ def banded_transformer_geo_mean_fused_plain(bias_noself, geo_band, pos, x,
                                             heads):
     """Plain PyTorch version of row 11: q/k/v = x·W + b (f32 accumulate,
     the bias in x's dtype added in f32, one rounding to x's dtype), qw =
-    q·wblk kept in f32, then row 9's geo-mean attention."""
+    q·wblk over wblk's diagonal head blocks kept in f32, then row 9's
+    geo-mean attention."""
     dt = x.dtype
     q, k, v = ((x.float() @ w.float() + b.float()).to(dt)
                for w, b in ((wq, bq), (wk, bk), (wv, bv)))
-    qw = q.float() @ wblk.float()
+    qw = _qw_plain(q, wblk, heads)
     return banded_transformer_fwd_plain(bias_noself, q, k, v, heads, qw=qw,
                                         geo=geo_band, pos=pos,
                                         mean_heads=True)
@@ -919,8 +938,9 @@ def banded_transformer_geo_mean_fused(bias_noself, geo_band, pos, x, wq, wk,
     """Row 11: row 9's geo head-mean form with the q/k/v (and
     qw = q·wblk) projections in the launch → (out [N, C], s [N, H·4]).
     ``wq``, ``wk``, ``wv`` [F, H·C], ``bq``, ``bk``, ``bv`` [H·C] and
-    ``wblk`` [H·C, H·4] in x's dtype.  Plain version for CPU tensors, the
-    CUDA kernel for CUDA tensors (or a raise)."""
+    ``wblk`` [H·C, H·4] in x's dtype (only its diagonal head blocks are
+    read, as by :func:`transformer_project`).  Plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors (or a raise)."""
     args = (bias_noself, geo_band, pos, x, wq, wk, wv, bq, bk, bv, wblk,
             heads)
     if torch.is_grad_enabled() and any(

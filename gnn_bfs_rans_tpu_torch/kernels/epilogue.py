@@ -2,30 +2,28 @@
 backward.
 
 Counterpart of ``gnn_bfs_rans_tpu/kernels/epilogue.py::fused_epilogue``
-(forward ``_fused_fwd_impl``, custom VJP ``_fused_vjp_bwd``).  Triton
-kernels replace its four Pallas calls:
+(forward ``_fused_fwd_impl``, custom VJP ``_fused_vjp_bwd``).
 
-forward
+forward (row 2), Triton kernels for its two Pallas calls:
   * ``_res_stats_kernel`` (was ``_res_stats_kernel``, ``epilogue.py:223``):
     xr = x + x_new, stored, plus per-block masked column sums Σxr and Σxr²
     over rows ``< n_valid``;
   * ``_affine_relu_kernel`` (was ``_fwd_kernel``, ``epilogue.py:240``):
     y = dropout(relu((xr − m̃)·a + b̃)) in xr's dtype;
-backward
-  * ``_bwd_partials_kernel`` (was ``_bwd_partials_kernel``, ``:269``):
-    g1 = g ⊙ keep/(1 − rate) ⊙ [y_pre > 0] recomputed from (xr, stats,
-    seed), per-block column sums Σg1 and Σg1·x̂ over ALL rows;
-  * ``_bwd_dx_kernel`` (was ``_bwd_dx_kernel``, ``:283``):
-    dxr = a·(g1 − G1/n − x̂·G2/n) on rows < n_valid, a·g1 on pad rows.
-
-Between each pair a one-program-per-column-block ``_finalize_kernel`` /
-``_bwd_finalize_kernel`` does what XLA does there in the JAX package: folds
-the block partials (in block order: deterministic, no atomics) and forms
-the per-channel vectors.  Forward: mean = Σxr/n, var = max(Σxr²/n − mean²,
-0) (the fused E[x²] − E[x]² form), a = γ·rsqrt(var + ε), m̃ the mean rounded
-to xr's dtype, b̃ = β + (m̃ − mean)·a (``_make_vec``); backward: dbias = G1,
-dscale = G2 and G1/n, G2/n.  The two folds replace a dozen small tensor ops
-on the host each (0.37–0.50 ms of host time per call, measured on the card).
+  between them a one-program-per-column-block ``_finalize_kernel`` does
+  what XLA does there in the JAX package: folds the block partials (in
+  block order: deterministic, no atomics) and forms mean = Σxr/n, var =
+  max(Σxr²/n − mean², 0) (the fused E[x²] − E[x]² form), a = γ·rsqrt(var +
+  ε), m̃ the mean rounded to xr's dtype, b̃ = β + (m̃ − mean)·a
+  (``_make_vec``).  The fold replaces a dozen small tensor ops on the host
+  (0.37–0.50 ms of host time per call, measured on the card).
+backward (row 3), one cooperative CUDA launch for its two Pallas calls
+(``_bwd_partials_kernel``, ``:269``; ``_bwd_dx_kernel``, ``:283``) and the
+fold between them: ``csrc/epilogue_bwd.cu``.  g1 = g ⊙ keep/(1 − rate) ⊙
+[y_pre > 0] recomputed from (xr, the vectors, seed), column sums G1 = Σg1
+and G2 = Σg1·x̂ over ALL rows (dbias, dscale), then dxr = a·(g1 − G1/n −
+x̂·G2/n) on rows < n_valid, a·g1 on pad rows; g and xr are read once and
+held in shared memory across a grid-wide barrier (the source's header).
 
 Dropout draws from the hash stream of :mod:`.dropout` with the JAX
 package's keys: element (row mod B)·C + c of stream seed + row // B, where
@@ -33,22 +31,24 @@ B is the JAX package's row block (``_pick_block``).  The Triton copy of the
 hash is ``_keep`` below.  The drop scale 1/(1 − rate) is rounded to xr's
 dtype, as the JAX package's weakly typed scalar is.
 
-Every launch passes ``enable_fp_fusion=False``: Triton would otherwise
-contract (xr − m̃)·a + b̃ into one fused multiply-add (in bf16 too, once
-LLVM narrows the f32 products to bf16), rounding once where the plain
-version and the JAX package round twice.  That moves many bf16 outputs by
-one ulp and, through the ReLU predicate the backward recomputes, sends
-hundreds of gradient entries down the other branch of the ReLU than the
-plain version takes.
+Every Triton launch passes ``enable_fp_fusion=False``: Triton would
+otherwise contract (xr − m̃)·a + b̃ into one fused multiply-add (in bf16
+too, once LLVM narrows the f32 products to bf16), rounding once where the
+plain version and the JAX package round twice.  That moves many bf16
+outputs by one ulp and, through the ReLU predicate the backward
+recomputes, sends hundreds of gradient entries down the other branch of
+the ReLU than the plain version takes.  The CUDA backward writes its
+arithmetic with ``__fsub_rn``/``__fmul_rn``/``__fadd_rn`` for the same
+reason.
 
 What bounds it on an H100: memory.  Forward: x, x_new read, xr written and
-read, y written; backward: g and xr read twice, dxr written — ~31 MB per
-pass pair at [12,032, 256] bf16 (~9 µs at 3.35 TB/s); the arithmetic is a
-few operations per element.  Each pass streams its row blocks once with
-wide coalesced loads.  No single PyTorch call computes this masked-
+read, y written (~31 MB at [12,032, 256] bf16); backward: g and xr read
+once, dxr written (18.5 MB, 5.5 µs at 3.35 TB/s); the arithmetic is a few
+operations per element.  No single PyTorch call computes this masked-
 statistics form.
 """
 
+import ctypes
 import functools
 
 import torch
@@ -70,7 +70,6 @@ _MEAN_LO, _EFF_SCALE, _EFF_BIAS, _INV_STD = 0, 1, 2, 3
 triton = None
 tl = None
 _keep = None
-_g1_xhat = None
 
 
 def pick_block(n_pad: int, feat: int, itemsize: int = 4) -> int:
@@ -170,7 +169,7 @@ def fused_epilogue_bwd_plain(g, xr, vec, mean, n_valid: int, rate: float,
 
 @functools.cache
 def _kernels():
-    global triton, tl, _keep, _g1_xhat
+    global triton, tl, _keep
     import triton
     import triton.language as tl
 
@@ -260,89 +259,15 @@ def _kernels():
         tl.store(vec_ptr + 2 * C + cols, b, mask=cm)
         tl.store(vec_ptr + 3 * C + cols, inv_std, mask=cm)
 
-    @triton.jit
-    def _g1_xhat(g_ptr, xr_ptr, vec_ptr, mean_ptr, seed_ptr, rows, cols, cm,
-                 inb, offs, C, B, thresh, scale, DROPOUT: tl.constexpr):
-        # g1 = g ⊙ keep/(1 − rate) ⊙ [y_pre > 0] in f32, and x̂ = (xr − μ)·inv_std
-        dt = xr_ptr.dtype.element_ty
-        xr = tl.load(xr_ptr + offs, mask=inb, other=0.0)
-        m = tl.load(vec_ptr + cols, mask=cm, other=0.0).to(dt)
-        a = tl.load(vec_ptr + C + cols, mask=cm, other=0.0).to(dt)
-        b = tl.load(vec_ptr + 2 * C + cols, mask=cm, other=0.0).to(dt)
-        t = (xr.to(tl.float32) - m[None, :].to(tl.float32)).to(dt)
-        t = (t.to(tl.float32) * a[None, :].to(tl.float32)).to(dt)
-        y = (t.to(tl.float32) + b[None, :].to(tl.float32)).to(dt)
-        g = tl.load(g_ptr + offs, mask=inb, other=0.0).to(dt)
-        if DROPOUT:
-            keep = _keep(tl.load(seed_ptr), rows[:, None], cols[None, :], C,
-                         B, thresh)
-            g = tl.where(keep, (g.to(tl.float32) * scale).to(dt), 0.0).to(dt)
-        g1 = tl.where(y.to(tl.float32) > 0.0, g.to(tl.float32), 0.0)
-        mean = tl.load(mean_ptr + cols, mask=cm, other=0.0)
-        inv_std = tl.load(vec_ptr + 3 * C + cols, mask=cm, other=0.0)
-        xhat = (xr.to(tl.float32) - mean[None, :]) * inv_std[None, :]
-        return g1, xhat
+    return triton, _res_stats_kernel, _finalize_kernel, _affine_relu_kernel
 
-    @triton.jit
-    def _bwd_partials_kernel(g_ptr, xr_ptr, vec_ptr, mean_ptr, seed_ptr,
-                             part_ptr, n_rows, C, B, thresh, scale,
-                             DROPOUT: tl.constexpr, BLOCK_R: tl.constexpr,
-                             BLOCK_C: tl.constexpr):
-        pid = tl.program_id(0)
-        rows = pid * BLOCK_R + tl.arange(0, BLOCK_R)
-        cols = tl.arange(0, BLOCK_C)
-        cm = cols < C
-        inb = (rows[:, None] < n_rows) & cm[None, :]
-        offs = rows[:, None] * C + cols[None, :]
-        g1, xhat = _g1_xhat(g_ptr, xr_ptr, vec_ptr, mean_ptr, seed_ptr, rows,
-                            cols, cm, inb, offs, C, B, thresh, scale, DROPOUT)
-        g1 = tl.where(inb, g1, 0.0)
-        tl.store(part_ptr + pid * 2 * C + cols, tl.sum(g1, axis=0), mask=cm)
-        tl.store(part_ptr + pid * 2 * C + C + cols, tl.sum(g1 * xhat, axis=0),
-                 mask=cm)
 
-    @triton.jit
-    def _bwd_finalize_kernel(part_ptr, gvec_ptr, dscale_ptr, dbias_ptr, G, C,
-                             n, BLOCK_G: tl.constexpr, BLOCK_C: tl.constexpr):
-        cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cm = cols < C
-        s1 = tl.zeros([BLOCK_C], dtype=tl.float32)
-        s2 = tl.zeros([BLOCK_C], dtype=tl.float32)
-        for g0 in range(0, G, BLOCK_G):
-            gs = g0 + tl.arange(0, BLOCK_G)
-            inb = (gs[:, None] < G) & cm[None, :]
-            offs = gs[:, None] * 2 * C + cols[None, :]
-            s1 += tl.sum(tl.load(part_ptr + offs, mask=inb, other=0.0), axis=0)
-            s2 += tl.sum(tl.load(part_ptr + C + offs, mask=inb, other=0.0),
-                         axis=0)
-        tl.store(dbias_ptr + cols, s1, mask=cm)
-        tl.store(dscale_ptr + cols, s2, mask=cm)
-        tl.store(gvec_ptr + cols, s1 / n, mask=cm)
-        tl.store(gvec_ptr + C + cols, s2 / n, mask=cm)
+_BWD_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 
-    @triton.jit
-    def _bwd_dx_kernel(g_ptr, xr_ptr, vec_ptr, mean_ptr, seed_ptr, gvec_ptr,
-                       dx_ptr, n_rows, n_valid, C, B, thresh, scale,
-                       DROPOUT: tl.constexpr, BLOCK_R: tl.constexpr,
-                       BLOCK_C: tl.constexpr):
-        pid = tl.program_id(0)
-        rows = pid * BLOCK_R + tl.arange(0, BLOCK_R)
-        cols = tl.arange(0, BLOCK_C)
-        cm = cols < C
-        inb = (rows[:, None] < n_rows) & cm[None, :]
-        offs = rows[:, None] * C + cols[None, :]
-        g1, xhat = _g1_xhat(g_ptr, xr_ptr, vec_ptr, mean_ptr, seed_ptr, rows,
-                            cols, cm, inb, offs, C, B, thresh, scale, DROPOUT)
-        a = tl.load(vec_ptr + C + cols, mask=cm, other=0.0)
-        g1n = tl.load(gvec_ptr + cols, mask=cm, other=0.0)
-        g2n = tl.load(gvec_ptr + C + cols, mask=cm, other=0.0)
-        stat = g1n[None, :] + xhat * g2n[None, :]
-        # pad rows get only the direct affine term
-        dx = a[None, :] * tl.where(rows[:, None] < n_valid, g1 - stat, g1)
-        tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=inb)
 
-    return (triton, _res_stats_kernel, _finalize_kernel, _affine_relu_kernel,
-            _bwd_partials_kernel, _bwd_finalize_kernel, _bwd_dx_kernel)
+@functools.cache
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _drop_args(xr, rate, seed):
@@ -379,7 +304,7 @@ def _forward(x, x_new, scale, bias, n_valid, eps, rate, seed):
     scale = scale.float().contiguous()
     bias = bias.float().contiguous()
     seed_t, block, thresh, dscale, dropout = _drop_args(x, rate, seed)
-    triton, res_stats, finalize, affine_relu = _kernels()[:4]
+    triton, res_stats, finalize, affine_relu = _kernels()
     n_rows, c = x.shape
     block_c = triton.next_power_of_2(c)
     grid = (triton.cdiv(n_rows, BLOCK_ROWS),)
@@ -422,38 +347,57 @@ def fused_epilogue_bwd(g, xr, vec, mean, n_valid: int, rate: float, seed,
     """(dx, dx_new, dscale, dbias) of :func:`fused_epilogue` from the
     forward's residual ``xr``, its ``vec`` and ``mean``, and the cotangent
     ``g`` of y.  CPU tensors take the plain version, CUDA tensors the
-    Triton kernels."""
+    kernel of ``csrc/epilogue_bwd.cu``."""
     if xr.device.type == "cpu":
         return fused_epilogue_bwd_plain(g, xr, vec, mean, n_valid, rate, seed,
                                         x_dtype, xn_dtype)
     if xr.device.type != "cuda":
         raise ValueError(f"unsupported device {xr.device}")
+    n_rows, c = xr.shape
     if g.shape != xr.shape or g.device != xr.device:
         raise ValueError(f"g {tuple(g.shape)} on {g.device} does not match "
                          f"xr {tuple(xr.shape)} on {xr.device}")
-    g = g.to(xr.dtype).contiguous()
-    seed_t, block, thresh, dscale, dropout = _drop_args(xr, rate, seed)
-    (triton, _, _, _, partials, finalize, dx_kernel) = _kernels()
-    n_rows, c = xr.shape
-    block_c = triton.next_power_of_2(c)
-    grid = (triton.cdiv(n_rows, BLOCK_ROWS),)
-    part = torch.empty((grid[0], 2, c), dtype=torch.float32, device=xr.device)
-    partials[grid](g, xr, vec, mean, seed_t, part, n_rows, c, block, thresh,
-                   dscale, DROPOUT=dropout, BLOCK_R=BLOCK_ROWS,
-                   BLOCK_C=block_c, num_warps=8, **_OPTS)
-    _build.LAUNCHES["fused_epilogue_bwd"] += 1
-    gvec = torch.empty((2, c), dtype=torch.float32, device=xr.device)
-    dscale_out = torch.empty(c, dtype=torch.float32, device=xr.device)
-    dbias = torch.empty_like(dscale_out)
-    finalize[(triton.cdiv(c, 16),)](part, gvec, dscale_out, dbias, grid[0], c,
-                                    float(n_valid), BLOCK_G=128, BLOCK_C=16,
-                                    num_warps=4, **_OPTS)
+    if xr.dtype not in _BWD_DTYPE or vec.shape != (4, c) or mean.shape != (c,):
+        raise ValueError(f"xr {xr.dtype} {tuple(xr.shape)}, vec "
+                         f"{tuple(vec.shape)}, mean {tuple(mean.shape)}")
+    if not 0 < n_valid <= n_rows:
+        raise ValueError(f"n_valid {n_valid} outside (0, {n_rows}]")
+    dt = xr.dtype
+    g = g.to(dt).contiguous()
+    xr = xr.contiguous()
+    vec = vec.float().contiguous()
+    mean = mean.float().contiguous()
+    seed_t, block, thresh, dscale, _ = _drop_args(xr, rate, seed)
+    seed_t = seed_t if rate > 0 else None
+    # the mixed form: a bf16 copy for the bf16 input of an f32 residual
+    lo = dt == torch.float32 and torch.bfloat16 in (x_dtype, xn_dtype)
     dxr = torch.empty_like(xr)
-    dx_kernel[grid](g, xr, vec, mean, seed_t, gvec, dxr, n_rows, n_valid, c,
-                    block, thresh, dscale, DROPOUT=dropout,
-                    BLOCK_R=BLOCK_ROWS, BLOCK_C=block_c, num_warps=8, **_OPTS)
-    _build.LAUNCHES["fused_epilogue_bwd"] += 1
-    return dxr.to(x_dtype), dxr.to(xn_dtype), dscale_out, dbias
+    dx_lo = torch.empty(xr.shape, dtype=torch.bfloat16, device=xr.device) \
+        if lo else None
+    max_grid = 4 * _sm_count(xr.device)
+    # the partials, then one word for the grid barrier's counter
+    part = torch.empty(max_grid * 2 * c + 1, dtype=torch.float32,
+                       device=xr.device)
+    stats = torch.empty((4, c), dtype=torch.float32, device=xr.device)
+    lib = _build.bind("epilogue_bwd", "epilogue_bwd_launch",
+                      [ctypes.c_void_p] * 5 + [ctypes.c_uint, ctypes.c_float]
+                      + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                      + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
+    rc = lib.epilogue_bwd_launch(
+        g.data_ptr(), xr.data_ptr(), vec.data_ptr(), mean.data_ptr(),
+        None if seed_t is None else seed_t.data_ptr(), thresh, dscale, block,
+        n_rows, n_valid, c, part.data_ptr(), part[-1:].data_ptr(), max_grid,
+        stats[2:].data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+        dxr.data_ptr(),
+        None if dx_lo is None else dx_lo.data_ptr(), _BWD_DTYPE[dt],
+        torch.cuda.current_stream(xr.device).cuda_stream)
+    _build.check(lib, rc, "fused_epilogue_bwd")
+    # one count per pallas_call site replaced (the partials and dx calls)
+    _build.LAUNCHES["fused_epilogue_bwd"] += 2
+    outs = [dxr if d == dt else dx_lo if d == torch.bfloat16 else dxr.to(d)
+            for d in (x_dtype, xn_dtype)]
+    return outs[0], outs[1], stats[0], stats[1]
 
 
 class _FusedEpilogue(torch.autograd.Function):

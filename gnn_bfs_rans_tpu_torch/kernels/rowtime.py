@@ -1,7 +1,8 @@
-"""Time rows 1, 4, 5, 6, 9, 10 and 11 of one checkout of the port on the card.
+"""Time rows 1, 3, 4, 5, 6, 9, 10, 11 and the Transformer training
+projection of one checkout of the port on the card.
 
     python gnn_bfs_rans_tpu_torch/kernels/rowtime.py [--root DIR] [--label L]
-        [--rows 1,4,5,6,9,10,11]
+        [--rows 1,3,4,5,6,9,10,11,project]
 
 imports ``gnn_bfs_rans_tpu_torch`` from ``DIR`` (default: the checkout this
 file lies in), builds its CUDA sources and prints one JSON line of device
@@ -14,6 +15,10 @@ checkouts whose digests agree compute bit-identical outputs):
   emitted) forms (the projection and the attention by kernel name), bf16
   and f32, with one ``torch.matmul(x, W)`` beside it as the projection's
   yardstick;
+* row 3, ``fused_epilogue_bwd`` (the BatchNorm epilogue's backward) on
+  the kernel forward's own residuals, n_valid 12,000 of 12,032 rows, at
+  rate 0 and 0.1, bf16 and f32, and mixed (x f32, x_new bf16) at 0.1;
+  and at 1,024 rows (bf16, rate 0.1), its fixed cost;
 * row 4, ``banded_gat_mean`` (head mean) and ``banded_gat`` (concat) at
   dropout 0.1, bf16 and f32;
 * row 5, ``banded_gat_bwd``, head mean and per head at dropout 0.1 (the
@@ -29,7 +34,10 @@ checkouts whose digests agree compute bit-identical outputs):
 * row 10, ``banded_transformer_bwd``, geo head-mean at dropout 0.1;
 * row 11, ``banded_transformer_geo_mean_fused`` (the projection and the
   attention by kernel name), bf16 and f32, with one ``torch.addmm`` of x
-  by [Wq | Wk | Wv] beside it as the projection's yardstick.
+  by [Wq | Wk | Wv] beside it as the projection's yardstick;
+* ``project``: ``transformer_project``, the training path's q|k|v = x·W +
+  b and qw = q·wblk, bf16 and f32, with ``torch.addmm`` of x by [Wq | Wk |
+  Wv] and ``torch.matmul`` of its q block by wblk beside it.
 
 N 12,032 (the 400×30 box case), F 256, H 4, C 256: the flagship shape.
 Run it once per checkout inside one call on the card to compare two
@@ -89,6 +97,23 @@ def _kernel_us(fn, steps=10):
     return out
 
 
+def _launches_us(fn):
+    """Device µs of each launch of one call of ``fn``, in launch order
+    (splits launches that share a kernel name)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    return [[e.name[:48], e.device_time] for e in events]
+
+
 def _tuple(out):
     return out if isinstance(out, tuple) else (out,)
 
@@ -103,14 +128,18 @@ def _entry(call, plain, **extra):
     """One row's reading: device ms per call, µs by kernel name, the largest
     relative error against the plain version, and ``sha``, a digest of the
     outputs' bits (equal digests from two checkouts: bit-identical
-    outputs)."""
+    outputs), and ``shas``, one for each output."""
     import torch
 
     got = _tuple(call())
     digest = hashlib.sha256()
+    shas = []
     for t in got:
-        digest.update(t.contiguous().cpu().view(-1).view(torch.uint8).numpy())
+        bits = t.contiguous().cpu().view(-1).view(torch.uint8).numpy()
+        digest.update(bits)
+        shas.append(hashlib.sha256(bits).hexdigest()[:16])
     return dict(ms=_graph_ms(call), kernels_us=_kernel_us(call),
+                launches_us=_launches_us(call), shas=shas,
                 rel_err=_rel_err(got, _tuple(plain())),
                 sha=digest.hexdigest()[:16], **extra)
 
@@ -119,7 +148,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--label", default="")
-    ap.add_argument("--rows", default="1,4,5,6,9,10,11",
+    ap.add_argument("--rows", default="1,3,4,5,6,9,10,11,project",
                     help="comma-separated rows to time")
     args = ap.parse_args(argv)
     rows = set(args.rows.split(","))
@@ -284,6 +313,63 @@ def main(argv=None) -> int:
             lambda: bk.banded_transformer_geo_mean_fused(*a11),
             lambda: bk.banded_transformer_geo_mean_fused_plain(*a11),
             addmm_ms=_graph_ms(lambda: torch.addmm(bcat, x, wcat)))
+    gen.manual_seed(3)
+    if "3" in rows:
+        from gnn_bfs_rans_tpu_torch.kernels import epilogue as ep
+
+        n_valid = 12000
+        for name, dx, dxn, rates in (
+                ("bf16", torch.bfloat16, torch.bfloat16, (0.0, 0.1)),
+                ("f32", torch.float32, torch.float32, (0.0, 0.1)),
+                ("mixed", torch.float32, torch.bfloat16, (0.1,))):
+            x = (torch.randn(n, c, generator=gen) + 1).to(dev, dx)
+            xn = torch.randn(n, c, generator=gen).to(dev, dxn)
+            scale = (1 + 0.1 * torch.randn(c, generator=gen)).to(dev)
+            bias = (0.1 * torch.randn(c, generator=gen)).to(dev)
+            for rate in rates:
+                sd = seed if rate else None
+                _, mean, _, xr, vec = ep._forward(x, xn, scale, bias,
+                                                  n_valid, 1e-5, rate, sd)
+                g = torch.randn(n, c, generator=gen).to(dev, xr.dtype)
+                a3 = (g, xr, vec, mean, n_valid, rate, sd, dx, dxn)
+                res[f"row3_{name}_rate{rate}"] = _entry(
+                    lambda: ep.fused_epilogue_bwd(*a3),
+                    lambda: ep.fused_epilogue_bwd_plain(*a3))
+        # the fixed cost: 1,024 rows, bf16, rate 0.1
+        x = torch.randn(1024, c, generator=gen).to(dev, torch.bfloat16)
+        _, mean, _, xr, vec = ep._forward(x, x, scale, bias, 1000, 1e-5, 0.1,
+                                          seed)
+        a3 = (x, xr, vec, mean, 1000, 0.1, seed, x.dtype, x.dtype)
+        res["row3_bf16_small"] = _entry(
+            lambda: ep.fused_epilogue_bwd(*a3),
+            lambda: ep.fused_epilogue_bwd_plain(*a3))
+    gen.manual_seed(12)
+    for dtype in dtypes:
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        if "project" not in rows:
+            break
+        import inspect
+
+        x = torch.randn(n, f, generator=gen).to(dev, dtype)
+        ws = [(torch.randn(f, hc, generator=gen) * f ** -0.5).to(dev, dtype)
+              for _ in range(3)]
+        bs = [(0.1 * torch.randn(hc, generator=gen)).to(dev, dtype)
+              for _ in range(3)]
+        w_e = torch.rand(4, heads, c, generator=gen) - 0.5
+        wblk = (torch.eye(heads)[:, None, :, None]
+                * w_e.permute(1, 2, 0)[:, :, None, :]).reshape(
+                    hc, heads * 4).to(dev, dtype)
+        wcat, bcat = torch.cat(ws, 1), torch.cat(bs)
+        if "wq" in inspect.signature(bk.transformer_project).parameters:
+            ap_ = (x, *ws, *bs, wblk)
+        else:   # the earlier (x, w, b, wblk) form: one weight, f32 bias
+            ap_ = (x, wcat, bcat.float(), wblk)
+        q = torch.addmm(bcat, x, wcat)[:, :hc]
+        res[f"project_{name}"] = _entry(
+            lambda: bk.transformer_project(*ap_),
+            lambda: bk.transformer_project_plain(*ap_),
+            addmm_ms=_graph_ms(lambda: torch.addmm(bcat, x, wcat)),
+            matmul_ms=_graph_ms(lambda: torch.matmul(q, wblk)))
     print(json.dumps(res))
     return 0
 

@@ -63,8 +63,8 @@ from the hash stream keyed by ``seed``.
 
 The dense products stay ``torch.matmul``: in the JAX package they are XLA
 products outside any Pallas kernel.  The projgrad op's are hand-written
-(``gemm.cuh``): its backward's products run inside the JAX op's kernel,
-and its forward rounds q/k/v once after the f32 bias.
+(``csrc/gemm_sm90.cuh``): its backward's products run inside the JAX op's
+kernel, and its forward rounds q/k/v once after the f32 bias.
 
 Parameters keep PyG's names and layouts (GCN ``lin.weight`` [F, F] and
 ``bias``; GAT ``lin.weight`` [H·C, F], ``att_src``/``att_dst`` [1, H, C],

@@ -34,6 +34,7 @@ from gnn_bfs_rans_tpu_torch.kernels.banded import (
     banded_transformer_fwd_plain,
     banded_transformer_geo_mean_fused,
     banded_transformer_geo_mean_fused_plain,
+    _qw_plain,
     banded_transformer_geo_mean_projgrad,
     transformer_project,
     transformer_project_plain,
@@ -54,6 +55,7 @@ from gnn_bfs_rans_tpu_torch.kernels.epilogue import (
     _forward,
     _forward_plain,
     fused_epilogue,
+    fused_epilogue_bwd,
     fused_epilogue_bwd_plain,
     fused_epilogue_fwd,
     fused_epilogue_fwd_plain,
@@ -290,6 +292,81 @@ def test_epilogue_backward_matches_plain(card, mode, rate):
     for t, ref in zip(xs, grads):
         assert t.grad.dtype == ref.dtype
         _close(t.grad, ref, 1e-4 if ref.dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("n,c", [
+    (12032, 256),   # held in shared memory (f32: 92 rows, 204 KB a block)
+    (40000, 256),   # too many rows a block: phase 3 reads g and xr again
+    (3000, 50),     # C not a multiple of 4: one element a thread
+])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "mixed"])
+def test_epilogue_backward_branches_match_plain(card, mode, rate, n, c):
+    """Row 3's one launch at the sizes of its shared-memory and re-read
+    branches against the plain version on the same residuals (f32
+    summation order 1e-4; bf16 one rounding, 2^-7), deterministic from call
+    to call.  g carries a per-column offset, so that the statistics terms
+    G1/n and x̂·G2/n are of the order of g in dx."""
+    dx_, dxn_ = {"float32": ("float32", "float32"),
+                 "bfloat16": ("bfloat16", "bfloat16"),
+                 "mixed": ("float32", "bfloat16")}[mode]
+    gen = torch.Generator().manual_seed(6)
+    n_valid = n - 37
+    x = (torch.randn(n, c, generator=gen) + 1).to(card, getattr(torch, dx_))
+    xn = torch.randn(n, c, generator=gen).to(card, getattr(torch, dxn_))
+    scale = (1 + 0.1 * torch.randn(c, generator=gen)).to(card)
+    bias = (0.1 * torch.randn(c, generator=gen)).to(card)
+    seed = _seed(card) if rate else None
+    _, mean, _, xr, vec = _forward(x, xn, scale, bias, n_valid, 1e-5, rate,
+                                   seed)
+    g = (torch.randn(n, c, generator=gen)
+         + torch.randn(c, generator=gen)).to(card, xr.dtype)
+    args = (g, xr, vec, mean, n_valid, rate, seed, x.dtype, xn.dtype)
+    _build.reset_launches()
+    got = fused_epilogue_bwd(*args)
+    again = fused_epilogue_bwd(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_epilogue_bwd"] == 4
+    ref = fused_epilogue_bwd_plain(*args)
+    for a, b, r in zip(got, again, ref):
+        assert a.dtype == r.dtype and torch.equal(a, b)
+        _close(a, r, 1e-4 if r.dtype == torch.float32 else 2.0 ** -7)
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_epilogue_backward_replays_in_a_graph(card, mode):
+    """Row 3's cooperative launch captured in a CUDA graph (three calls, the
+    barrier's counter reused): two replays give identical bytes, equal to
+    an eager call's."""
+    gen = torch.Generator().manual_seed(7)
+    n, c, n_valid = 12032, 256, 12000
+    dt = getattr(torch, mode)
+    x = (torch.randn(n, c, generator=gen) + 1).to(card, dt)
+    xn = torch.randn(n, c, generator=gen).to(card, dt)
+    scale = (1 + 0.1 * torch.randn(c, generator=gen)).to(card)
+    bias = (0.1 * torch.randn(c, generator=gen)).to(card)
+    seed = _seed(card)
+    _, mean, _, xr, vec = _forward(x, xn, scale, bias, n_valid, 1e-5, 0.1,
+                                   seed)
+    g = torch.randn(n, c, generator=gen).to(card, dt)
+    args = (g, xr, vec, mean, n_valid, 0.1, seed, dt, dt)
+    eager = [t.clone() for t in fused_epilogue_bwd(*args)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_epilogue_bwd(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(3):
+            outs = fused_epilogue_bwd(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    first = [t.clone() for t in outs]
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b, e in zip(outs, first, eager):
+        assert torch.equal(a, b) and torch.equal(a, e)
 
 
 # a conv bias that feeds the BatchNorm (GCN and GAT ``bias``, GIN's last
@@ -953,22 +1030,100 @@ def test_transformer_projgrad_op_matches_plain(card, dtype, rate):
 
 
 def test_transformer_project_matches_plain(card):
-    """qkv = x·W + b with the f32 bias before the one rounding, qw = q·wblk
-    rounded once: bf16 one rounding may flip (2^-8)."""
+    """qkv = x·[Wq | Wk | Wv] + [bq | bk | bv] with the bias added in f32
+    before the one rounding, qw = q·wblk over wblk's diagonal head blocks
+    rounded once (a full random wblk: kernel and plain version read the
+    same blocks): bf16 one rounding may flip (2^-8)."""
     n, f, hc, heads = 500, 64, 256, 4
     gen = torch.Generator().manual_seed(16)
     x = torch.randn(n, f, generator=gen).to(card, torch.bfloat16)
-    w = (torch.randn(f, 3 * hc, generator=gen) * f ** -0.5).to(
-        card, torch.bfloat16)
-    b = 0.1 * torch.randn(3 * hc, generator=gen).to(card)
+    ws = [(torch.randn(f, hc, generator=gen) * f ** -0.5).to(
+        card, torch.bfloat16) for _ in range(3)]
+    bs = [(0.1 * torch.randn(hc, generator=gen)).to(card, torch.bfloat16)
+          for _ in range(3)]
     wblk = torch.randn(hc, 4 * heads, generator=gen).to(card, torch.bfloat16)
-    qkv, qw = transformer_project(x, w, b, wblk)
-    ref_qkv, ref_qw = transformer_project_plain(x, w, b, wblk)
+    qkv, qw = transformer_project(x, *ws, *bs, wblk)
+    ref_qkv, ref_qw = transformer_project_plain(x, *ws, *bs, wblk)
     torch.cuda.synchronize()
     _close(qkv, ref_qkv, 2.0 ** -7)
     # qw from the kernel's own q (a q rounding may flip on either side)
-    _close(qw, (qkv[:, :hc].float() @ wblk.float()).to(torch.bfloat16),
+    _close(qw, _qw_plain(qkv[:, :hc], wblk, heads).to(torch.bfloat16),
            2.0 ** -7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_off_diagonal_wblk_is_not_read(card, dtype):
+    """transformer_project and row 11 read only wblk's diagonal head
+    blocks, as their plain versions do: a wblk with random off-diagonal
+    blocks gives the same bits as the same wblk with them zeroed, and
+    agrees with the plain versions (f32 1e-5 / 1e-4; bf16 one rounding)."""
+    n, heads, c, f = 512, 4, 64, 64
+    hc = heads * c
+    band, _ = _tr_band(n, 60, geometric=True, seed=1)
+    band = band.to(card)
+    gen = torch.Generator().manual_seed(18)
+    dt = getattr(torch, dtype)
+    x = torch.randn(n, f, generator=gen).to(card, dt)
+    ws = [(torch.randn(f, hc, generator=gen) * f ** -0.5).to(card, dt)
+          for _ in range(3)]
+    bs = [(0.1 * torch.randn(hc, generator=gen)).to(card, dt)
+          for _ in range(3)]
+    wblk = (0.5 * torch.randn(hc, 4 * heads, generator=gen)).to(card, dt)
+    diag = (torch.eye(heads)[:, None, :, None]
+            * torch.ones(1, c, 1, 4)).reshape(hc, 4 * heads).to(card, dt)
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    qkv, qw = transformer_project(x, *ws, *bs, wblk)
+    qkv0, qw0 = transformer_project(x, *ws, *bs, wblk * diag)
+    torch.cuda.synchronize()
+    assert torch.equal(qkv, qkv0) and torch.equal(qw, qw0)
+    _close(qw, transformer_project_plain(x, *ws, *bs, wblk)[1], tol)
+    args = (band.bias_noself, band.geo, band.pos, x, *ws, *bs)
+    out, s = banded_transformer_geo_mean_fused(*args, wblk, heads)
+    out0, s0 = banded_transformer_geo_mean_fused(*args, wblk * diag, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out0) and torch.equal(s, s0)
+    ref, ref_s = banded_transformer_geo_mean_fused_plain(*args, wblk, heads)
+    _close(out, ref, 1e-4 if dtype == "float32" else 2e-2)
+    _check_s(band, s, ref_s, 1e-4 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("n,heads,c,f", [
+    (500, 4, 64, 64),      # H·C 256: four heads a tile (the qw epilogue)
+    (1000, 4, 256, 256),   # H·C 1,024, the flagship widths: a head a tile
+    (777, 4, 256, 200),    # ragged N, F not a multiple of the K step
+    (300, 2, 128, 64),     # two heads a tile
+    (400, 4, 24, 32),      # C does not divide the tile: qw_kernel
+    (2048, 4, 256, 256),   # more tiles than SMs: blocks loop
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_transformer_project_shapes(card, dtype, n, heads, c, f):
+    """The projection on gemm_sm90.cuh (bf16: qw in the q tiles' epilogue
+    where C divides 256, else qw_kernel; f32: the SIMT tiles and qw_kernel)
+    against the plain version: f32 summation order (1e-5); bf16 one
+    rounding (2^-7 of each output's max), qw from the kernel's own q; two
+    calls give the same bits."""
+    hc = heads * c
+    gen = torch.Generator().manual_seed(17)
+    dt = getattr(torch, dtype)
+    x = torch.randn(n, f, generator=gen).to(card, dt)
+    ws = [(torch.randn(f, hc, generator=gen) * f ** -0.5).to(card, dt)
+          for _ in range(3)]
+    bs = [(0.1 * torch.randn(hc, generator=gen)).to(card, dt)
+          for _ in range(3)]
+    w_e = torch.randn(4, heads, c, generator=gen) * 0.5
+    wblk = (torch.eye(heads)[:, None, :, None]
+            * w_e.permute(1, 2, 0)[:, :, None, :]).reshape(hc, heads * 4)
+    wblk = wblk.to(card, dt)
+    _build.reset_launches()
+    qkv, qw = transformer_project(x, *ws, *bs, wblk)
+    qkv2, qw2 = transformer_project(x, *ws, *bs, wblk)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["transformer_project"] == 2
+    assert torch.equal(qkv, qkv2) and torch.equal(qw, qw2)
+    ref_qkv, _ = transformer_project_plain(x, *ws, *bs, wblk)
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    _close(qkv, ref_qkv, tol)
+    _close(qw, (qkv[:, :hc].float() @ wblk.float()).to(dt), tol)
 
 
 @pytest.mark.parametrize("edge,dtype", [
