@@ -13,8 +13,8 @@ Phases (any failure raises and exits non-zero):
    version at the flagship width (F 256, H 4, C 256) on the bands of two
    generated cases — 400×30 cells (Wcols 256, the BFS mesh's shape class)
    and 163×75 (Wcols 384) — in f32 and bf16;
-3. kernel 2, ``fused_epilogue_fwd`` (Triton), against its plain version at
-   [12,032, 256] in f32, bf16 and mixed;
+3. kernel 2, ``fused_epilogue_fwd`` (CUDA, one cooperative launch),
+   against its plain version at [12,032, 256] in f32, bf16 and mixed;
 4. serving: a seeded 4-layer, hidden-256, 4-head bf16 GAT checkpoint served
    through ``python -m gnn_bfs_rans_tpu_torch infer`` (in process, through
    ``main(argv)``) with ``--bn_exact off`` and ``--bn_exact on``; the launch
@@ -32,9 +32,10 @@ Phases (any failure raises and exits non-zero):
    through the plain versions;
 7. the BN epilogue backward, row 3 (``fused_epilogue_bwd``, one
    cooperative CUDA launch), and the forward at rate 0.1, at [12,032, 256]
-   in f32, bf16 and mixed; row 3 at 40,000 rows (its re-read branch) in
-   each mode, and three calls of it captured in a CUDA graph whose
-   replays must agree byte for byte with each other and an eager call;
+   in f32, bf16 and mixed; rows 3 and 2 at 40,000 and 60,000 rows (their
+   read-back branches) in each mode, and three calls of each captured in a
+   CUDA graph whose replays must agree byte for byte with each other and
+   an eager call;
 8. one train step of the 4×256 GAT from the same seeded parameters through
    the kernels and through the plain versions, in f32, bf16 and mixed: the
    loss and each parameter group's gradient (f32: the largest relative gap
@@ -775,10 +776,11 @@ def check_row3_branches(gen):
     the plain version (f32 1e-4, bf16 one rounding: 2^-7 of the max; g
     with a per-column offset, so that the statistics terms are of the order
     of g in dx); and three calls captured in one CUDA graph, two replays
-    identical in every byte to each other and to an eager call."""
+    identical in every byte to each other and to an eager call.  Then row
+    2 the same way at 60,000 rows (its read-back branch) and 12,032."""
     import torch
     from gnn_bfs_rans_tpu_torch.kernels.epilogue import (
-        _forward, fused_epilogue_bwd, fused_epilogue_bwd_plain)
+        _forward, _forward_plain, fused_epilogue_bwd, fused_epilogue_bwd_plain)
 
     dev = torch.device("cuda")
     seed = torch.tensor([4321], dtype=torch.int32, device=dev)
@@ -829,6 +831,46 @@ def check_row3_branches(gen):
         ms = graph_time_ms(lambda: fused_epilogue_bwd(*args))
         log(f"row 3 {mode} N {n} rate {DROPOUT}: {', '.join(errs)}; graph "
             f"replays identical; ms {ms:.4f}")
+    # row 2 past its held-tile limit (60,000 rows: xr read back), and in a
+    # graph: y within EPI_TOL, xr equal, replays byte for byte
+    for mode, (dx, dxn) in (("float32", ("float32", "float32")),
+                            ("bfloat16", ("bfloat16", "bfloat16")),
+                            ("mixed", ("float32", "bfloat16"))):
+        for n in (60000, 12032):
+            x = (torch.randn(n, HIDDEN, generator=gen) + 1).to(
+                dev, getattr(torch, dx))
+            xn = torch.randn(n, HIDDEN, generator=gen).to(
+                dev, getattr(torch, dxn))
+            scale = (1 + 0.1 * torch.randn(HIDDEN, generator=gen)).to(dev)
+            bias = (0.1 * torch.randn(HIDDEN, generator=gen)).to(dev)
+            args = (x, xn, scale, bias, n - 32, 1e-5, DROPOUT, seed)
+            got = [t.clone() for t in _forward(*args)]
+            ref = _forward_plain(*args)
+            err, sc = _rel_err(got[0], ref[0])
+            if not (torch.equal(got[3], ref[3]) and torch.isfinite(got[0]).all()
+                    and err <= EPI_TOL[mode] * max(sc, 1.0)):
+                raise AssertionError(f"row 2 {mode} N {n}: y err {err}")
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                _forward(*args)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(3):
+                    outs = _forward(*args)
+            graph.replay()
+            torch.cuda.synchronize()
+            first = [t.clone() for t in outs]
+            graph.replay()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) and torch.equal(a, e)
+                       for a, b, e in zip(outs, first, got)):
+                raise AssertionError(f"row 2 {mode} N {n}: graph replays "
+                                     "differ")
+            log(f"row 2 {mode} N {n} rate {DROPOUT}: y err {err:.2e}; graph "
+                f"replays identical; ms "
+                f"{graph_time_ms(lambda: _forward(*args)):.4f}")
 
 
 @contextlib.contextmanager
@@ -1484,7 +1526,7 @@ def transformer_phase(tmp, case, info, gen):
                 for dt in ("float32", "bfloat16"):
                     rows[("tr", nx, form, mean, dt)] = check_transformer(
                         band, form, mean, dt, gen,
-                        measure=(nx == 400 and mean and dt == "bfloat16"
+                        measure=(nx == 400 and mean
                                  and form in ("plain", "geo")))
         for dt in ("float32", "bfloat16"):
             rows[("trf", nx, dt)] = check_transformer_fused(
@@ -1935,17 +1977,18 @@ def transformer_train_phase(tmp, case, train_info, edge_bands, gen):
             b = edge_band if form == "edge" else band
             for mean in (True, False):
                 for dt in ("float32", "bfloat16"):
-                    measure = (nx == 400 and form == "geo" and mean
-                               and dt == "bfloat16")
+                    # f32 too: its times and bounds; the kernels line
+                    # takes bf16
+                    measure = nx == 400 and form == "geo" and mean
                     row = check_transformer(b, form, mean, dt, gen,
                                             measure=measure, rate=DROPOUT)
-                    if measure:
+                    if measure and dt == "bfloat16":
                         rows["tr_drop"] = row
                     for rate in (0.0, DROPOUT):
                         r10, r7 = check_transformer_bwd(
                             b, form, mean, dt, rate, gen,
                             measure=measure and rate == DROPOUT)
-                        if r10:
+                        if r10 and dt == "bfloat16":
                             rows["row10"], rows["row7"] = r10, r7
         for dt in ("float32", "bfloat16"):
             for rate in (0.0, DROPOUT):
@@ -2334,9 +2377,8 @@ def main() -> int:
                 for rate in (0.0, DROPOUT):
                     measured = check_gat_bwd(
                         graphs[nx], dt, rate, gen,
-                        measure=(nx == 400 and dt == "bfloat16"
-                                 and rate == DROPOUT))
-                    if measured:
+                        measure=nx == 400 and rate == DROPOUT)
+                    if measured and dt == "bfloat16":
                         rows["row5"], rows["row6"] = measured
         for mode in ("float32", "mixed", "bfloat16"):
             rows[("epi_train", mode)], rows[("row3", mode)] = \
@@ -2379,8 +2421,7 @@ def main() -> int:
             for dt in ("float32", "bfloat16"):
                 for rate in (0.0, DROPOUT):
                     rows[("gatm", nx, dt, rate)] = check_gat_mean(
-                        graphs[nx], dt, rate, gen,
-                        measure=nx == 400 and dt == "bfloat16")
+                        graphs[nx], dt, rate, gen, measure=nx == 400)
         log(f"rows 8 and 4: {time.time() - t1:.1f} s")
 
         # GCN (the default config, f32, and bf16) and GIN serving, 6×256
@@ -2448,8 +2489,8 @@ def main() -> int:
              source="gnn_bfs_rans_tpu_torch/csrc/banded_gat.cu",
              replaces="gnn_bfs_rans_tpu/kernels/banded.py:991",
              launches=launches.get("banded_gat_mean_fused", 0), **gat),
-        dict(name="fused_epilogue_fwd", route="triton",
-             source="gnn_bfs_rans_tpu_torch/kernels/epilogue.py",
+        dict(name="fused_epilogue_fwd", route="cuda",
+             source="gnn_bfs_rans_tpu_torch/csrc/epilogue_fwd.cu",
              replaces="gnn_bfs_rans_tpu/kernels/epilogue.py:217",
              launches=launches.get("fused_epilogue_fwd", 0),
              **rows[("epi_train", "bfloat16")]),

@@ -2,7 +2,8 @@
 
 A second package beside the JAX one, written in PyTorch for an NVIDIA
 H100: every TPU kernel on a ported path becomes a kernel written by hand
-for Hopper (CUDA C++ under ``csrc/``, or Triton), each with a plain
+for Hopper in CUDA C++ (``csrc/``, built by ``nvcc`` for ``sm_90a`` and
+loaded with ``ctypes``; the port needs no Triton), each with a plain
 PyTorch version that the CPU runs.  The JAX package is the reference and
 is never imported here.  Ported so far: FlowGNN with GCN, GAT, GIN and
 Transformer convolutions on the ``pallas`` (banded kernels), ``dense`` and

@@ -1,9 +1,9 @@
 // The port's dropout stream: a counter-based uint32 hash of (seed, draw
 // index, element index), the same function as the JAX package's
 // interpret-mode stream (gnn_bfs_rans_tpu/kernels/banded.py::_hash_bits), so
-// dropout masks are bit-identical to the JAX package run on the CPU.  Python
-// copies live in kernels/dropout.py (plain version) and kernels/epilogue.py
-// (Triton).  The GAT kernels and the epilogue draw once per plane (draw 0);
+// dropout masks are bit-identical to the JAX package run on the CPU.  The
+// Python copy is kernels/dropout.py (the plain versions).  The GAT kernels
+// and the epilogue draw once per plane (draw 0);
 // the Transformer attention draws once per head (draw h) over each tile's
 // [T, Wcols] plane.
 //

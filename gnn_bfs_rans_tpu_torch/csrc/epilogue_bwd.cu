@@ -47,69 +47,34 @@
 // C 256 in bf16, ~13,800 in f32) phase 3 reads g and xr again from device
 // memory and recomputes g1: a size branch of the same kernel.  The fold
 // order is fixed by the grid, so a launch's results are deterministic (no
-// float atomics).  The barrier's counter is one word of the caller's
-// scratch, cleared by a memset in the launch's stream just before it (a
-// node of its own under graph capture), so launches on different streams
-// never share one.
+// float atomics).  The barrier's counter is the caller's one word for the
+// launch's stream, zero at the start, and the launch leaves it at zero
+// (coop.cuh::grid_done), so launches on different streams never share one
+// and no memset precedes a launch.  The barrier, the block partition and
+// the cooperative launch live in coop.cuh, shared with the forward
+// (epilogue_fwd.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "coop.cuh"
 #include "dropout.cuh"
 
 namespace {
+
+using coop::from_f;
+using coop::grid_done;
+using coop::grid_sync;
+using coop::rnd;
+using coop::to_f;
+using coop::Vec;
 
 constexpr int THREADS = 512;
 // rows whose loads a thread keeps in flight: 64 bytes of g and xr
 template <typename T>
 constexpr int UNROLL = 16 / sizeof(T);
 constexpr int FOLD = 8;     // partials a lane loads at once in the fold
-constexpr int SMEM_MAX = 232448;   // dynamic shared memory a block may use
-
-// Barrier k of the launch: every block of the (co-resident) grid adds one
-// to the counter (zero when the launch starts) and waits for it to reach
-// k·grid, so every block arrives before any leaves; the block's writes
-// before it are visible to every block after it (a release add on
-// arrival, acquire loads while waiting; bar.sync orders the block's
-// threads).
-__device__ __forceinline__ void grid_sync(unsigned int* counter, unsigned int k) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(counter) : "memory");
-    const unsigned int want = k * gridDim.x;
-    unsigned int v;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(counter) : "memory");
-    } while (v < want);
-  }
-  __syncthreads();
-}
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// v rounded to T's precision (f32: as is)
-template <typename T> __device__ __forceinline__ float rnd(float v);
-template <> __device__ __forceinline__ float rnd<float>(float v) { return v; }
-template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// V values of T in one access (4: 16 bytes in f32, 8 in bf16; or one)
-template <typename T, int V>
-struct alignas(V * sizeof(T)) Vec {
-  T e[V];
-};
 
 template <typename T>
 struct Args {
@@ -123,7 +88,7 @@ struct Args {
   int block;         // B: the dropout stream's row block
   int n, n_valid, C, rows;   // rows: a block's share
   float* part;       // [grid, 2, C]
-  unsigned int* bar; // the grid barrier's counter, zero at the start
+  unsigned int* bar; // the grid barrier's counter: zero, and left so
   float* gvec;       // [2, C]: G1/n, G2/n
   float* dscale;     // [C]
   float* dbias;      // [C]
@@ -265,14 +230,19 @@ __global__ void __launch_bounds__(THREADS, 1) epilogue_bwd_kernel(const Args<T> 
     }
   }
   grid_sync(p.bar, 2u);
+  grid_done(p.bar, 2u);
 
-  // ---- phase 3: dxr from the held tiles (or g and xr read again)
+  // ---- phase 3: dxr from the held tiles (or g and xr read again).  The
+  // block reads G1/n and G2/n from L2 once, into the partials' shared
+  // memory (every thread reading them there kept a few L2 slices busy)
+  for (int i = threadIdx.x; i < 2 * C; i += THREADS) red[i] = __ldcg(p.gvec + i);
+  __syncthreads();
   if (!active) return;
   float g1n[V], g2n[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) {
-    g1n[j] = __ldcg(p.gvec + c0 + j);
-    g2n[j] = __ldcg(p.gvec + C + c0 + j);
+    g1n[j] = red[c0 + j];
+    g2n[j] = red[C + c0 + j];
   }
   for (int rb = r0 + ty; rb < r1; rb += U * lanes) {
     W gv[U], xv[U];
@@ -326,41 +296,20 @@ cudaError_t launch(Args<T> p, int sms, int max_grid, cudaStream_t s) {
   const int cc = p.C / V, lanes = THREADS / cc;
   const size_t red = (size_t)lanes * 2 * p.C * sizeof(float);
   auto kernel = epilogue_bwd_kernel<T, V, HELD>;
-  int grid = HELD ? sms : 0;
+  int grid = sms;
   if (!HELD) {
     int per_sm = 0;
-    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, THREADS, red);
+    cudaError_t e =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, red);
     if (e != cudaSuccess) return e;
     grid = per_sm * sms;
   }
   // no more blocks than row lanes' worth of rows, nor than part holds
-  const int by_rows = (p.n + lanes - 1) / lanes;
-  grid = grid < by_rows ? grid : by_rows;
-  grid = grid < max_grid ? grid : max_grid;
-  if (grid < 1) return cudaErrorInvalidValue;
-  p.rows = (p.n + grid - 1) / grid;
-  grid = (p.n + p.rows - 1) / p.rows;
+  const coop::Partition part = coop::partition(p.n, lanes, grid, max_grid);
+  if (part.grid < 1) return cudaErrorInvalidValue;
+  p.rows = part.rows;
   const size_t smem = red + (HELD ? 2 * (size_t)p.rows * p.C * sizeof(T) : 0);
-  if (smem > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaMemsetAsync(p.bar, 0, sizeof(unsigned int), s);
-  if (e != cudaSuccess) return e;
-  e = cudaLaunchKernelEx(&cfg, kernel, p);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  return coop::launch(kernel, p, part.grid, THREADS, smem, s);
 }
 
 // the shared-memory branch when one block a SM can hold its rows
@@ -371,7 +320,7 @@ cudaError_t pick(const Args<T>& p, int sms, int max_grid, cudaStream_t s) {
   const size_t rows = (p.n + grid - 1) / grid;
   const size_t held = (size_t)lanes * 2 * p.C * sizeof(float)
                       + 2 * rows * p.C * sizeof(T);
-  if (held <= (size_t)SMEM_MAX) return launch<T, V, true>(p, sms, max_grid, s);
+  if (held <= (size_t)coop::SMEM_MAX) return launch<T, V, true>(p, sms, max_grid, s);
   return launch<T, V, false>(p, sms, max_grid, s);
 }
 
@@ -399,9 +348,9 @@ extern "C" {
 // Row 3.  dtype (of g, xr and dx): 0 = float32, 1 = bfloat16.  vec f32 [4,
 // C] (m̃, a, b̃, inv_std), mean f32 [C]; seed: device pointer to one int32,
 // or null for no dropout (thresh, scale = 1/(1 − rate) in dtype's
-// precision, block: the stream's row block).  part f32 [max_grid, 2, C],
-// bar (one word, cleared here in the stream) and gvec f32 [2, C] are
-// scratch; dscale, dbias f32 [C]; dx [n, C] in dtype,
+// precision, block: the stream's row block).  part f32 [max_grid, 2, C]
+// and gvec f32 [2, C] are scratch; bar is the stream's barrier counter
+// (one word, zero, left at zero); dscale, dbias f32 [C]; dx [n, C] in dtype,
 // dx_lo null or a bf16 [n, C] copy (f32 dtype only).  C ≤ 512, or C a
 // multiple of 4 up to 2,048 with g, xr, dx and dx_lo aligned to 4
 // elements.  Returns the CUDA error code of the launch (0 on success).

@@ -456,9 +456,10 @@ def banded_spmm_fwd(band_coeff: torch.Tensor,
     if n != n_tiles * tile or tile2 != tile or window % 2 == 0:
         raise ValueError(f"shape mismatch: band_coeff "
                          f"{tuple(band_coeff.shape)}, x {tuple(x.shape)}")
-    if f % 4 or x.data_ptr() % 16:
-        raise ValueError("the SpMM kernel moves 4 columns per access: F must "
-                         "be a multiple of 4 and x 16-byte aligned")
+    if f % 4 or x.data_ptr() % 16 or tile % 4 or band_coeff.data_ptr() % 16:
+        raise ValueError("the SpMM kernel moves 4 columns per access: F and "
+                         "the tile must be multiples of 4, x and the plane "
+                         "16-byte aligned")
     lib = _build.bind("banded_spmm", "banded_spmm_launch",
                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                       + [ctypes.c_void_p])

@@ -8,8 +8,7 @@ everywhere: its masks are bit-identical to the JAX package run on the CPU.
 The GAT kernels and the epilogue draw once per plane (draw 0); the
 Transformer attention draws once per head, draw h over each tile's
 [T, Wcols] plane (``transformer_keep``).  The same function is written for
-the card in ``csrc/dropout.cuh`` (the CUDA kernels) and in
-``kernels/epilogue.py`` (the Triton kernels, draw 0).
+the card in ``csrc/dropout.cuh``, which every CUDA kernel includes.
 
 An element is kept when ``hash_bits(seed, flat, draw) >= threshold(rate)``
 and then scaled by ``1 / (1 − rate)``.  Seeds are [1] int32 tensors on the

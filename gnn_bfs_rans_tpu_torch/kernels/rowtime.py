@@ -1,8 +1,8 @@
-"""Time rows 1, 3, 4, 5, 6, 9, 10, 11 and the Transformer training
-projection of one checkout of the port on the card.
+"""Time rows 1–6, 8–11 and the Transformer training projection of one
+checkout of the port on the card.
 
     python gnn_bfs_rans_tpu_torch/kernels/rowtime.py [--root DIR] [--label L]
-        [--rows 1,3,4,5,6,9,10,11,project]
+        [--rows 1,2,3,4,5,6,8,9,10,11,project]
 
 imports ``gnn_bfs_rans_tpu_torch`` from ``DIR`` (default: the checkout this
 file lies in), builds its CUDA sources and prints one JSON line of device
@@ -15,10 +15,23 @@ checkouts whose digests agree compute bit-identical outputs):
   emitted) forms (the projection and the attention by kernel name), bf16
   and f32, with one ``torch.matmul(x, W)`` beside it as the projection's
   yardstick;
+* row 2, ``fused_epilogue_fwd`` (the BatchNorm epilogue's forward, through
+  ``_forward``, which also returns xr and vec), n_valid 12,000 of 12,032
+  rows, bf16 and f32 at rate 0 and 0.1, mixed (x f32, x_new bf16) at 0.1,
+  each beside its bound (x and x_new read, xr and y written once, at 3.35
+  TB/s); and at 1,024 rows (bf16, rate 0.1), its fixed cost; where the
+  checkout has ``csrc/epilogue_fwd.cu``, also an empty cooperative launch
+  of row 2's grid at 1,024 rows that meets at one grid barrier
+  (``barrier_probe``);
 * row 3, ``fused_epilogue_bwd`` (the BatchNorm epilogue's backward) on
   the kernel forward's own residuals, n_valid 12,000 of 12,032 rows, at
   rate 0 and 0.1, bf16 and f32, and mixed (x f32, x_new bf16) at 0.1;
   and at 1,024 rows (bf16, rate 0.1), its fixed cost;
+* row 8, ``banded_spmm_fwd`` in its four forms (GCN: the f32 ``gcn`` plane
+  times x in f32 and bf16; GIN: the bf16 ``adj`` plane times x in f32 and
+  bf16) on the 400×30 box's band (W 3) and a 200×150 box's (W 5), each
+  beside its bound (the plane, x and out once) and ``torch.sparse.mm`` of
+  the same band as an f32 CSR matrix;
 * row 4, ``banded_gat_mean`` (head mean) and ``banded_gat`` (concat) at
   dropout 0.1, bf16 and f32;
 * row 5, ``banded_gat_bwd``, head mean and per head at dropout 0.1 (the
@@ -148,7 +161,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--label", default="")
-    ap.add_argument("--rows", default="1,3,4,5,6,9,10,11,project",
+    ap.add_argument("--rows", default="1,2,3,4,5,6,8,9,10,11,project",
                     help="comma-separated rows to time")
     args = ap.parse_args(argv)
     rows = set(args.rows.split(","))
@@ -370,8 +383,96 @@ def main(argv=None) -> int:
             lambda: bk.transformer_project_plain(*ap_),
             addmm_ms=_graph_ms(lambda: torch.addmm(bcat, x, wcat)),
             matmul_ms=_graph_ms(lambda: torch.matmul(q, wblk)))
+    if "2" in rows:
+        res.update(_row2(dev, gen, seed))
+    if "8" in rows:
+        res.update(_row8(dev, gen))
     print(json.dumps(res))
     return 0
+
+
+_BYTES_PER_S = 3.35e12   # the H100's device memory
+
+
+def _row2(dev, gen, seed):
+    """Row 2's forms, its fixed cost and, in a checkout that has it, the
+    empty one-barrier launch."""
+    import ctypes
+
+    import torch
+    from gnn_bfs_rans_tpu_torch.kernels import _build
+    from gnn_bfs_rans_tpu_torch.kernels import epilogue as ep
+
+    gen.manual_seed(2)
+    c, out = 256, {}
+    forms = [("bf16", torch.bfloat16, torch.bfloat16, rate, 12032, 12000)
+             for rate in (0.0, 0.1)]
+    forms += [("f32", torch.float32, torch.float32, rate, 12032, 12000)
+              for rate in (0.0, 0.1)]
+    forms += [("mixed", torch.float32, torch.bfloat16, 0.1, 12032, 12000),
+              ("bf16_small", torch.bfloat16, torch.bfloat16, 0.1, 1024, 1000)]
+    for name, dx, dxn, rate, n, n_valid in forms:
+        x = (torch.randn(n, c, generator=gen) + 1).to(dev, dx)
+        xn = torch.randn(n, c, generator=gen).to(dev, dxn)
+        scale = (1 + 0.1 * torch.randn(c, generator=gen)).to(dev)
+        bias = (0.1 * torch.randn(c, generator=gen)).to(dev)
+        a2 = (x, xn, scale, bias, n_valid, 1e-5, rate, seed if rate else None)
+        nbytes = (x.numel() * x.element_size() + xn.numel() * xn.element_size()
+                  + 2 * x.numel() * max(x.element_size(), xn.element_size()))
+        out[f"row2_{name}_rate{rate}"] = _entry(
+            lambda: ep._forward(*a2), lambda: ep._forward_plain(*a2),
+            bound_ms=nbytes / _BYTES_PER_S * 1e3)
+    root = Path(ep.__file__).resolve().parents[1]
+    if (root / "csrc" / "epilogue_fwd.cu").exists():
+        lib = _build.bind("epilogue_fwd", "grid_barrier_probe_launch",
+                          [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p])
+        bar = torch.zeros(1, dtype=torch.int32, device=dev)
+
+        def probe():
+            rc = lib.grid_barrier_probe_launch(
+                bar.data_ptr(), 1024, c,
+                torch.cuda.current_stream().cuda_stream)
+            _build.check(lib, rc, "grid_barrier_probe")
+
+        out["row2_barrier_probe_1024"] = dict(
+            ms=_graph_ms(probe), kernels_us=_kernel_us(probe))
+    return out
+
+
+def _row8(dev, gen):
+    """Row 8's four forms on a W 3 and a W 5 band, beside torch.sparse.mm."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.foam import FoamCase, generate_box_case
+    from gnn_bfs_rans_tpu_torch.graph.build import build_graph
+    from gnn_bfs_rans_tpu_torch.kernels import banded as bk
+
+    gen.manual_seed(8)
+    out = {}
+    for nx, ny in ((400, 30), (200, 150)):
+        with tempfile.TemporaryDirectory() as tmp:
+            generate_box_case(Path(tmp) / "box", nx, ny, 1)
+            band = build_graph(FoamCase(Path(tmp) / "box").load_mesh(),
+                               with_band=True,
+                               band_components=("adj", "gcn")).band.to(dev)
+        for conv, plane in (("gcn", band.gcn), ("gin", band.adj)):
+            n_tiles, window, tile, _ = plane.shape
+            n = n_tiles * tile
+            t, k, i, j = (plane != 0).nonzero(as_tuple=True)
+            csr = torch.sparse_coo_tensor(
+                torch.stack([t * tile + i, (t - window // 2 + k) * tile + j]),
+                plane[t, k, i, j].float(), (n, n)).coalesce().to_sparse_csr()
+            for xname, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                x = torch.randn(n, 256, generator=gen).to(dev, dt)
+                xf = x.float()
+                nbytes = (plane.numel() * plane.element_size()
+                          + 2 * x.numel() * x.element_size())
+                out[f"row8_{conv}_x{xname}_w{window}"] = _entry(
+                    lambda: bk.banded_spmm_fwd(plane, x),
+                    lambda: bk.banded_spmm_plain(plane, x),
+                    bound_ms=nbytes / _BYTES_PER_S * 1e3, nnz=int(t.numel()),
+                    library_ms=_graph_ms(lambda: torch.sparse.mm(csr, xf)))
+    return out
 
 
 if __name__ == "__main__":

@@ -75,6 +75,9 @@ class ModelConfig:
     fuse_eval: bool = False
     fuse_train: bool = True
     fuse_epilogue: bool = True
+    # parsed so that JAX meta files load, and served as is (the JAX
+    # package's nn.remat changes no forward value); training with it raises
+    # (train/loop.py::check_trainable)
     remat: bool = False
 
     def to_dict(self) -> dict[str, Any]:

@@ -12,7 +12,10 @@ with the reference's ``train.py main()``):
 * ``best`` on val-loss improvement and ``epoch_N`` every ``save_every``
   epochs, saved with exact BN statistics when recalibration is on, plus the
   optimizer state that ``resume`` continues from;
-* ``training_history.json`` in the reference schema and ``metrics.jsonl``.
+* ``training_history.json`` in the reference schema and ``metrics.jsonl``;
+* on ``KeyboardInterrupt`` (Ctrl-C, or SIGTERM raised as one): the last
+  completed epoch saved as ``epoch_<N>`` with ``interrupted: True`` and the
+  history written, then the interrupt re-raised, so ``resume`` continues.
 
 It trains on every backend (``pallas``, ``dense``, ``segment``; a
 ``pallas`` model on a mesh without a band takes the convs' dense
@@ -21,10 +24,11 @@ fallback: a CUDA tensor goes to the kernels or the step raises.  Not
 ported: the JAX trainer's device-resident epoch blocks
 (``epoch_block > 1``), its Mosaic compile retries and dense-backend
 fallback (``kernels/fallback.py``: a TPU workaround that would hide a
-kernel fault here), its AOT executable cache and its tqdm bar.  Dropout masks and kernel seeds come
-from one ``torch.Generator`` on the training device, seeded from
-``TrainConfig.seed``; parameters are initialized from a CPU generator with
-the same seed.
+kernel fault here), its AOT executable cache, its tqdm bar and
+``ModelConfig.remat`` (constructing a trainer for it raises).  Dropout
+masks and kernel seeds come from one ``torch.Generator`` on the training
+device, seeded from ``TrainConfig.seed``; parameters are initialized from a
+CPU generator with the same seed.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from .data import FlowDataset
 from .loop import (
     ReduceLROnPlateau,
     TrainConfig,
+    check_trainable,
     cosine_lr,
     eval_step,
     iterate_batches,
@@ -78,6 +83,7 @@ class Trainer:
             raise NotImplementedError(
                 "epoch_block > 1 (the JAX package's on-device lax.scan of "
                 "whole epochs) is not ported yet")
+        check_trainable(model_config)
         self.device = resolve_device(device)
         self.dataset = dataset
         self.model_config = model_config
@@ -149,6 +155,25 @@ class Trainer:
 
     # ------------------------------------------------------------------ train
     def train(self) -> dict:
+        """Run the epoch loop.  On ``KeyboardInterrupt`` it saves
+        ``epoch_<last completed epoch>`` (``epoch_0`` before the first, with
+        an infinite val loss) with ``interrupted: True`` and the history,
+        then re-raises, as the JAX trainer does (whose state may not exist
+        yet; this trainer holds its model from construction)."""
+        try:
+            return self._train_loop()
+        except KeyboardInterrupt:
+            epoch = self.history["epoch"][-1] if self.history["epoch"] else 0
+            val_loss = (self.history["val_loss"][-1] if epoch
+                        else float("inf"))
+            self._save(f"epoch_{epoch}", epoch, val_loss, {
+                "best_val": self.best_val, "lr": self.scheduler.lr,
+                "sched_best": self.scheduler.best, "interrupted": True})
+            self.save_history()
+            self.log(f"Interrupted: checkpoint saved at epoch {epoch}")
+            raise
+
+    def _train_loop(self) -> dict:
         cfg = self.config
         n = self.dataset.n_snapshots
         lr = self.scheduler.lr

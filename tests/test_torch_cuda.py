@@ -369,6 +369,116 @@ def test_epilogue_backward_replays_in_a_graph(card, mode):
         assert torch.equal(a, b) and torch.equal(a, e)
 
 
+def _epilogue_inputs(card, mode, n, c, gen):
+    dx_, dxn_ = {"float32": ("float32", "float32"),
+                 "bfloat16": ("bfloat16", "bfloat16"),
+                 "mixed": ("float32", "bfloat16")}[mode]
+    return ((torch.randn(n, c, generator=gen) + 1).to(card, getattr(torch, dx_)),
+            torch.randn(n, c, generator=gen).to(card, getattr(torch, dxn_)),
+            (1 + 0.1 * torch.randn(c, generator=gen)).to(card),
+            (0.1 * torch.randn(c, generator=gen)).to(card))
+
+
+@pytest.mark.parametrize("n,c", [
+    (12032, 256),   # the flagship: xr held in shared memory
+    (60000, 256),   # above the held-tile limit: phase 3 reads xr back
+    (3000, 50),     # C not a multiple of 4: one element a thread
+])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "mixed"])
+def test_epilogue_forward_branches_match_plain(card, mode, rate, n, c):
+    """Row 2's one launch at the sizes of its shared-memory and read-back
+    branches against the plain version (xr: one rounding, equal; y: f32
+    summation order 1e-5, bf16 two ulps 2^-7; the statistics 1e-5), the
+    dropout masks the same, and the same bits on a second call."""
+    gen = torch.Generator().manual_seed(9)
+    args = _epilogue_inputs(card, mode, n, c, gen)
+    seed = _seed(card) if rate else None
+    fwd = (*args, n - 37, 1e-5, rate, seed)
+    _build.reset_launches()
+    got = [t.clone() for t in _forward(*fwd)]
+    again = _forward(*fwd)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_epilogue_fwd"] == 4
+    ref = _forward_plain(*fwd)
+    for a, b, r in zip(got, again, ref):
+        assert a.dtype == r.dtype and torch.equal(a, b)
+    y, mean, var, xr, vec = got
+    assert torch.equal(xr, ref[3])
+    _close(y, ref[0], 1e-5 if y.dtype == torch.float32 else 2.0 ** -7)
+    for a, r in zip((mean, var, vec), ref[1:3] + (ref[4],)):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+    if rate:   # nothing dropped on one side only
+        tol = 2.0 ** -7 * ref[0].float().abs().max()
+        assert not ((y == 0) & (ref[0].float().abs() > tol)).any()
+        assert not ((ref[0] == 0) & (y.float().abs() > tol)).any()
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "mixed"])
+def test_epilogue_forward_on_two_streams(card, mode):
+    """Row 2 and row 3 launched on two streams at once, each stream with its
+    own barrier counter: both results equal the same calls made one after
+    the other on the default stream."""
+    gen = torch.Generator().manual_seed(10)
+    n, c = 12032, 256
+    runs = []
+    for _ in range(2):
+        args = _epilogue_inputs(card, mode, n, c, gen)
+        g = torch.randn(n, c, generator=gen).to(card)
+        runs.append((args, g))
+    seed = _seed(card)
+
+    def step(args, g):
+        y, mean, _, xr, vec = _forward(*args, n - 32, 1e-5, 0.1, seed)
+        return (y, xr, vec) + fused_epilogue_bwd(
+            g.to(xr.dtype), xr, vec, mean, n - 32, 0.1, seed, args[0].dtype,
+            args[1].dtype)
+
+    want = [[t.clone() for t in step(*r)] for r in runs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in runs]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(3):
+        for s, r in zip(streams, runs):
+            with torch.cuda.stream(s):
+                outs.append(step(*r))
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        for a, b in zip(got, want[i % 2]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_epilogue_forward_replays_in_a_graph(card, mode, rate):
+    """Row 2's cooperative launch captured in a CUDA graph (three calls on
+    the capture stream's counter, one launch after another): two replays
+    give the same bytes as an eager call."""
+    gen = torch.Generator().manual_seed(11)
+    n = 12032
+    args = _epilogue_inputs(card, mode, n, 256, gen)
+    fwd = (*args, n - 32, 1e-5, rate, _seed(card) if rate else None)
+    eager = [t.clone() for t in _forward(*fwd)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _forward(*fwd)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(3):
+            outs = _forward(*fwd)
+    graph.replay()
+    torch.cuda.synchronize()
+    first = [t.clone() for t in outs]
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b, e in zip(outs, first, eager):
+        assert torch.equal(a, b) and torch.equal(a, e)
+
+
 # a conv bias that feeds the BatchNorm (GCN and GAT ``bias``, GIN's last
 # MLP layer): its gradient is zero in exact arithmetic, rounding noise here
 _FEEDS_BN = re.compile(r"convs\.\d+\.(nn\.2\.)?bias")
@@ -528,6 +638,35 @@ def test_spmm_kernel_matches_plain(card, width, window, plane, dtype):
     tol = 1e-5 if dtype == "float32" else 1e-2
     _close(out, banded_spmm_plain(a, x), tol)
     _close(xl.grad, banded_spmm_plain(transpose_band(a), g), tol)
+
+
+@pytest.mark.parametrize("window", [3, 5])
+@pytest.mark.parametrize("plane", ["gcn", "adj"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_spmm_kernel_dense_and_boundary_rows(card, window, plane, dtype):
+    """Row 8 on rows denser than a batch and than a whole window block
+    (every coefficient of a row nonzero), on the boundary tiles' rows and
+    on empty rows, against the plain version; the same bits on a second
+    call."""
+    n, f = 640, 256
+    band = _spmm_band(n, {3: 60, 5: 200}[window])
+    a = getattr(band, plane).clone().to(card)
+    assert a.shape[1] == window
+    val = 0.5 if plane == "gcn" else 1.0
+    a[2, :, 7, :] = val                          # 384 (640) nonzeros
+    a[1, window // 2, 100, :40] = val             # 40 in one block
+    a[0, :, 3, :] = 0                            # an empty row
+    a[0, : window // 2] = 0                      # boundary tiles' planes
+    a[-1, window // 2 + 1:] = 0
+    a[-1, window // 2, 127, :] = val
+    gen = torch.Generator().manual_seed(12)
+    x = torch.randn(n, f, generator=gen).to(card, getattr(torch, dtype))
+    out = banded_spmm_fwd(a, x)
+    again = banded_spmm_fwd(a, x)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert not out[3].any()
+    _close(out, banded_spmm_plain(a, x), 1e-5 if dtype == "float32" else 1e-2)
 
 
 def test_spmm_kernel_rejects_bad_input(card):

@@ -3,7 +3,7 @@
 The port's plain version runs on the CPU against the JAX package's
 ``fused_epilogue`` at rate 0 (its Pallas passes in interpret mode), on the
 same numpy inputs, in float32, bfloat16 and mixed (f32 stream + bf16 conv
-output).  The Triton kernels are held against the plain version on the card
+output).  The CUDA kernel is held against the plain version on the card
 by ``test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 

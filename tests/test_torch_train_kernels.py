@@ -1,7 +1,7 @@
 """The port's training kernels' plain versions vs the JAX package (CPU).
 
 The JAX side runs its Pallas kernels in interpret mode, as its own tests
-do, on the same numpy inputs.  The CUDA and Triton kernels are held
+do, on the same numpy inputs.  The CUDA kernels are held
 against these plain versions on the card by ``test_torch_cuda.py`` and
 ``chip_smoke.py``.
 
