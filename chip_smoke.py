@@ -66,9 +66,9 @@ Phases (any failure raises and exits non-zero):
     default model (GCN, 6×256, f32, 4 epochs): every kernel of the path
     launched, the loss finite and lower in the last epoch than in the first,
     and the checkpoint then served by ``infer``; (c) the unfused GAT
-    (bf16) for 2 epochs through the ``Trainer``; then the train steps'
-    host-clock time, device time (torch.profiler's device sum), breakdown
-    by kernel and the card's idle share;
+    (bf16) for 2 epochs through the ``Trainer``.  On the card the
+    ``Trainer`` replays CUDA graphs of its steps, and the counters count
+    each replay's launches;
 13. row 9, ``banded_transformer_fwd`` (CUDA), against its plain version on
     the Transformer bands of both boxes (Wcols 256 and 384) at F 256, H 4,
     C 256, f32 and bf16: no conditioning, the geo form (the boxes' own
@@ -97,8 +97,7 @@ Phases (any failure raises and exits non-zero):
     (4×256, bf16, dropout 0.1, geo, 4 epochs): every kernel of the path
     launched, the loss lower in the last epoch than in the first, the
     checkpoint served by ``infer``; the no-edge path through the
-    ``Trainer`` (rows 9, 10, 7 launched); the train steps' times at 4×256
-    and 8×256;
+    ``Trainer`` (rows 9, 10, 7 launched);
 16. rows 4 (concat) and 5 (per-head): ``banded_gat`` and
     ``banded_gat_bwd(..., mean_expand=False)`` (CUDA) against their plain
     versions on both GAT bands at the flagship width, f32 and bf16, rate 0
@@ -113,7 +112,26 @@ Phases (any failure raises and exits non-zero):
     (the JAX CLI's default backend: GCN 6×256 f32, 4 epochs) and
     ``--backend dense --norm_type layer`` (2 epochs), each lowering the
     loss and served by ``infer``; their train steps' times;
-17. print the kernel table as one JSON line, then the result line.
+17. the CUDA graphs (after phase 12, on its case): for
+    gat4x256-bf16-train, gcn6x256-f32-train, transformer4x256-bf16-train
+    and transformer8x256-bf16-train, three replays of the ``Trainer``'s
+    train-step graph against three eager steps from the same parameters,
+    Adam state and generator state, bit for bit, at dropout 0 and 0.1, and
+    two replays from one state that must draw different masks; then the
+    host-clock quartiles of 20 steps, eager and replayed, each with its
+    device time (the profiler's kernel sum; for the replays also the span
+    of 20 back-to-back replays between CUDA events) and idle share, and
+    (GAT) an eager step's device time with each Adam form (foreach;
+    foreach and capturable; the port's fused and capturable);
+    ``python -m gnn_bfs_rans_tpu_torch train --epoch_block 3`` of the
+    flagship GAT (bf16, dropout 0.1, 6 epochs, checkpoints every 3; the
+    counters set to 0 just before and read just after): rows 1, 2, 3, 5
+    and 6 launched under the replays, the loss lower in the last epoch,
+    the checkpoint served by ``infer``; one block of 6 epochs replayed,
+    its host wall, card span and idle share; the GAT 4×256 bf16
+    ``Predictor`` replayed against its eager forward (bit for bit; host
+    quartiles each way), ``exact_bn`` off and on;
+18. print the kernel table as one JSON line, then the result line.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times per
 call: ten calls captured in one CUDA graph and replayed, so host launch
@@ -504,10 +522,11 @@ def host_time_ms(fn, reps=20, warmup=3):
     return statistics.quantiles(times, n=4)
 
 
-def profile_forward(fwd, label, steps=5):
+def profile_forward(fwd, label, steps=5, with_idle=False, top=12):
     """Device time by kernel over ``steps`` calls of ``fwd``
     (torch.profiler), and the card's busy share of the host-clock window;
-    returns the device µs per call (None when nothing was recorded)."""
+    returns the device µs per call (None when nothing was recorded), and
+    with ``with_idle`` the idle share beside it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -531,12 +550,30 @@ def profile_forward(fwd, label, steps=5):
     busy = sum(by_name.values())
     if busy == 0:
         log(f"profile {label}: the profiler recorded no device time")
-        return None
+        return (None, None) if with_idle else None
+    idle = 1 - busy / wall_us
     log(f"profile {label}: {busy / steps:.1f} us device per call, "
-        f"{wall_us / steps:.1f} us wall, idle share {1 - busy / wall_us:.3f}")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        f"{wall_us / steps:.1f} us wall, idle share {idle:.3f}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"  {us / steps:9.1f} us  {name[:90]}")
-    return busy / steps
+    return (busy / steps, idle) if with_idle else busy / steps
+
+
+def event_time_ms(fn, calls=20):
+    """Device time per call of ``fn`` called ``calls`` times back to back,
+    between two CUDA events: the span of the card's work when the host
+    keeps ahead of it (replayed graphs)."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 
@@ -1076,9 +1113,6 @@ def train(tmp, case, info):
     comp = _json.loads((pred / "comparison.json").read_text())
     log(f"served the trained checkpoint: U mae {comp['U']['mae']:.4e}, "
         f"p mae {comp['p']['mae']:.4e}")
-    # the train step's time and where it goes (after the counts were read)
-    step_times(tmp, case, f"gat{LAYERS}x{HIDDEN}-bf16", layer_type="GAT",
-               num_layers=LAYERS, compute_dtype="bfloat16")
     return launches
 
 
@@ -1217,8 +1251,7 @@ def check_gat_mean(graph, dtype_name, rate, gen, measure=False):
 
 def train_default(tmp, case, info):
     """``train`` with the CLI's default model (GCN, 6 layers, hidden 256,
-    f32; ``train_cli``), then the train step's times.  Returns the launch
-    counts of the run."""
+    f32; ``train_cli``).  Returns the launch counts of the run."""
     import json as _json
 
     launches = train_cli(tmp, case, info, "gcn", GCN_EPOCHS)
@@ -1228,8 +1261,6 @@ def train_default(tmp, case, info):
     if (mcfg["layer_type"], mcfg["num_layers"], mcfg["hidden_dim"]) != (
             "GCN", GCN_LAYERS, HIDDEN):
         raise AssertionError(f"the default model is not GCN 6x256: {mcfg}")
-    step_times(tmp, case, "gcn6x256-f32", layer_type="GCN",
-               num_layers=GCN_LAYERS, compute_dtype="float32")
     return launches
 
 
@@ -1956,10 +1987,6 @@ def train_transformer(tmp, case, info):
         if missing:
             raise AssertionError(f"the {what} Transformer training path never "
                                  f"launched {missing}")
-    for layers in (LAYERS, TR_DEEP_LAYERS):
-        step_times(tmp, case, f"transformer{layers}x{HIDDEN}-bf16",
-                   layer_type="Transformer", num_layers=layers,
-                   compute_dtype="bfloat16")
     return launches, noedge
 
 
@@ -2311,6 +2338,321 @@ def pr6_phase(tmp, case, graphs, train_case, train_info, gen):
     return rows, launches
 
 
+# ------------------------------------------------------------ phase 17
+# the four training cells whose steps are timed eager and replayed
+GRAPH_CELLS = (
+    ("gat4x256-bf16-train", dict(layer_type="GAT", num_layers=LAYERS,
+                                 compute_dtype="bfloat16")),
+    ("gcn6x256-f32-train", dict(layer_type="GCN", num_layers=GCN_LAYERS,
+                                compute_dtype="float32")),
+    ("transformer4x256-bf16-train", dict(layer_type="Transformer",
+                                         num_layers=LAYERS,
+                                         compute_dtype="bfloat16")),
+    ("transformer8x256-bf16-train", dict(layer_type="Transformer",
+                                         num_layers=TR_DEEP_LAYERS,
+                                         compute_dtype="bfloat16")),
+)
+# replays held against eager steps from one state.  Both run the same
+# kernels on the same inputs in the same order, and the replays draw the
+# eager stream's seeds and masks (the generator is registered with the
+# graph): the losses and parameters must be bit-identical, at dropout 0
+# and 0.1
+GRAPH_STEPS = 3
+BLOCK_EPOCHS = 6
+ADAM_CELLS = ("gat4x256-bf16-train",)
+ADAM_FORMS = (("foreach", dict(foreach=True)),
+              ("foreach-capturable", dict(foreach=True, capturable=True)),
+              ("fused-capturable", dict(fused=True, capturable=True)))
+
+
+def _snapshot(tr):
+    """Parameters, buffers, Adam's state and the generator's state."""
+    return ({k: v.clone() for k, v in tr.model.state_dict().items()},
+            {p: {k: v.clone() for k, v in st.items()}
+             for p, st in tr.optimizer.state.items()},
+            tr.generator.get_state())
+
+
+def _restore(tr, snap):
+    """Back to ``snap`` in place: the captured graphs keep their tensors."""
+    model, opt, gen = snap
+    tr.model.load_state_dict(model)
+    for p, st in opt.items():
+        for k, v in st.items():
+            tr.optimizer.state[p][k].copy_(v)
+    tr.generator.set_state(gen)
+
+
+def _graph_trainer(tmp, dataset, label, dropout, **model):
+    from gnn_bfs_rans_tpu_torch.models.flow_gnn import ModelConfig
+    from gnn_bfs_rans_tpu_torch.train.loop import TrainConfig
+    from gnn_bfs_rans_tpu_torch.train.trainer import Trainer
+
+    mcfg = ModelConfig(hidden_dim=HIDDEN, heads=HEADS, backend="pallas",
+                       dropout=dropout, **model)
+    return Trainer(dataset, mcfg, TrainConfig(lr=1e-3),
+                   output_dir=tmp / f"graphs_{label}_{dropout}",
+                   log_fn=lambda *a: None, device="cuda")
+
+
+def replays_vs_eager(tr, label):
+    """``GRAPH_STEPS`` replays of the train step's graph and as many eager
+    steps from one state must agree bit for bit; at dropout > 0 two
+    replays from the same parameters and Adam state, the generator going
+    on, must differ (fresh seeds and masks each replay)."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.train.loop import train_step
+
+    idx = torch.zeros(1, dtype=torch.int64, device="cuda")
+    step = tr._step(False, 1)
+    step(idx, 1e-3)                     # warm-up
+    step(idx, 1e-3)                     # capture and replay
+    snap = _snapshot(tr)
+    runs = []
+    for replay in (True, False):
+        _restore(tr, snap)
+        losses = [(step(idx, 1e-3) if replay else train_step(
+            tr.model, tr.optimizer, tr.graph, tr.targets[idx], 1e-3,
+            tr.config, tr.generator)).clone() for _ in range(GRAPH_STEPS)]
+        runs.append((torch.stack(losses),
+                     [p.detach().clone() for p in tr.model.parameters()]))
+    (l_r, p_r), (l_e, p_e) = runs
+    worst = max(float((a.float() - b.float()).abs().max()) for a, b in
+                zip(p_r, p_e))
+    same = torch.equal(l_r, l_e) and all(
+        torch.equal(a, b) for a, b in zip(p_r, p_e))
+    rate = tr.model_config.dropout
+    msg = (f"graph {label} dropout {rate}: {GRAPH_STEPS} replays vs eager "
+           f"steps: losses {l_r.tolist()} vs {l_e.tolist()}, largest "
+           f"parameter gap {worst:.3e}")
+    if rate:
+        model, opt, _ = snap
+        fresh = []
+        for _ in range(2):
+            _restore(tr, (model, opt, tr.generator.get_state()))
+            fresh.append(step(idx, 1e-3).item())
+        msg += f"; two replays from one state, the stream going on: {fresh}"
+        if fresh[0] == fresh[1]:
+            raise AssertionError(f"graph {label}: replays reuse their masks")
+    log(msg)
+    if not same:
+        raise AssertionError(f"graph {label}: replays differ from eager "
+                             f"steps (largest parameter gap {worst})")
+
+
+def step_times_graphed(tr, label):
+    """Host-clock quartiles of 20 train steps each ending in a synchronize,
+    eager and replayed; the device time (the profiler's kernel sum, and
+    for the replays the span of 20 back-to-back replays between CUDA
+    events) and the idle share of each."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.train.loop import train_step
+
+    idx = torch.zeros(1, dtype=torch.int64, device="cuda")
+    batch = tr.targets[idx]
+    step = tr._step(False, 1)
+
+    def eager():
+        return train_step(tr.model, tr.optimizer, tr.graph, batch, 1e-3,
+                          tr.config, tr.generator)
+
+    def replay():
+        return step(idx, 1e-3)
+
+    # the device time of an eager step with each Adam form (the flagship
+    # cell): the one the port ran before its steps were
+    # captured (foreach, not capturable), the capturable foreach form, and
+    # the port's (capturable, fused)
+    adam = {}
+    for form, kw in ADAM_FORMS if label in ADAM_CELLS else ():
+        lr = (torch.tensor(1e-3, device="cuda") if "capturable" in kw
+              else 1e-3)
+        opt = torch.optim.Adam(tr.model.parameters(), lr=lr,
+                               betas=(0.9, 0.999), eps=1e-8,
+                               weight_decay=tr.config.weight_decay, **kw)
+        adam[form] = profile_forward(
+            lambda: train_step(tr.model, opt, tr.graph, batch, 1e-3,
+                               tr.config, tr.generator),
+            f"train step {label} eager, Adam {form}", top=0)
+    if adam:
+        log(f"train step {label}: eager device time (profiler sum, ms) by "
+            f"Adam form: " + ", ".join(f"{k} {v / 1e3:.4f}"
+                                       for k, v in adam.items()))
+    out = {}
+    for name, fn in (("eager", eager), ("replayed", replay)):
+        host = host_time_ms(fn)
+        busy, idle = profile_forward(fn, f"train step {label} {name}",
+                                     with_idle=True)
+        # eager steps are host-bound: their span would be the host's
+        span = event_time_ms(fn) if name == "replayed" else None
+        out[name] = dict(host=host, busy=busy, idle=idle, span=span)
+        log(f"train step {label} {name} N {tr.graph.n_nodes} dropout "
+            f"{tr.model_config.dropout}: host clock median {host[1]:.4f} ms "
+            f"(quartiles {host[0]:.4f}, {host[2]:.4f}; 20 steps), device "
+            f"time (profiler sum) "
+            f"{'not measured' if busy is None else f'{busy / 1e3:.4f} ms'}, "
+            f"idle share "
+            f"{'not measured' if idle is None else f'{idle:.3f}'} (1 - device "
+            f"time / host median: "
+            f"{'not measured' if busy is None else f'{1 - busy / 1e3 / host[1]:.3f}'})"
+            + ("" if span is None else f"; 20 back-to-back steps span "
+               f"{span:.4f} ms each on the card"))
+    return out
+
+
+def train_blocked(tmp, case, info):
+    """``train --epoch_block 3`` of the flagship GAT (bf16, dropout 0.1, 6
+    epochs, checkpoints every 3): rows 1, 2, 3, 5 and 6 launched (counted
+    through the replays), the loss lower in the last epoch than in the
+    first, the checkpoint served by ``infer``.  Returns the launch
+    counts."""
+    import json as _json
+
+    import numpy as np
+    import torch
+    from gnn_bfs_rans_tpu_torch.cli.main import main as cli_main
+    from gnn_bfs_rans_tpu_torch.kernels import _build
+
+    out = tmp / "train_blocked"
+    argv = ["train", "--case_path", str(case), "--time_dirs", *TRAIN_TIMES,
+            "--output_dir", str(out), "--hidden_dim", str(HIDDEN),
+            "--num_layers", str(LAYERS), "--layer_type", "GAT",
+            "--compute_dtype", "bfloat16", "--dropout", str(DROPOUT),
+            "--epochs", str(TRAIN_EPOCHS), "--save_every", "3",
+            "--epoch_block", "3", "--lr", "1e-3", "--device", "cuda"]
+    t = time.time()
+    _build.reset_launches()           # the blocked training path starts here
+    rc = cli_main(argv)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)  # ... and ends here
+    log(f"train --epoch_block 3: {TRAIN_EPOCHS} epochs in "
+        f"{time.time() - t:.1f} s, launches {launches}")
+    if rc != 0:
+        raise RuntimeError(f"train --epoch_block 3 returned {rc}")
+    missing = [k for k in ("banded_gat_mean_fused", "fused_epilogue_fwd",
+                           "fused_epilogue_bwd", "banded_gat_bwd",
+                           "fold_project_bwd") if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"the blocked GAT training never launched "
+                             f"{missing}")
+    rows = [_json.loads(ln) for ln in
+            (out / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train_loss"] for r in rows]
+    log(f"blocked train losses {losses}; seconds an epoch "
+        f"{[round(r['epoch_seconds'], 4) for r in rows]}")
+    if [r["epoch"] for r in rows] != list(range(1, TRAIN_EPOCHS + 1)):
+        raise AssertionError(f"blocked training epochs {rows}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"blocked training did not lower the loss: "
+                             f"{losses}")
+    for name in ("epoch_3", f"epoch_{TRAIN_EPOCHS}", "best"):
+        if not (out / f"{name}.pt").is_file():
+            raise AssertionError(f"blocked training saved no {name}")
+    pred = tmp / "train_blocked_pred"
+    rc = cli_main(["infer", "--checkpoint", str(out), "--case_path",
+                   str(case), "--output_dir", str(pred), "--reference_time",
+                   "100", "--device", "cuda"])
+    if rc != 0:
+        raise RuntimeError(f"infer of the blocked checkpoint returned {rc}")
+    fields = dict(np.load(pred / "predictions.npz"))
+    if fields["U"].shape != (info["n_cells"], 3) or not all(
+            np.isfinite(v).all() for v in fields.values()):
+        raise AssertionError("bad predictions from the blocked checkpoint")
+    return launches
+
+
+def block_idle(tr, label):
+    """One block of ``BLOCK_EPOCHS`` epochs replayed as the blocked trainer
+    runs it (after the body's warm-up and capture): host-clock wall from
+    the first replay to the block's one synchronize, the span of the
+    card's work between CUDA events, and the idle share they leave."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.train.loop import init_epoch_block_carry
+
+    tr.carry = init_epoch_block_carry(tr.model, tr.scheduler.lr,
+                                      BLOCK_EPOCHS)
+    body = tr._epoch(False)
+    body()                              # warm-up
+    body()                              # capture and replay
+    tr.carry.slot.zero_()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    for _ in range(BLOCK_EPOCHS):
+        body()
+    end.record()
+    rows = tr.carry.outs.tolist()       # the block's one synchronize
+    wall = (time.perf_counter() - t) * 1e3
+    span = start.elapsed_time(end)
+    log(f"epoch block {label}: {BLOCK_EPOCHS} epochs of "
+        f"{tr.dataset.n_snapshots} steps + eval, host wall {wall:.4f} ms "
+        f"({wall / BLOCK_EPOCHS:.4f} an epoch), card span {span:.4f} ms, "
+        f"idle share {1 - span / wall:.3f}; train losses "
+        f"{[r[0] for r in rows]}")
+
+
+def serve_graphed(tmp, case):
+    """The GAT 4×256 bf16 ``Predictor`` (phase 4's checkpoint): its replayed
+    forward equal to the eager forward bit for bit, and the host-clock
+    quartiles of 20 forwards each way (each ending in a synchronize), the
+    replay's device span (CUDA events) and the idle share it leaves."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.infer import Predictor, load_graph
+
+    ckpt = tmp / f"ckpt_gat{LAYERS}x{HIDDEN}-bf16"
+    graph = load_graph(case, "GAT")
+    for exact_bn in (False, True):
+        pred = Predictor.from_checkpoint(ckpt, exact_bn=exact_bn)
+        dev_graph = graph.to("cuda")
+        fwd = pred._forward(graph)
+        with torch.inference_mode():
+            def eager():
+                return pred.model(dev_graph, exact_bn=exact_bn)
+            fwd()                       # warm-up
+            got = fwd().clone()         # capture and replay
+            if not torch.equal(got, eager()):
+                raise AssertionError("the replayed Predictor forward differs "
+                                     f"from the eager one (exact_bn "
+                                     f"{exact_bn})")
+            host_e = host_time_ms(eager)
+            host_r = host_time_ms(fwd)
+            span = event_time_ms(fwd)
+        log(f"serve gat{LAYERS}x{HIDDEN}-bf16 Predictor exact_bn {exact_bn}: "
+            f"host clock median eager {host_e[1]:.4f} ms (quartiles "
+            f"{host_e[0]:.4f}, {host_e[2]:.4f}) -> replayed "
+            f"{host_r[1]:.4f} ms ({host_r[0]:.4f}, {host_r[2]:.4f}); 20 "
+            f"back-to-back replays span {span:.4f} ms each, idle share "
+            f"(1 - span / replayed host median) {1 - span / host_r[1]:.3f}; "
+            f"outputs bit-identical")
+
+
+def graphs_phase(tmp, case, train_case, train_info):
+    """Phase 17: the CUDA graphs of the train step, the epoch body and the
+    serving forward.  Returns the blocked training run's launch counts."""
+    from gnn_bfs_rans_tpu_torch.graph.band import LAYER_COMPONENTS
+    from gnn_bfs_rans_tpu_torch.train.data import load_dataset
+
+    datasets = {}
+    for label, model in GRAPH_CELLS:
+        layer = model["layer_type"]
+        if layer not in datasets:
+            datasets[layer] = load_dataset(
+                train_case, list(TRAIN_TIMES), with_band=True,
+                band_components=LAYER_COMPONENTS[layer])
+        for rate in (0.0, DROPOUT):
+            tr = _graph_trainer(tmp, datasets[layer], label, rate, **model)
+            replays_vs_eager(tr, label)
+        step_times_graphed(tr, label)   # dropout 0.1, as the cells train
+    launches = train_blocked(tmp, train_case, train_info)
+    gat = dict(GRAPH_CELLS)["gat4x256-bf16-train"]
+    block_idle(_graph_trainer(tmp, datasets["GAT"], "block", DROPOUT, **gat),
+               "gat4x256-bf16-train")
+    serve_graphed(tmp, case)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2473,6 +2815,13 @@ def main() -> int:
         launches_gcn = train_default(tmp, train_case, train_info)
         launches_gatm = train_gat_unfused(tmp, train_case)
         log(f"training phases: {time.time() - t1:.1f} s")
+
+        # the CUDA graphs: steps eager and replayed, train --epoch_block,
+        # the replayed Predictor
+        t1 = time.time()
+        launches_blocked = graphs_phase(tmp, case, train_case, train_info)
+        log(f"CUDA graph phase: {time.time() - t1:.1f} s, launches of the "
+            f"blocked run {launches_blocked}")
 
         # rows 4 (concat) and 5 (per-head), the concat conv, the dense and
         # segment backends, a mesh without a band, dense and LayerNorm

@@ -10,7 +10,9 @@ on every backend: ``--backend pallas`` (the port's default, where the JAX
 CLI defaults to ``dense``: the banded kernels, or the dense branches on a
 mesh without a band), ``dense`` or ``segment``, with ``--norm_type batch``,
 ``layer`` or ``none``.  The band is built only for ``pallas``, as the JAX
-CLI builds it.  Its ``--epoch_block`` > 1 and the JAX trainer's
+CLI builds it.  ``--epoch_block`` > 1 runs whole epochs on the device, a
+CUDA graph of the epoch replayed once an epoch, and synchronizes the host
+once a block (the JAX CLI's ``lax.scan`` blocks).  The JAX trainer's
 ``--progress`` bar and ``--no_aot`` cache are not ported, nor are the
 other subcommands.
 """
@@ -134,7 +136,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scheduler", type=str, default="plateau",
                    choices=["plateau", "cosine"])
     p.add_argument("--epoch_block", type=int, default=1,
-                   help="1 only: on-device epoch blocks are not ported")
+                   help="Epochs per device-resident block (1 = host-driven "
+                        "per-epoch loop; >1 replays a CUDA graph of whole "
+                        "epochs and syncs the host once per block)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--backend", type=str, default="pallas",
                    choices=["segment", "dense", "pallas"],

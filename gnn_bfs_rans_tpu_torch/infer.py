@@ -30,8 +30,14 @@ from .graph.build import build_graph
 from .graph.structs import Graph
 from .models.flow_gnn import FlowGNN, ModelConfig, split_fields
 from .train.checkpoint import load_checkpoint
+from .train.graphs import Graphed
 from .train.normalization import FieldNormalizer
 from .train.recal import exact_stats
+
+
+# the graphs a Predictor keeps forwards (and their CUDA graphs) for; the
+# least recently used goes first
+FORWARDS_KEPT = 8
 
 
 @dataclasses.dataclass
@@ -41,6 +47,15 @@ class Predictor:
     ``exact_bn``: predict through the deterministic train-mode forward —
     BatchNorm uses the exact batch statistics of the input graph (see the
     JAX package's ``Predictor.exact_bn``).
+
+    On the card the forward is a CUDA graph (``train/graphs.py``; the JAX
+    package's jitted forward): the first ``predict_packed`` of a graph runs
+    eagerly, as the warm-up every capture needs, and later calls on the
+    same graph object replay, one graph per (graph, model, ``exact_bn``),
+    for the ``FORWARDS_KEPT`` graphs used last.
+    The graph's tensors are moved to the device once, at its first call,
+    and read again by every replay; ``recalibrate_bn`` writes the model's
+    statistics in place, so the replays see them.
     """
 
     model: FlowGNN
@@ -49,6 +64,7 @@ class Predictor:
     meta: dict
     device: torch.device
     exact_bn: bool = False
+    _forwards: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @classmethod
     def from_checkpoint(
@@ -79,7 +95,7 @@ class Predictor:
     def predict_packed(self, graph: Graph) -> np.ndarray:
         """Normalized model output in ORIGINAL cell order, [n_nodes, 7]."""
         with torch.inference_mode():
-            out = self.model(graph.to(self.device), exact_bn=self.exact_bn)
+            out = self._forward(graph)()
         out = out.float().cpu().numpy()[: graph.n_nodes]
         if graph.perm is not None:
             perm = graph.perm.cpu().numpy()[: graph.n_nodes]
@@ -87,6 +103,22 @@ class Predictor:
             orig[perm] = out
             out = orig
         return out
+
+    def _forward(self, graph: Graph) -> Graphed:
+        key = (id(graph), id(self.model), self.exact_bn)
+        entry = self._forwards.pop(key, None)
+        if entry is None:
+            model, exact_bn = self.model, self.exact_bn
+            on_device = graph.to(self.device)
+            fwd = Graphed(lambda: model(on_device, exact_bn=exact_bn),
+                          self.device)
+            # the entry keeps the graph and the model alive, so no other
+            # object takes their ids while it exists
+            entry = (graph, model, fwd)
+            if len(self._forwards) >= FORWARDS_KEPT:
+                del self._forwards[next(iter(self._forwards))]
+        self._forwards[key] = entry     # the most recent last
+        return entry[2]
 
     def recalibrate_bn(self, graph: Graph) -> None:
         """Replace the BatchNorm running statistics with the exact batch

@@ -453,8 +453,9 @@ class TransformerConv(nn.Module):
         rate = self.dropout if generator is not None else 0.0
         q, k, v = (dense(m, x, self.dtype).view(-1, H, C) for m in
                    (self.lin_query, self.lin_key, self.lin_value))
-        scale = 1.0 / torch.sqrt(torch.tensor(float(C), dtype=x.dtype,
-                                              device=x.device))
+        # a CPU scalar: no host-to-device copy, so the step captures into
+        # a CUDA graph
+        scale = 1.0 / torch.sqrt(torch.tensor(float(C), dtype=x.dtype))
         edge_kv = None
         if self.edge_dim is not None:
             edge_kv = dense(self.lin_edge, graph.edge_feat,

@@ -20,20 +20,32 @@ with the reference's ``train.py main()``):
 It trains on every backend (``pallas``, ``dense``, ``segment``; a
 ``pallas`` model on a mesh without a band takes the convs' dense
 branches).  It runs on the card unless asked for the CPU, and has no
-fallback: a CUDA tensor goes to the kernels or the step raises.  Not
-ported: the JAX trainer's device-resident epoch blocks
-(``epoch_block > 1``), its Mosaic compile retries and dense-backend
-fallback (``kernels/fallback.py``: a TPU workaround that would hide a
-kernel fault here), its AOT executable cache, its tqdm bar and
-``ModelConfig.remat`` (constructing a trainer for it raises).  Dropout
-masks and kernel seeds come from one ``torch.Generator`` on the training
-device, seeded from ``TrainConfig.seed``; parameters are initialized from a
-CPU generator with the same seed.
+fallback: a CUDA tensor goes to the kernels or the step raises.
+
+On the card the steps replay CUDA graphs (``train/graphs.py``), as the
+JAX trainer always jits: the per-epoch loop replays the train step's graph
+once a batch (one graph with the pressure freeze, one without, one per
+batch size) and the eval step's once an epoch, and synchronizes the host
+once an epoch; ``epoch_block > 1`` (the JAX trainer's device-resident
+blocks) replays a graph of one whole epoch (``loop.epoch_body``) once an
+epoch and synchronizes once a block.  The first call of each graph runs
+eagerly (its warm-up) and the second captures it.  On the CPU the same
+functions run eagerly.  Not ported: the JAX trainer's Mosaic compile
+retries and dense-backend fallback (``kernels/fallback.py``: a TPU
+workaround that would hide a kernel fault here), its AOT executable cache,
+its tqdm bar and ``ModelConfig.remat`` (constructing a trainer for it
+raises).  Dropout masks, kernel seeds and the blocks' snapshot
+permutations come from one ``torch.Generator`` on the training device,
+seeded from ``TrainConfig.seed``; parameters are initialized from a CPU
+generator with the same seed.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import signal
+import threading
 import time
 from pathlib import Path
 
@@ -49,24 +61,46 @@ from .checkpoint import (
     save_checkpoint,
 )
 from .data import FlowDataset
+from .graphs import Graphed
 from .loop import (
+    FIELDS,
     ReduceLROnPlateau,
     TrainConfig,
     check_trainable,
     cosine_lr,
+    epoch_batches,
+    epoch_body,
     eval_step,
+    init_epoch_block_carry,
     iterate_batches,
+    load_optimizer_state,
     make_optimizer,
     train_step,
 )
 from .recal import exact_stats, resolve_bn_recal
 
-FIELDS = ("U", "p", "k", "epsilon", "nut")
-
 
 def empty_history() -> dict:
     return {"epoch": [], "train_loss": [], "val_loss": [],
             "field_errors": {f: [] for f in FIELDS}, "learning_rate": []}
+
+
+@contextlib.contextmanager
+def _interrupt_after():
+    """Hold a SIGINT that arrives inside the block until it ends, then
+    raise it as ``KeyboardInterrupt``: an epoch of the blocked loop either
+    runs whole or not at all (only the main thread receives signals)."""
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+    held = []
+    previous = signal.signal(signal.SIGINT, lambda *_: held.append(1))
+    try:
+        yield
+    finally:
+        signal.signal(signal.SIGINT, previous)
+    if held:
+        raise KeyboardInterrupt
 
 
 class Trainer:
@@ -79,10 +113,6 @@ class Trainer:
         log_fn=print,
         device: str | torch.device = "cuda",
     ):
-        if train_config.epoch_block > 1:
-            raise NotImplementedError(
-                "epoch_block > 1 (the JAX package's on-device lax.scan of "
-                "whole epochs) is not ported yet")
         check_trainable(model_config)
         self.device = resolve_device(device)
         self.dataset = dataset
@@ -111,6 +141,22 @@ class Trainer:
             threshold=train_config.plateau_threshold,
             min_lr=train_config.plateau_min_lr)
         self.best_val = float("inf")
+        # the step, eval and epoch graphs: one memory pool, the generator
+        # registered with each
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.device.type == "cuda" else None)
+        self._graphs: dict = {}
+        self.carry = None
+
+    def _graphed(self, key, fn, zero_grad: bool = False) -> Graphed:
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._graphs[key] = Graphed(
+                fn, self.device, pool=self._pool,
+                generators=(self.generator,),
+                before_capture=(lambda: self.optimizer.zero_grad(
+                    set_to_none=True)) if zero_grad else None)
+        return g
 
     # ------------------------------------------------------------------ setup
     def initialize(self, resume: bool = False) -> None:
@@ -120,7 +166,7 @@ class Trainer:
                 state, meta = load_checkpoint(self.output_dir, name)
                 self.model.load_state_dict(state)
                 train_state = load_train_state(self.output_dir, name)
-                self.optimizer.load_state_dict(train_state["optimizer"])
+                load_optimizer_state(self.optimizer, train_state["optimizer"])
                 self.start_epoch = int(meta.get("epoch", 0)) + 1
                 self.best_val = float(meta.get("best_val",
                                                meta.get("val_loss", np.inf)))
@@ -159,7 +205,10 @@ class Trainer:
         ``epoch_<last completed epoch>`` (``epoch_0`` before the first, with
         an infinite val loss) with ``interrupted: True`` and the history,
         then re-raises, as the JAX trainer does (whose state may not exist
-        yet; this trainer holds its model from construction)."""
+        yet; this trainer holds its model from construction).  In the
+        blocked loop the epochs whose graphs were queued are recorded
+        first, so the saved parameters are those of the epoch the name
+        says."""
         try:
             return self._train_loop()
         except KeyboardInterrupt:
@@ -174,6 +223,35 @@ class Trainer:
             raise
 
     def _train_loop(self) -> dict:
+        cfg = self.config
+        n = self.dataset.n_snapshots
+        if cfg.epoch_block > 1:
+            if n % min(cfg.batch_size, n) == 0:
+                return self._train_loop_blocked()
+            self.log(f"epoch_block={cfg.epoch_block} needs n_snapshots ({n}) "
+                     f"divisible by batch_size ({cfg.batch_size}); falling "
+                     "back to the per-epoch loop")
+        self._run_epochs()
+        self.save_history()
+        return self.history
+
+    def _step(self, freeze: bool, size: int) -> Graphed:
+        """The train step on the batch ``targets[idx]`` (idx: ``size``
+        device indices) at learning rate ``lr``: ``step(idx, lr)``."""
+        def step(idx, lr):
+            return train_step(self.model, self.optimizer, self.graph,
+                              self.targets[idx], lr, self.config,
+                              self.generator, freeze_pressure=freeze)
+        return self._graphed(("step", freeze, size), step, zero_grad=True)
+
+    def _eval(self) -> Graphed:
+        def evaluate():
+            loss, errors, _ = eval_step(self.model, self.graph, self.targets,
+                                        self.config, recal=self.bn_recal)
+            return torch.stack([loss, *(errors[f] for f in FIELDS)])
+        return self._graphed("eval", evaluate)
+
+    def _run_epochs(self) -> None:
         cfg = self.config
         n = self.dataset.n_snapshots
         lr = self.scheduler.lr
@@ -191,47 +269,35 @@ class Trainer:
                 lr = cosine_lr(cfg, epoch)
 
             t0 = time.perf_counter()
-            losses = [
-                train_step(self.model, self.optimizer, self.graph,
-                           self.targets[torch.from_numpy(idx).to(self.device)],
-                           lr, cfg, self.generator, freeze_pressure=freeze)
-                for idx in iterate_batches(n, cfg.batch_size, self.np_rng)]
-            train_loss = float(torch.stack(losses).mean())
+            batches = iterate_batches(n, cfg.batch_size, self.np_rng)
+            # the epoch's order on the device in one copy that does not
+            # wait for the card (pinned memory); each batch a view
+            order = torch.from_numpy(np.concatenate(batches))
+            if self.device.type == "cuda":
+                order = order.pin_memory().to(self.device, non_blocking=True)
+            losses, start = [], 0
+            for idx in batches:
+                step = self._step(freeze, len(idx))
+                # a replay's loss is overwritten by the next: keep a copy
+                losses.append(step(order[start:start + len(idx)],
+                                   lr).clone())
+                start += len(idx)
+            vals = torch.cat([torch.stack(losses).mean().float()[None],
+                              self._eval()().float()]).tolist()
+            train_loss, val_loss = vals[0], vals[1]
+            errors = dict(zip(FIELDS, vals[2:]))
             if not np.isfinite(train_loss):
                 self.save_history()
                 raise FloatingPointError(
                     f"non-finite training loss at epoch {epoch} "
                     f"(loss={train_loss})")
-
-            val_loss, errors, _ = eval_step(self.model, self.graph,
-                                            self.targets, cfg,
-                                            recal=self.bn_recal)
-            val_loss = float(val_loss)
             lr_used = lr
             if cfg.scheduler == "plateau":
                 lr = self.scheduler.step(val_loss)
-
-            detailed = epoch % 10 == 0
-            self.history["epoch"].append(epoch)
-            self.history["train_loss"].append(train_loss)
-            self.history["val_loss"].append(val_loss)
-            self.history["learning_rate"].append(lr_used)
-            for f in FIELDS:
-                self.history["field_errors"][f].append(
-                    float(errors[f]) if detailed else None)
-            if detailed:
-                self.log(f"Epoch {epoch} field errors: " + ", ".join(
-                    f"{f}={float(errors[f]):.6f}" for f in FIELDS))
             dt = time.perf_counter() - t0
+            self._record(epoch, train_loss, val_loss, lr_used, errors, dt)
             self.log(f"Epoch {epoch}: train={train_loss:.6f} "
                      f"val={val_loss:.6f} lr={lr_used:.3e} ({dt:.2f}s)")
-            with open(self.output_dir / "metrics.jsonl", "a") as fh:
-                fh.write(json.dumps({
-                    "epoch": epoch, "train_loss": train_loss,
-                    "val_loss": val_loss, "lr": lr_used, "epoch_seconds": dt,
-                    **({f"err_{k}": float(errors[k]) for k in FIELDS}
-                       if detailed else {}),
-                }) + "\n")
 
             extra = {"best_val": min(self.best_val, val_loss), "lr": lr,
                      "sched_best": self.scheduler.best}
@@ -240,8 +306,155 @@ class Trainer:
                 self._save("best", epoch, val_loss, extra)
             if epoch % cfg.save_every == 0:
                 self._save(f"epoch_{epoch}", epoch, val_loss, extra)
+
+    def _record(self, epoch: int, train_loss: float, val_loss: float,
+                lr: float, errors: dict, seconds: float) -> None:
+        """One epoch's history and ``metrics.jsonl`` rows (field errors
+        every 10 epochs)."""
+        detailed = epoch % 10 == 0
+        self.history["epoch"].append(epoch)
+        self.history["train_loss"].append(train_loss)
+        self.history["val_loss"].append(val_loss)
+        self.history["learning_rate"].append(lr)
+        for f in FIELDS:
+            self.history["field_errors"][f].append(
+                errors[f] if detailed else None)
+        if detailed:
+            self.log(f"Epoch {epoch} field errors: " + ", ".join(
+                f"{f}={errors[f]:.6f}" for f in FIELDS))
+        with open(self.output_dir / "metrics.jsonl", "a") as fh:
+            fh.write(json.dumps({
+                "epoch": epoch, "train_loss": train_loss,
+                "val_loss": val_loss, "lr": lr, "epoch_seconds": seconds,
+                **({f"err_{k}": errors[k] for k in FIELDS}
+                   if detailed else {}),
+            }) + "\n")
+
+    # ---------------------------------------------------------- epoch blocks
+    def _train_loop_blocked(self) -> dict:
+        """Device-resident epoch loop: blocks of up to ``cfg.epoch_block``
+        epochs, each epoch one call of ``loop.epoch_body`` (on the card a
+        replay of its CUDA graph), the host synchronized once a block (the
+        JAX trainer's ``_train_loop_blocked``).
+
+        Blocks are cut at ``save_every`` multiples, at the curriculum
+        boundary and at the last epoch, so periodic checkpoints and the
+        freeze/LR-halving switch land on the same epochs as in the
+        per-epoch loop; the plateau scheduler runs on the device (f32
+        state).  Two deviations, the JAX package's: the snapshot order
+        comes from the device generator instead of the host numpy stream,
+        and a ``best`` checkpoint holds the best epoch's parameters and
+        buffers with the block-end optimizer state (``resume`` normally
+        continues from the latest ``epoch_N``, which is exact)."""
+        cfg = self.config
+        carry = self.carry = init_epoch_block_carry(
+            self.model, self.scheduler.lr, cfg.epoch_block)
+        # resume: the device scheduler starts from the host's state
+        carry.sched.best.fill_(self.scheduler.best)
+        carry.best_val.fill_(self.best_val)
+        self._run_blocks(carry)
         self.save_history()
         return self.history
+
+    def _epoch(self, freeze: bool) -> Graphed:
+        """One epoch on ``self.carry``: one graph per carry, which its
+        closure keeps alive (a graph reads its carry's memory)."""
+        n_batches = epoch_batches(self.dataset.n_snapshots,
+                                  self.config.batch_size)
+        carry = self.carry
+
+        def body():
+            epoch_body(self.model, self.optimizer, self.graph, self.targets,
+                       carry, self.config, n_batches, self.generator,
+                       freeze=freeze, recal=self.bn_recal)
+        return self._graphed(("epoch", freeze, id(carry)), body,
+                             zero_grad=True)
+
+    def _run_blocks(self, carry) -> None:
+        cfg = self.config
+        epoch = self.start_epoch
+        while epoch <= cfg.epochs:
+            if cfg.curriculum_epochs > 0 and epoch == cfg.curriculum_epochs + 1:
+                new_lr = float(carry.sched.lr) * 0.5
+                carry.sched.lr.fill_(new_lr)
+                self.log(f"Curriculum phase 2: unfreezing pressure, "
+                         f"lr → {new_lr:.3e}")
+            freeze = cfg.curriculum_epochs > 0 and epoch <= cfg.curriculum_epochs
+            # block end: epoch_block cap, save_every multiple, curriculum
+            # boundary, final epoch — whichever comes first
+            stop = min(epoch + cfg.epoch_block - 1,
+                       ((epoch - 1) // cfg.save_every + 1) * cfg.save_every,
+                       cfg.epochs)
+            if freeze:
+                stop = min(stop, cfg.curriculum_epochs)
+            k = stop - epoch + 1
+
+            t0 = time.perf_counter()
+            carry.epoch.fill_(epoch - 1)
+            carry.slot.zero_()
+            body = self._epoch(freeze)
+            try:
+                for _ in range(k):
+                    with _interrupt_after():
+                        body()
+            except KeyboardInterrupt:
+                # the epochs queued before it ran whole: record them
+                self._end_block(carry, epoch, int(carry.slot), t0)
+                raise
+            with _interrupt_after():
+                extra = self._end_block(carry, epoch, k, t0)
+                if stop % cfg.save_every == 0 or stop == cfg.epochs:
+                    self._save(f"epoch_{stop}", stop,
+                               self.history["val_loss"][-1], extra)
+            epoch = stop + 1
+
+    def _end_block(self, carry, epoch: int, k: int, t0: float) -> dict:
+        """Read the block's ``k`` epochs (one host synchronization), record
+        them, take the scheduler state back to the host and save ``best``
+        from the carry when the block improved on it.  Returns the resume
+        fields a checkpoint of the block's end carries."""
+        vals = torch.cat([
+            carry.outs[:k].flatten(),
+            torch.stack([carry.sched.lr, carry.sched.best, carry.best_val,
+                         carry.best_epoch.float()]),
+        ]).tolist()
+        rows = np.asarray(vals[:-4], np.float64).reshape(k, 3 + len(FIELDS))
+        lr, best, block_best, best_epoch = vals[-4:]
+        dt = time.perf_counter() - t0
+        if not np.isfinite(rows[:, 0]).all():
+            bad = epoch + int(np.argmax(~np.isfinite(rows[:, 0])))
+            self.save_history()
+            raise FloatingPointError(
+                f"non-finite training loss at epoch {bad} "
+                f"(block {epoch}..{epoch + k - 1})")
+        for j, row in enumerate(rows):
+            self._record(epoch + j, float(row[0]), float(row[1]),
+                         float(row[2]), dict(zip(FIELDS, map(float, row[3:]))),
+                         dt / k)
+        if k:
+            self.log(f"Epochs {epoch}-{epoch + k - 1}: train={rows[-1, 0]:.6f} "
+                     f"val={rows[-1, 1]:.6f} lr={rows[-1, 2]:.3e} "
+                     f"({dt:.2f}s, {dt / k * 1e3:.0f} ms/epoch)")
+        self.scheduler.lr, self.scheduler.best = lr, best
+        extra = {"best_val": min(self.best_val, block_best),
+                 "lr": self.scheduler.lr, "sched_best": self.scheduler.best}
+        if block_best < self.best_val:
+            self.best_val = block_best
+            self._save_state("best", int(best_epoch), block_best, extra,
+                             carry.best_state)
+        return extra
+
+    def _save_state(self, name: str, epoch: int, val_loss: float,
+                    extra: dict, state: dict) -> None:
+        """``_save`` of the parameters and buffers ``state``: copied into
+        the model in place (the captured graphs keep reading its tensors)
+        and back."""
+        current = {k: v.clone() for k, v in self.model.state_dict().items()}
+        self.model.load_state_dict(state)
+        try:
+            self._save(name, epoch, val_loss, extra)
+        finally:
+            self.model.load_state_dict(current)
 
     def _save(self, name: str, epoch: int, val_loss: float,
               extra: dict) -> None:

@@ -1514,3 +1514,214 @@ def test_gat_one_weight_projection_shapes(card, dtype, n, tile, heads, c, f):
     assert z.shape == (n, heads * c) and out.shape == (n, c)
     _close(z, ref_z, 1e-6 if dtype == "float32" else 1e-2)
     _close(out, ref, KTOL[dtype])
+
+
+# ------------------------------------------------ CUDA graphs of the steps
+def _train_case(tmp_path, layer):
+    from gnn_bfs_rans_tpu_torch.foam import drifting_box_fields
+    from gnn_bfs_rans_tpu_torch.graph.band import LAYER_COMPONENTS
+    from gnn_bfs_rans_tpu_torch.train.data import load_dataset
+
+    times = ("100", "200", "282")
+    generate_box_case(tmp_path / "case", 24, 14, 1, time_dirs=times,
+                      time_field_fn=drifting_box_fields)
+    return load_dataset(tmp_path / "case", list(times), with_band=True,
+                        band_components=LAYER_COMPONENTS[layer])
+
+
+GRAPH_CFGS = {
+    "gat-bf16": dict(hidden_dim=64, num_layers=4, layer_type="GAT", heads=4,
+                     compute_dtype="bfloat16"),
+    "gcn-f32": dict(hidden_dim=64, num_layers=2, layer_type="GCN",
+                    compute_dtype="float32"),
+}
+
+
+def _trainer(card, tmp_path, name, dropout=0.0, device=None, **tcfg):
+    from gnn_bfs_rans_tpu_torch.train.trainer import Trainer
+
+    ds = _train_case(tmp_path, GRAPH_CFGS[name]["layer_type"])
+    cfg = ModelConfig(**GRAPH_CFGS[name], backend="pallas", dropout=dropout)
+    return Trainer(ds, cfg, TrainConfig(**{"lr": 1e-3, **tcfg}),
+                   output_dir=tmp_path / f"run_{name}_{len(tcfg)}",
+                   log_fn=lambda *_: None, device=device or card)
+
+
+def _snapshot(tr):
+    """Parameters, buffers, Adam's state and the generator's state."""
+    return ({k: v.clone() for k, v in tr.model.state_dict().items()},
+            {p: {k: v.clone() for k, v in st.items()}
+             for p, st in tr.optimizer.state.items()},
+            tr.generator.get_state())
+
+
+def _restore(tr, snap):
+    """Back to ``snap`` in place: the captured graphs keep their tensors."""
+    model, opt, gen = snap
+    tr.model.load_state_dict(model)
+    for p, st in opt.items():
+        for k, v in st.items():
+            tr.optimizer.state[p][k].copy_(v)
+    tr.generator.set_state(gen)
+
+
+def _replays_and_eager(tr, k, freeze=False):
+    """From one state: k replays of the step graph, then k eager steps:
+    (losses, parameters, launch counts) of each."""
+    idx = torch.arange(tr.dataset.n_snapshots, device=tr.device)
+    step = tr._step(freeze, idx.numel())
+    step(idx, 1e-3)                     # warm-up
+    step(idx, 1e-3)                     # capture and replay
+    snap = _snapshot(tr)
+    runs = []
+    for replay in (True, False):
+        _restore(tr, snap)
+        _build.reset_launches()
+        losses = [(step(idx, 1e-3) if replay else train_step(
+            tr.model, tr.optimizer, tr.graph, tr.targets[idx], 1e-3,
+            tr.config, tr.generator, freeze_pressure=freeze)).clone()
+            for _ in range(k)]
+        torch.cuda.synchronize()
+        runs.append((torch.stack(losses).cpu(),
+                     {n: p.detach().clone() for n, p in
+                      tr.model.named_parameters()},
+                     {n: c for n, c in _build.LAUNCHES.items() if c}))
+    return runs
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("name", ["gat-bf16", "gcn-f32"])
+def test_step_graph_replays_equal_eager_steps(card, tmp_path, name, dropout):
+    """K replays of the captured train step and K eager steps from the same
+    parameters, Adam state and generator state: the same losses and
+    parameters bit for bit (the same kernels on the same inputs; dropout
+    0.1: the replays draw the eager stream's seeds and masks, so the
+    generator is registered with the graph), and the replays' launch
+    counts equal the eager steps'."""
+    tr = _trainer(card, tmp_path, name, dropout=dropout)
+    (l_r, p_r, n_r), (l_e, p_e, n_e) = _replays_and_eager(tr, 3)
+    assert torch.equal(l_r, l_e), (l_r, l_e)
+    for k in p_e:
+        assert torch.equal(p_r[k], p_e[k]), k
+    assert n_r == n_e and n_r
+    assert len(set(l_r.tolist())) == 3     # the parameters moved each step
+
+
+@pytest.mark.parametrize("name", ["gat-bf16", "gcn-f32"])
+def test_step_graph_draws_fresh_masks(card, tmp_path, name):
+    """At dropout 0.1, two replays from the same parameters and Adam state
+    but the generator left where the first one took it give different
+    losses: each replay draws fresh seeds and masks."""
+    tr = _trainer(card, tmp_path, name, dropout=0.1)
+    idx = torch.arange(tr.dataset.n_snapshots, device=card)
+    step = tr._step(False, idx.numel())
+    step(idx, 1e-3)
+    step(idx, 1e-3)
+    model, opt, _ = _snapshot(tr)
+    losses = []
+    for _ in range(2):
+        _restore(tr, (model, opt, tr.generator.get_state()))
+        losses.append(step(idx, 1e-3).item())
+    assert losses[0] != losses[1]
+
+
+def test_freeze_graph_keeps_the_pressure_column(card, tmp_path):
+    """The freeze graph (captured with the pressure freeze, a static part
+    of the graph as JAX's ``freeze``) leaves ``out_3``'s pressure row and
+    bias unmoved over its replays and moves the other rows."""
+    tr = _trainer(card, tmp_path, "gcn-f32")
+    w, b = tr.model.out_3.weight, tr.model.out_3.bias
+    before = w.detach().clone(), b.detach().clone()
+    idx = torch.arange(tr.dataset.n_snapshots, device=card)
+    step = tr._step(True, idx.numel())
+    for _ in range(4):
+        step(idx, 1e-3)
+    torch.cuda.synchronize()
+    assert torch.equal(w[3], before[0][3]) and b[3] == before[1][3]
+    assert not torch.equal(w[0], before[0][0])
+
+
+def test_epoch_block_graph_equals_eager_block(card, tmp_path):
+    """``train --epoch_block 3`` on the card (the epoch body replayed as a
+    CUDA graph) against the same three epochs of ``epoch_body`` run
+    eagerly on the card from the same seeds: batch 1 (a permutation drawn
+    on the device each epoch), dropout 0.1, bf16 (exact-BN eval): the same
+    outputs and parameters bit for bit."""
+    from gnn_bfs_rans_tpu_torch.train.loop import (epoch_body,
+                                                   init_epoch_block_carry)
+
+    kw = dict(dropout=0.1, epochs=3, epoch_block=3, save_every=3)
+    tr = _trainer(card, tmp_path, "gat-bf16", **kw)
+    tr.train()
+    ref = _trainer(card, tmp_path / "eager", "gat-bf16", **kw)
+    carry = init_epoch_block_carry(ref.model, ref.scheduler.lr, 3)
+    for _ in range(3):
+        epoch_body(ref.model, ref.optimizer, ref.graph, ref.targets, carry,
+                   ref.config, 3, ref.generator, recal=ref.bn_recal)
+    assert ref.bn_recal and torch.equal(tr.carry.outs, carry.outs)
+    for (k, p), q in zip(tr.model.named_parameters(),
+                         ref.model.parameters()):
+        assert torch.equal(p, q), k
+    assert torch.equal(tr.carry.best_epoch, carry.best_epoch)
+    assert tr.history["epoch"] == [1, 2, 3]
+
+
+def test_predictor_replays_equal_eager(card, tmp_path):
+    """``Predictor.predict_packed``: the first call eager, the later ones
+    replays of its CUDA graph, all equal to the model's eager forward
+    (GAT bf16, ``exact_bn`` off and on); after ``recalibrate_bn`` (in
+    place) the replay equals the eager forward of the new statistics."""
+    from gnn_bfs_rans_tpu_torch.infer import Predictor
+
+    graph = _train_case(tmp_path, "GAT").graph
+    cfg = ModelConfig(**GRAPH_CFGS["gat-bf16"], backend="pallas")
+    # running statistics at their initial values: recalibration moves them
+    save_checkpoint(tmp_path / "ckpt", "best", FlowGNN(
+        cfg, generator=torch.Generator().manual_seed(3)).state_dict(),
+        model_config=cfg, normalizer=None)
+    for exact_bn in (False, True):
+        pred = Predictor.from_checkpoint(tmp_path / "ckpt",
+                                         exact_bn=exact_bn)
+        dev_graph = graph.to(card)
+
+        def eager():
+            with torch.inference_mode():
+                out = pred.model(dev_graph, exact_bn=exact_bn)
+            return out.float().cpu().numpy()[: graph.n_nodes]
+
+        want = eager()
+        _build.reset_launches()
+        outs = [pred.predict_packed(graph) for _ in range(3)]
+        assert _build.LAUNCHES["banded_gat_mean_fused"] == 3 * 4
+        perm = graph.perm.numpy()[: graph.n_nodes]
+        for out in outs:
+            np.testing.assert_array_equal(out[perm], want)
+        if not exact_bn:
+            pred.recalibrate_bn(graph)
+            np.testing.assert_array_equal(pred.predict_packed(graph)[perm],
+                                          eager())
+            assert not np.array_equal(eager(), want)
+
+
+def test_resume_across_capturable_optimizer_state(card, tmp_path):
+    """A CPU checkpoint (Adam's state not capturable, a float lr) resumes on
+    the card, where Adam is capturable with its lr a device tensor, and
+    the card's checkpoint resumes on the CPU."""
+    tr = _trainer(card, tmp_path, "gcn-f32", device="cpu", epochs=1,
+                  save_every=1)
+    tr.train()
+    for device, epochs in ((card, 2), ("cpu", 3)):
+        tr = _trainer(card, tmp_path, "gcn-f32", device=device,
+                      epochs=epochs, save_every=1)
+        tr.initialize(resume=True)
+        group = tr.optimizer.param_groups[0]
+        on_card = torch.device(device).type == "cuda"
+        assert group["capturable"] is on_card
+        assert bool(group["fused"]) is on_card
+        assert isinstance(group["lr"], torch.Tensor) is on_card
+        steps = [st["step"] for st in tr.optimizer.state.values()]
+        assert steps and all(s.device.type == torch.device(device).type
+                             for s in steps)
+        hist = tr.train()
+        assert hist["epoch"] == list(range(1, epochs + 1))
+        assert np.isfinite(hist["train_loss"]).all()

@@ -158,3 +158,27 @@ def test_normalizer_matches_jax(case):
         np.testing.assert_allclose(norm.inverse_transform(z)[k], fields[k],
                                    rtol=1e-12, atol=1e-12)
     np.testing.assert_array_equal(pack_targets(z), jax_pack(want))
+
+
+def test_predictor_keeps_the_forwards_of_its_latest_graphs(case, tmp_path):
+    """``predict_packed`` keeps one forward (on the card, one CUDA graph)
+    per graph object for the ``FORWARDS_KEPT`` graphs used last, the
+    least recently used dropped first, and each call's fields are the
+    model's whichever forward serves it."""
+    from gnn_bfs_rans_tpu_torch.infer import FORWARDS_KEPT, Predictor
+
+    path = case[0]
+    cfg = ModelConfig(**CFG)
+    save_checkpoint(tmp_path / "ckpt", "best", FlowGNN(cfg).state_dict(),
+                    model_config=cfg, normalizer=None)
+    pred = Predictor.from_checkpoint(tmp_path / "ckpt", device="cpu")
+    graphs = [load_graph(path, "GAT") for _ in range(FORWARDS_KEPT + 2)]
+    want = pred.predict_packed(graphs[0])
+    for g in [*graphs, graphs[-1], graphs[0]]:
+        np.testing.assert_array_equal(pred.predict_packed(g), want)
+    kept = [entry[0] for entry in pred._forwards.values()]
+    assert len(kept) == FORWARDS_KEPT
+    # the latest use last: graph 0, dropped by graph 8, came back and
+    # dropped graph 2
+    assert kept[-1] is graphs[0] and kept[-2] is graphs[-1]
+    assert not any(g is graphs[1] or g is graphs[2] for g in kept)

@@ -347,13 +347,18 @@ def test_train_loss_falls_f32(case, tmp_path):
 
 
 def test_unported_paths_raise(case, tmp_path):
-    """What stays unported raises (on-device epoch blocks); the dense
-    backend, which raised before it was ported, trains."""
+    """Paths that raised before they were ported now train: the dense
+    backend and on-device epoch blocks (``--epoch_block 2``: one block of
+    the one epoch, a row of history and a checkpoint); what stays
+    unported raises."""
     path, _, _ = case
     assert cli_main(_train_argv(path, tmp_path / "a", 1, "--backend",
                                 "dense")) == 0
-    with pytest.raises(NotImplementedError):
-        cli_main(_train_argv(path, tmp_path / "b", 1, "--epoch_block", "2"))
+    out = tmp_path / "b"
+    assert cli_main(_train_argv(path, out, 1, "--epoch_block", "2")) == 0
+    hist = json.loads((out / "training_history.json").read_text())
+    assert hist["epoch"] == [1] and np.isfinite(hist["train_loss"]).all()
+    assert (out / "epoch_1.pt").is_file()
     # the Transformer trains (rows 9, 10, 7 and 6), with dropout; its
     # fused-projection eval form (row 11) has no gradient
     cfg = ModelConfig(**{**CFG, "layer_type": "Transformer", "heads": 2,

@@ -17,6 +17,7 @@ Small sizes: a 336-cell generated case, hidden 32, 2 heads, 2 layers.
 """
 
 import functools
+import json
 import types
 
 import jax
@@ -203,19 +204,21 @@ def test_jax_saved_checkpoint_serves(case, tmp_path):
 
 
 def test_training_raises(case, tmp_path):
-    """What is still not ported raises for the Transformer too (on-device
-    epoch blocks, row 11 under a gradient); its training forward runs and
-    differentiates, and the dense backend, which raised before it was
-    ported, trains it."""
+    """What is still not ported raises for the Transformer too (row 11
+    under a gradient); its training forward runs and differentiates, and
+    the dense backend and on-device epoch blocks (``--epoch_block 2``),
+    which raised before they were ported, train it."""
     path = case[0]
     argv = ["train", "--case_path", str(path), "--time_dirs", "100",
-            "--layer_type", "Transformer", "--device", "cpu"]
+            "--layer_type", "Transformer", "--device", "cpu",
+            "--hidden_dim", "16", "--num_layers", "2"]
     assert cli_main([*argv, "--output_dir", str(tmp_path / "a"), "--backend",
-                     "dense", "--hidden_dim", "16", "--num_layers", "2",
-                     "--epochs", "1"]) == 0
-    with pytest.raises(NotImplementedError, match="epoch_block"):
-        cli_main([*argv, "--output_dir", str(tmp_path / "b"),
-                  "--epoch_block", "2"])
+                     "dense", "--epochs", "1"]) == 0
+    out = tmp_path / "b"
+    assert cli_main([*argv, "--output_dir", str(out), "--epochs", "2",
+                     "--epoch_block", "2"]) == 0
+    hist = json.loads((out / "training_history.json").read_text())
+    assert hist["epoch"] == [1, 2] and np.isfinite(hist["train_loss"]).all()
     port = FlowGNN(ModelConfig(**{**CFG, "fuse_eval": True}))
     graph = load_graph(path, "Transformer")
     out = port(graph, train=True, generator=torch.Generator().manual_seed(0))
