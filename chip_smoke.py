@@ -131,7 +131,21 @@ Phases (any failure raises and exits non-zero):
     its host wall, card span and idle share; the GAT 4×256 bf16
     ``Predictor`` replayed against its eager forward (bit for bit; host
     quartiles each way), ``exact_bn`` off and on;
-18. print the kernel table as one JSON line, then the result line.
+18. the bench harness (``gnn_bfs_rans_tpu_torch/utils/``), in process, each
+    run with the launch counters set to 0 just before and read just after,
+    and its JSON printed on a line of its own: (a) the headline entry
+    ``gnn_bfs_rans_tpu_torch.bench`` (GAT 4×256 bf16 forward on the 400×30
+    box; row 1; MFU against the card's peaks; its chained marginal time
+    within 15% of the replayed ``Predictor``'s span), (b) ``bench --mode
+    train --trace`` (GAT 4×256 bf16; rows 1, 2, 3, 5, 6; the trace's
+    device total above 0; parameters finite), (c) the Transformer 8×256
+    bf16 forward (row 9), (d) GCN 6×256 f32 (row 8), (e) ``bench
+    --synthetic 1000000`` (GAT 4×256 bf16 on a 96 × 10,416 grid, row 1)
+    and ``run_scale_benchmark(mode="train")`` there (rows 1, 2, 3, 5, 6),
+    with the grid's host build time; then the 12,000-cell case's serving
+    wall time by stage (checkpoint load, case read, graph build with RCM
+    and band, forward, OpenFOAM writeback);
+19. print the kernel table as one JSON line, then the result line.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times per
 call: ten calls captured in one CUDA graph and replayed, so host launch
@@ -161,9 +175,10 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-H100_BF16_FLOPS = 989e12   # dense tensor-core bf16 (NVIDIA data sheet, SXM)
-H100_FP32_FLOPS = 67e12    # FP32 outside the tensor cores
-H100_BYTES_PER_S = 3.35e12
+# dense tensor-core bf16 FLOP/s and HBM bytes/s: the card's entry in
+# gnn_bfs_rans_tpu_torch/utils/roofline.py::DEVICE_PEAKS, set by main()
+H100_BF16_FLOPS = H100_BYTES_PER_S = None
+H100_FP32_FLOPS = 67e12    # FP32 outside the tensor cores (NVIDIA data sheet)
 HIDDEN, HEADS, LAYERS = 256, 4, 4
 GAT_TOL = {"float32": 1e-4, "bfloat16": 1e-2}    # × max |plain output|
 EPI_TOL = {"float32": 1e-5, "bfloat16": 1e-2, "mixed": 1e-5}
@@ -2653,6 +2668,262 @@ def graphs_phase(tmp, case, train_case, train_info):
     return launches
 
 
+# ------------------------------------------------------------ phase 18
+# the bench runs: (label, argv of `python -m gnn_bfs_rans_tpu_torch bench`,
+# the kernels each must launch)
+GAT_TRAIN_ROWS = ("banded_gat_mean_fused", "fused_epilogue_fwd",
+                  "fused_epilogue_bwd", "banded_gat_bwd", "fold_project_bwd")
+BENCH_RUNS = (
+    ("b: gat4x256-bf16-train-trace",
+     ["--mode", "train", "--trace", "--compute_dtype", "bfloat16"],
+     GAT_TRAIN_ROWS),
+    ("c: transformer8x256-bf16-forward",
+     ["--layer_type", "Transformer", "--num_layers", str(TR_DEEP_LAYERS),
+      "--compute_dtype", "bfloat16"], ("banded_transformer_fwd",)),
+    ("d: gcn6x256-f32-forward",
+     ["--layer_type", "GCN", "--num_layers", str(GCN_LAYERS)],
+     ("banded_spmm",)),
+)
+# the scale runs: a ~1M-cell grid, 96 cells wide (the JAX package's default)
+SCALE_CELLS, SCALE_NX = 1_000_000, 96
+# the headline forward's chained marginal time vs the replayed Predictor's
+# span of the same model shape (both device-bound replays of one forward)
+HEADLINE_SPAN_TOL = 0.15
+
+
+def _run_json(label, fn, names):
+    """Run ``fn`` (which prints one JSON line) with the launch counters set
+    to 0 just before and read just after; check ``names`` launched; print
+    the JSON on its own line; return the result."""
+    import io
+
+    import torch
+    from gnn_bfs_rans_tpu_torch.kernels import _build
+
+    buf = io.StringIO()
+    t = time.time()
+    _build.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = fn()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if rc not in (None, 0):
+        raise RuntimeError(f"bench {label} returned {rc}")
+    line = buf.getvalue().strip().splitlines()[-1]
+    result = json.loads(line)
+    for name in names:
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"bench {label}: {name} never launched "
+                                 f"({counts})")
+    log(f"bench {label}: {time.time() - t:.1f} s, launches {counts}")
+    print(line, flush=True)
+    return result
+
+
+def check_at_scale(grid, gen):
+    """The kernels of the 1M-cell GAT path (bf16, dropout 0 as the scale
+    runs train) against their plain versions on the grid's band, once
+    each, untimed: rows 1 (eval, and the training form emitting z), 5
+    and 6, and rows 2 and 3 at 999,936 rows (their read-back branches)."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.kernels.banded import (
+        banded_gat_mean_fused, banded_gat_mean_fused_plain)
+    from gnn_bfs_rans_tpu_torch.kernels.banded_bwd import (
+        banded_gat_bwd, banded_gat_bwd_plain, fold_project_bwd,
+        fold_project_bwd_plain)
+    from gnn_bfs_rans_tpu_torch.kernels.epilogue import (
+        _forward, _forward_plain, fused_epilogue_bwd,
+        fused_epilogue_bwd_plain)
+
+    def hold(what, got, ref, tol):
+        err, scale = _rel_err(got, ref)
+        log(f"1M cells {what}: max_abs_err {err:.3e} (tol {tol} x "
+            f"{scale:.3e})")
+        if not (torch.isfinite(got).all() and err <= tol * scale):
+            raise AssertionError(f"1M cells {what}: max err {err} vs {scale}")
+
+    dt, n = torch.bfloat16, grid.n_pad
+    mask = grid.band.bias_self
+    x, w, wa, g, _ = _gat_inputs(n, dt, gen)
+    alphas = (x.float() @ wa.float()).contiguous()
+    tol = GAT_TOL["bfloat16"]
+    hold("row 1 eval", banded_gat_mean_fused(mask, w, alphas, x, HEADS),
+         banded_gat_mean_fused_plain(mask, w, alphas, x, HEADS), tol)
+    args = (mask, w, alphas, x, HEADS, 0.2, 0.0, None)
+    out, z = banded_gat_mean_fused(*args, emit_z=True)
+    ref_out, ref_z = banded_gat_mean_fused_plain(*args, emit_z=True)
+    hold("row 1 training form", out, ref_out, tol)
+    hold("row 1 training form z", z, ref_z, tol)
+    del out, ref_out, ref_z
+    tol = BWD_TOL["bfloat16"]
+    a5 = (mask, z, alphas, g, HEADS, 0.2, 0.0, None)
+    dz, da = banded_gat_bwd(*a5, mask_t=grid.band.transposed("bias_self"))
+    ref_dz, ref_da = banded_gat_bwd_plain(*a5)
+    hold("row 5 dz", dz, ref_dz, tol)
+    hold("row 5 dalpha", da, ref_da, tol)
+    del ref_dz, ref_da, z
+    for name, got, ref in zip(("dx", "dW"), fold_project_bwd(dz, x, w),
+                              fold_project_bwd_plain(dz, x, w)):
+        hold(f"row 6 {name}", got, ref, tol)
+    del dz
+    xn = torch.randn(n, HIDDEN, generator=gen).to("cuda", dt)
+    scale = (1 + 0.1 * torch.randn(HIDDEN, generator=gen)).to("cuda")
+    bias = (0.1 * torch.randn(HIDDEN, generator=gen)).to("cuda")
+    fwd_args = (x, xn, scale, bias, grid.n_nodes, 1e-5, 0.0, None)
+    y, mean, _, xr, vec = _forward(*fwd_args)
+    hold("row 2", y, _forward_plain(*fwd_args)[0], EPI_TOL["bfloat16"])
+    gy = torch.randn(n, HIDDEN, generator=gen).to("cuda", dt)
+    bwd_args = (gy, xr, vec, mean, grid.n_nodes, 0.0, None, dt, dt)
+    for name, got, ref in zip(("dx", "dx_new", "dscale", "dbias"),
+                              fused_epilogue_bwd(*bwd_args),
+                              fused_epilogue_bwd_plain(*bwd_args)):
+        hold(f"row 3 {name}", got, ref,
+             1e-4 if ref.dtype == torch.float32 else 2e-2)
+    torch.cuda.synchronize()
+
+
+def case_wall_time(tmp, case):
+    """The 12,000-cell case served once, stage by stage, on the host clock
+    (each stage ending in a synchronize): what one ``infer`` call pays."""
+    import numpy as np
+    import torch
+    from gnn_bfs_rans_tpu_torch.foam import FoamCase
+    from gnn_bfs_rans_tpu_torch.foam.writer import save_fields_openfoam_format
+    from gnn_bfs_rans_tpu_torch.graph.band import LAYER_COMPONENTS
+    from gnn_bfs_rans_tpu_torch.graph.build import build_graph
+    from gnn_bfs_rans_tpu_torch.infer import Predictor, predict_case
+
+    ckpt = tmp / f"ckpt_gat{LAYERS}x{HIDDEN}-bf16"
+    stages = {}
+
+    def stage(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = (time.perf_counter() - t) * 1e3
+        return out
+
+    pred = stage("checkpoint_load", lambda: Predictor.from_checkpoint(ckpt))
+    mesh = stage("case_read", lambda: FoamCase(case).load_mesh())
+    graph = stage("graph_build_rcm_band", lambda: build_graph(
+        mesh, with_band=True,
+        band_components=LAYER_COMPONENTS["GAT"]).to("cuda"))
+    # a served case's one forward runs eagerly (the graph's warm-up); the
+    # second call captures its CUDA graph, later calls replay it
+    fields = stage("forward_first_call", lambda: pred.predict_fields(graph))
+    stage("forward_capture", lambda: pred.predict_fields(graph))
+    stage("forward_replayed", lambda: pred.predict_fields(graph))
+    stage("openfoam_writeback", lambda: save_fields_openfoam_format(
+        fields, tmp / "wall_time_out", "predicted"))
+    stage("predict_case_end_to_end", lambda: predict_case(ckpt, case))
+    if fields["U"].shape != (graph.n_nodes, 3) or not all(
+            np.isfinite(v).all() for v in fields.values()):
+        raise AssertionError("bad fields in the case wall-time run")
+    log(json.dumps({"case_wall_time_ms": {
+        "case": "box 400x30x1 (12,000 cells)", "model": "gat4x256-bf16",
+        **stages}}))
+
+
+def bench_phase(tmp, case):
+    """Phase 18: the bench harness on the card (see the module
+    docstring)."""
+    import torch
+    from gnn_bfs_rans_tpu_torch import bench as headline
+    from gnn_bfs_rans_tpu_torch.cli.main import main as cli_main
+    from gnn_bfs_rans_tpu_torch.graph.band import LAYER_COMPONENTS
+    from gnn_bfs_rans_tpu_torch.infer import Predictor, load_graph
+    from gnn_bfs_rans_tpu_torch.utils import profiling, roofline
+    from gnn_bfs_rans_tpu_torch.utils.synthetic import (build_grid_graph,
+                                                        run_scale_benchmark)
+
+    kind = roofline.device_peak("cuda").kind
+    if "h100" not in kind:
+        raise AssertionError(f"device kind {kind!r} does not name the H100")
+    runs = {}
+    # (a) the headline line
+    line = _run_json("a: headline gat4x256-bf16-forward",
+                        lambda: headline.main(["--case_path", str(case)]),
+                        ("banded_gat_mean_fused",))
+    d = line["detail"]
+    if line["mfu"] is None or d["platform"] != "gpu":
+        raise AssertionError(f"headline: no MFU on the card ({line})")
+    if not d["cross_check"]["steady_available"]:
+        raise AssertionError("headline: no steady-state cross-check")
+    if d["roofline_min_s"] > 1.05 * d["step_median_s"]:
+        raise AssertionError("headline: time below the roofline")
+    runs["a"] = line
+    # the replayed Predictor's span of the same model shape
+    pred = Predictor.from_checkpoint(tmp / f"ckpt_gat{LAYERS}x{HIDDEN}-bf16")
+    graph = load_graph(case, "GAT")
+    with torch.inference_mode():
+        fwd = pred._forward(graph)
+        fwd()
+        span = event_time_ms(fwd)
+    ratio = d["step_median_s"] * 1e3 / span
+    log(f"headline chained marginal {d['step_median_s'] * 1e3:.4f} ms vs the "
+        f"replayed Predictor's span {span:.4f} ms: ratio {ratio:.3f}")
+    if abs(ratio - 1) > HEADLINE_SPAN_TOL:
+        raise AssertionError(f"the chained marginal time is {ratio:.3f}x the "
+                             "Predictor's replayed span")
+    # (b)-(d) through the CLI
+    for label, argv, names in BENCH_RUNS:
+        runs[label[0]] = _run_json(label, lambda: cli_main(
+            ["bench", "--case_path", str(case), "--backend", "pallas",
+             *argv]), names)
+    tr = runs["b"]["trace"]
+    if tr["device_total_s_per_step"] <= 0:
+        raise AssertionError("bench --trace recorded no device time")
+    log(f"bench b: trace device total {tr['device_total_ms_per_step']:.4f} "
+        f"ms a step, trace_over_chained {tr['trace_over_chained']:.3f}; "
+        "parameters finite after the chain")
+    # (e) a million cells
+    t = time.perf_counter()
+    grid = build_grid_graph(SCALE_NX, SCALE_CELLS // SCALE_NX,
+                            band_components=LAYER_COMPONENTS["GAT"])
+    log(f"grid {SCALE_NX} x {SCALE_CELLS // SCALE_NX}: {grid.n_nodes} cells, "
+        f"{grid.n_edges} edges, n_pad {grid.n_pad}, band "
+        f"{tuple(grid.band.bias_self.shape)}, host build "
+        f"{time.perf_counter() - t:.2f} s")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    check_at_scale(grid.to("cuda"), torch.Generator().manual_seed(18))
+    graph_bytes = roofline.graph_static_bytes(grid)
+    del grid
+    torch.cuda.empty_cache()
+    log(f"1M-cell kernel checks: {time.perf_counter() - t:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    scale = {"forward": _run_json(
+        "e: gat4x256-bf16-1M-forward", lambda: cli_main(
+            ["bench", "--synthetic", str(SCALE_CELLS), "--backend", "pallas",
+             "--compute_dtype", "bfloat16"]), ("banded_gat_mean_fused",))}
+
+    def scale_train():
+        print(json.dumps(run_scale_benchmark(
+            n_nodes=SCALE_CELLS, layer_type="GAT", num_layers=LAYERS,
+            hidden_dim=HIDDEN, backend="pallas", compute_dtype="bfloat16",
+            steps=16, nx=SCALE_NX, mode="train")))
+    scale["train"] = _run_json("e: gat4x256-bf16-1M-train", scale_train,
+                               GAT_TRAIN_ROWS)
+    # the scale results carry no roofline (as the JAX package's): the
+    # same report from their times, the GAT 4x256 model's parameters and
+    # the grid's bytes, with the guard
+    for mode, res in scale.items():
+        roof = roofline.analyze(
+            layer_type="GAT", num_layers=LAYERS, hidden_dim=HIDDEN,
+            n_nodes=res["n_nodes"], n_edges=res["n_edges"],
+            time_s=res["step_median_s"], mode=mode,
+            param_count=runs["b"]["n_params"], graph_bytes=graph_bytes,
+            device="cuda")
+        roofline.check_roofline(roof["matmul_flops"], res["step_median_s"],
+                                device="cuda")
+        log(json.dumps({"scale_roofline": {"mode": mode, **{
+            k: roof[k] for k in ("matmul_flops", "flops_per_sec", "mfu",
+                                 "bound", "hbm_frac", "roofline_min_s")}}}))
+    peak = profiling.device_memory_stats()["cuda:0"]["allocated_bytes.all.peak"]
+    log(f"1M-cell runs: peak device memory allocated {peak / 2**30:.2f} GiB")
+    case_wall_time(tmp, case)
+
+
 def main() -> int:
     import torch
 
@@ -2664,6 +2935,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    global H100_BF16_FLOPS, H100_BYTES_PER_S
+    from gnn_bfs_rans_tpu_torch.utils import roofline
+    peak = roofline.device_peak("cuda")
+    if peak.flops is None:
+        raise AssertionError(f"utils/roofline.py has no peaks for {peak.kind}")
+    H100_BF16_FLOPS, H100_BYTES_PER_S = peak.flops, peak.hbm
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from gnn_bfs_rans_tpu_torch.foam import (FoamCase, drifting_box_fields,
@@ -2831,6 +3108,12 @@ def main() -> int:
                                               train_info, gen)
         rows.update(pr6_rows)
         log(f"phase 16: {time.time() - t1:.1f} s")
+
+        # the bench harness: headline, train with trace, Transformer, GCN,
+        # a million cells; the case's wall time by stage
+        t1 = time.time()
+        bench_phase(tmp, case)
+        log(f"phase 18 (bench): {time.time() - t1:.1f} s")
 
     gat = {k: v for k, v in rows[("gat_train", 400, "bfloat16")].items()}
     kernels = [

@@ -8,8 +8,10 @@ PyTorch version that the CPU runs.  The JAX package is the reference and
 is never imported here.  Ported so far: FlowGNN with GCN, GAT, GIN and
 Transformer convolutions on the ``pallas`` (banded kernels), ``dense`` and
 ``segment`` backends, BatchNorm (fused or unfused) or LayerNorm, served
-(``infer``, meshes with or without a band) and trained (``train``); every
-TPU kernel function of the JAX package has its counterpart.
+(``infer``, meshes with or without a band), trained (``train``) and
+benchmarked (``bench``, ``python -m gnn_bfs_rans_tpu_torch.bench``: the
+harness of ``utils/``); every TPU kernel function of the JAX package has
+its counterpart.
 """
 
 __version__ = "0.1.0"

@@ -1,10 +1,10 @@
-"""Command-line interface of the port: the ``train`` and ``infer``
-subcommands.
+"""Command-line interface of the port: the ``train``, ``infer`` and
+``bench`` subcommands.
 
-``python -m gnn_bfs_rans_tpu_torch train|infer [flags]`` take the flags of
-the JAX package's subcommands (``gnn_bfs_rans_tpu/cli/main.py:27-76,
-455-527``) plus ``--device`` (``cuda`` by default; ``cpu`` runs the
-kernels' plain versions).  ``train`` defaults to the JAX CLI's model
+``python -m gnn_bfs_rans_tpu_torch train|infer|bench [flags]`` take the
+flags of the JAX package's subcommands (``gnn_bfs_rans_tpu/cli/main.py:27-76,
+455-527, 632-653``) plus ``--device`` (``cuda`` by default; ``cpu`` runs
+the kernels' plain versions).  ``train`` defaults to the JAX CLI's model
 (``--layer_type GCN``, 6 layers, hidden 256) and trains every layer type
 on every backend: ``--backend pallas`` (the port's default, where the JAX
 CLI defaults to ``dense``: the banded kernels, or the dense branches on a
@@ -12,9 +12,13 @@ mesh without a band), ``dense`` or ``segment``, with ``--norm_type batch``,
 ``layer`` or ``none``.  The band is built only for ``pallas``, as the JAX
 CLI builds it.  ``--epoch_block`` > 1 runs whole epochs on the device, a
 CUDA graph of the epoch replayed once an epoch, and synchronizes the host
-once a block (the JAX CLI's ``lax.scan`` blocks).  The JAX trainer's
-``--progress`` bar and ``--no_aot`` cache are not ported, nor are the
-other subcommands.
+once a block (the JAX CLI's ``lax.scan`` blocks).  ``bench`` prints one
+JSON line from ``utils/bench.py::run_benchmark`` (``--synthetic N``:
+``utils/synthetic.py::run_scale_benchmark`` on a ~N-cell grid), its
+``--backend`` defaulting to ``pallas`` as ``train``'s does; ``--mode dp``
+waits for the data-parallel module (ROADMAP Queue 1 item 4).  The JAX
+trainer's ``--progress`` bar and ``--no_aot`` cache are not ported, nor
+are the other subcommands.
 """
 
 from __future__ import annotations
@@ -106,6 +110,46 @@ def cmd_infer(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    if args.mode == "dp":
+        raise NotImplementedError(
+            "bench --mode dp needs the data-parallel module, not ported yet "
+            "(ROADMAP.md Queue 1 item 4: parallel/data_parallel.py and "
+            "utils/dp_bench.py)")
+    if args.synthetic:
+        from ..utils.synthetic import run_scale_benchmark
+
+        result = run_scale_benchmark(
+            n_nodes=args.synthetic,
+            layer_type=args.layer_type,
+            num_layers=args.num_layers,
+            hidden_dim=args.hidden_dim,
+            backend=args.backend,
+            compute_dtype=args.compute_dtype,
+            steps=args.steps,
+            device=args.device,
+        )
+        print(json.dumps(result))
+        return 0
+
+    from ..utils.bench import run_benchmark
+
+    result = run_benchmark(
+        case_path=args.case_path,
+        layer_type=args.layer_type,
+        num_layers=args.num_layers,
+        hidden_dim=args.hidden_dim,
+        backend=args.backend,
+        steps=args.steps,
+        mode=args.mode,
+        compute_dtype=args.compute_dtype,
+        trace=args.trace,
+        device=args.device,
+    )
+    print(json.dumps(result))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="gnn_bfs_rans_tpu_torch",
@@ -187,6 +231,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the kernels) or cpu (their plain versions)")
     p.set_defaults(func=cmd_infer)
+
+    p = sub.add_parser("bench", help="Performance benchmark")
+    p.add_argument("--case_path", type=str, default="OpenFOAM-data",
+                   help="Path to OpenFOAM case directory")
+    p.add_argument("--layer_type", type=str, default="GAT",
+                   choices=["GCN", "GAT", "GIN", "Transformer"])
+    p.add_argument("--num_layers", type=int, default=4)
+    p.add_argument("--hidden_dim", type=int, default=256)
+    p.add_argument("--backend", type=str, default="pallas",
+                   choices=["segment", "dense", "pallas"])
+    p.add_argument("--compute_dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16", "mixed"])
+    p.add_argument("--steps", type=int, default=16)
+    p.add_argument("--mode", type=str, default="forward",
+                   choices=["forward", "train", "dp"])
+    p.add_argument("--devices", type=int, default=None,
+                   help="mode=dp: data-mesh size (dp is not ported yet)")
+    p.add_argument("--synthetic", type=int, default=0,
+                   help="Benchmark a synthetic quad-grid of ~N cells instead")
+    p.add_argument("--trace", action="store_true",
+                   help="Also capture a per-op device trace of the step — a "
+                        "dispatch-independent third timing witness "
+                        "(utils/trace.py); adds a 'trace' block to the JSON")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (the kernels) or cpu (their plain versions)")
+    p.set_defaults(func=cmd_bench)
     return parser
 
 

@@ -1217,7 +1217,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     for (int h = 0; h < 2; ++h) {
       const int c = n0 + 64 * h + 4 * tx;
       if (c < hc)
-        *reinterpret_cast<float4*>(o + r * ld + c) =
+        *reinterpret_cast<float4*>(o + (long long)r * ld + c) =
             bias != nullptr
                 ? make_float4(acc[i][4 * h] + bias[c], acc[i][4 * h + 1] + bias[c + 1],
                               acc[i][4 * h + 2] + bias[c + 2], acc[i][4 * h + 3] + bias[c + 3])

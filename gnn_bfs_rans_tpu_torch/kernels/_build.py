@@ -11,17 +11,23 @@ wrapper launches on the card (never for the plain CPU version): one count
 per ``pallas_call`` site of the TPU kernel it replaces (so two per call of
 ``fused_epilogue_bwd``, whose one launch replaces two), or per call for
 ``transformer_project`` (XLA products in the JAX package).
+
+Each build's ``nvcc`` seconds are logged at INFO on the
+``gnn_bfs_rans_tpu_torch.kernels.build`` logger
+(``utils/profiling.py::log_compile_times`` shows them).
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import logging
 import os
 import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -32,6 +38,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: collections.Counter = collections.Counter()
+LOG = logging.getLogger("gnn_bfs_rans_tpu_torch.kernels.build")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -71,7 +78,9 @@ def build(name: str) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+    t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
+    LOG.info("nvcc %s: %.1f s", src.name, time.perf_counter() - t0)
     (BUILD_DIR / f"lib{name}.log").write_text(res.stdout + res.stderr)
     if res.returncode != 0:
         os.unlink(tmp)

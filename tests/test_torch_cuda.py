@@ -1725,3 +1725,63 @@ def test_resume_across_capturable_optimizer_state(card, tmp_path):
         hist = tr.train()
         assert hist["epoch"] == list(range(1, epochs + 1))
         assert np.isfinite(hist["train_loss"]).all()
+
+
+# ------------------------------------------------------------ bench harness
+def test_roofline_finds_the_cards_peaks(card):
+    """utils/roofline.py knows the card it runs on: MFU and the roofline
+    guard are live there."""
+    from gnn_bfs_rans_tpu_torch.utils import roofline
+
+    peak = roofline.device_peak(card)
+    assert peak.kind == torch.cuda.get_device_name(card).lower()
+    assert peak.flops is not None and peak.hbm is not None
+    with pytest.raises(RuntimeError, match="roofline violation"):
+        roofline.check_roofline(2 * peak.flops * 1e-3, 1e-3, device=card)
+
+
+def test_chain_replays_read_the_buffer_they_update(card):
+    """The chained body captured as a CUDA graph: each replay reads the
+    static node_feat the previous replay updated (feat[0, 0] doubles plus
+    one a call: 2^k − 1 after k calls; a replay that read a copy would
+    give k) and consumes the whole output (only its last element is
+    nonzero)."""
+    from gnn_bfs_rans_tpu_torch.graph.structs import build_padded_graph
+    from gnn_bfs_rans_tpu_torch.utils.bench import _chain
+
+    g = build_padded_graph(np.array([0, 1], np.int32),
+                           np.array([1, 0], np.int32),
+                           np.zeros((2, 4), np.float32),
+                           np.zeros((2, 3), np.float32),
+                           node_align=8, edge_align=8).to(card)
+
+    def apply_fn(graph):
+        out = torch.zeros(5, 7, device=graph.node_feat.device)
+        out[-1, -1] = (graph.node_feat[0, 0] + 1) * 1e30
+        return out
+
+    step, _ = _chain(apply_fn, g)       # warm-up, capture and replay
+    for _ in range(3):                  # three replays
+        feat = step()
+    torch.cuda.synchronize()
+    assert feat[0, 0].item() == 2 ** 5 - 1
+
+
+def test_chained_marginal_time_on_the_card(card, tmp_path):
+    """A replayed chain of the GAT forward on the banded kernels: a
+    positive marginal time, and the kernel's launches counted per replay
+    (warm-up and capture 2 calls, then a warm run and one trial at base 1
+    and at reps 16: 36 calls of 2 layers)."""
+    from gnn_bfs_rans_tpu_torch.infer import load_graph
+    from gnn_bfs_rans_tpu_torch.utils.bench import chained_marginal_time
+
+    generate_box_case(tmp_path / "case", 40, 12, 1)
+    graph = load_graph(tmp_path / "case", "GAT").to(card)
+    model = FlowGNN(ModelConfig(hidden_dim=64, num_layers=2,
+                                layer_type="GAT", backend="pallas",
+                                compute_dtype="bfloat16")).eval().to(card)
+    _build.reset_launches()
+    t = chained_marginal_time(model, graph, reps=16, base=1, trials=1,
+                              min_snr=0.0, max_reps=16)
+    assert 0 < t.step_s < 1.0 and t.reps == 16
+    assert _build.LAUNCHES["banded_gat_mean_fused"] == 2 * 36
