@@ -145,7 +145,33 @@ Phases (any failure raises and exits non-zero):
     with the grid's host build time; then the 12,000-cell case's serving
     wall time by stage (checkpoint load, case read, graph build with RCM
     and band, forward, OpenFOAM writeback);
-19. print the kernel table as one JSON line, then the result line.
+19. reference checkpoints: five models of the reference's own
+    architecture (``compat/torch_ref.py::RefFlowGNN``, PyG semantics) at
+    its defaults (hidden 256, 6 layers, 4 heads, dropout 0.1, BatchNorm;
+    PyTorch's own initialization under a fixed seed) — GCN, GAT, GIN, Transformer without edges (as the reference
+    builds it) and with ``lin_edge`` — each with its BatchNorm statistics
+    warmed by three train-mode forwards on the card and saved with
+    ``torch.save`` in the reference's ``.pt`` format; each loaded by
+    ``Predictor.from_torch_checkpoint`` and served on the 400×30 box
+    through the kernels (rows 8, 1, 9; the counters set to 0 just before
+    and read just after), eager and replayed (bit for bit), its normalized
+    output within rtol 1e-3, atol 5e-4 of RefFlowGNN's eval forward on the
+    card (the mesh's own cell order, no reordering) and its denormalized
+    fields within rtol 1e-3, atol 1e-3·max|field| + 1e-3·std of the field
+    (the JAX package's parity bound, ``tests/test_parity_torch.py``), and
+    within SERVE_TOL of the plain versions; its replayed forward's device
+    span, host times and idle share; the GAT again with ``exact_bn`` (row
+    2) against RefFlowGNN in train mode with dropout off; ``export-torch``
+    of a seeded GAT 4×256 bf16 port checkpoint (every bias and BatchNorm
+    tensor drawn away from its initial value), reloaded by RefFlowGNN
+    with ``strict=True`` (every tensor on the CPU), its f32 forward within
+    the f32 tolerance (rtol 1e-5, atol 1e-5·max|output|) of the port's f32
+    forward; the mixed hex/prism case
+    (``generate_mixed_prism_case(16, 16, 7)``: SpMM window 5) through
+    ``predict_case`` with a GCN and a GAT 6×256 f32 checkpoint, rows 8 and
+    1 against their plain versions on its band; ``check-data`` and
+    ``check-coordinates`` on the box (exit code 0);
+20. print the kernel table as one JSON line, then the result line.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times per
 call: ten calls captured in one CUDA graph and replayed, so host launch
@@ -2924,6 +2950,289 @@ def bench_phase(tmp, case):
     case_wall_time(tmp, case)
 
 
+# ------------------------------------------------------------ phase 19
+# the reference's own models (train.py:268-300 defaults: hidden 256, 6
+# layers, 4 heads, dropout 0.1, BatchNorm), served from its .pt format:
+# (label, layer type, edge_dim; the reference builds TransformerConv
+# without edge_dim, the last model carries lin_edge)
+REF_MODELS = (("ref-gcn6x256-f32", "GCN", None),
+              ("ref-gat6x256-f32", "GAT", None),
+              ("ref-gin6x256-f32", "GIN", None),
+              ("ref-transformer6x256-f32", "Transformer", None),
+              ("ref-transformer6x256-f32-lin_edge", "Transformer", 4))
+REF_LAYERS = 6
+
+
+def _no_dropout_(model):
+    """Dropout off in train mode: BatchNorm then normalizes with the batch
+    statistics and nothing else is random (the ``exact_bn`` forward)."""
+    from torch import nn
+
+    for m in model.modules():
+        if isinstance(m, nn.Dropout):
+            m.p = 0.0
+        elif isinstance(getattr(m, "dropout", None), float):
+            m.dropout = 0.0
+
+
+def _field_gaps(got, want, norm):
+    """Per field, the denormalized max |got − want| / max |want|, and the
+    JAX package's parity bound (``tests/test_parity_torch.py:116-139``):
+    rtol 1e-3, atol 1e-3·max|field| + 1e-3·std_field, elementwise."""
+    import numpy as np
+    from gnn_bfs_rans_tpu_torch.models.flow_gnn import split_fields
+
+    ours = norm.inverse_transform(split_fields(got))
+    theirs = norm.inverse_transform(split_fields(want))
+    gaps, ok = {}, True
+    for f, v in theirs.items():
+        scale = float(np.abs(v).max()) + 1e-12
+        std_f = float(np.max(np.asarray(norm.scalers[f]["std"])))
+        diff = np.abs(ours[f] - v)
+        ok &= bool((diff <= 1e-3 * np.abs(v) + 1e-3 * scale
+                    + 1e-3 * std_f).all())
+        gaps[f] = float(diff.max()) / scale
+    return gaps, ok
+
+
+def serve_reference(pt, graph, ref_out, label, conv, norm, exact_bn=False):
+    """Phase 19's serving of one reference .pt: launches of the first
+    (eager) forward, the replay bit for bit, RefFlowGNN's output held to
+    the parity bound, the plain versions' to SERVE_TOL, then times."""
+    import numpy as np
+    import torch
+    from gnn_bfs_rans_tpu_torch.infer import Predictor
+    from gnn_bfs_rans_tpu_torch.kernels import _build
+
+    pred = Predictor.from_torch_checkpoint(pt, exact_bn=exact_bn)
+    if pred.model_config.backend != "pallas" or pred.exact_bn != exact_bn:
+        raise AssertionError(f"{label}: served on {pred.model_config}")
+    layers = pred.model_config.num_layers
+    want = {conv: layers}
+    if exact_bn:
+        want["fused_epilogue_fwd"] = 2 * layers
+    _build.reset_launches()
+    got = pred.predict_packed(graph)          # eager: the graph's warm-up
+    torch.cuda.synchronize()
+    moved = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if moved != want:
+        raise AssertionError(f"{label}: launches {moved}, expected {want}")
+    if not np.array_equal(pred.predict_packed(graph), got):
+        raise AssertionError(f"{label}: the replayed forward differs from "
+                             "the eager one")
+    if not np.isfinite(got).all():
+        raise AssertionError(f"{label}: non-finite output")
+    gaps, ok = _field_gaps(got, ref_out, norm)
+    norm_gap = float(np.abs(got - ref_out).max())
+    ok &= bool(np.allclose(got, ref_out, rtol=1e-3, atol=5e-4))
+    dev_graph = graph.to("cuda")
+    with torch.inference_mode(), plain_versions():
+        plain = pred.model(dev_graph, exact_bn=exact_bn)[: graph.n_nodes]
+    perm = graph.perm.numpy()[: graph.n_nodes]
+    plain_orig = np.empty_like(got)
+    plain_orig[perm] = plain.float().cpu().numpy()
+    plain_err = float(np.abs(got - plain_orig).max())
+    plain_tol = SERVE_TOL * float(np.abs(plain_orig).max())
+    log(f"{label}{' exact_bn' if exact_bn else ''}: launches {moved}; vs "
+        f"RefFlowGNN max |normalized gap| {norm_gap:.3e} (bound rtol 1e-3, "
+        f"atol 5e-4), denormalized max gap / max |field| "
+        + ", ".join(f"{f} {g:.3e}" for f, g in gaps.items())
+        + f"; vs the plain versions max abs {plain_err:.3e} (tol "
+        f"{plain_tol:.3e})")
+    if not ok or plain_err > plain_tol:
+        raise AssertionError(f"{label}: outside the stated bounds")
+    fwd = pred._forward(graph)
+    with torch.inference_mode():
+        def eager():
+            return pred.model(dev_graph, exact_bn=exact_bn)
+        host_e = host_time_ms(eager)
+        host_r = host_time_ms(fwd)
+        span = event_time_ms(fwd)
+        profile_forward(eager, f"{label}{' exact_bn' if exact_bn else ''} "
+                        "eager", top=8)
+    log(f"serve {label}{' exact_bn' if exact_bn else ''} f32 N "
+        f"{graph.n_nodes}: host clock median eager {host_e[1]:.4f} ms "
+        f"(quartiles {host_e[0]:.4f}, {host_e[2]:.4f}) -> replayed "
+        f"{host_r[1]:.4f} ms ({host_r[0]:.4f}, {host_r[2]:.4f}); 20 "
+        f"back-to-back replays span {span:.4f} ms each (device), idle "
+        f"share {1 - span / host_r[1]:.3f}")
+    return gaps
+
+
+def export_round_trip(tmp, case, ref_in, gen):
+    """``export-torch`` of a seeded GAT 4×256 bf16 port checkpoint: the
+    .pt's tensors on the CPU, loaded by RefFlowGNN with ``strict=True``,
+    whose f32 eval forward matches the port's f32 forward of the same
+    weights."""
+    import numpy as np
+    import torch
+    from gnn_bfs_rans_tpu_torch.cli.main import main as cli_main
+    from gnn_bfs_rans_tpu_torch.compat.torch_ref import RefFlowGNN
+    from gnn_bfs_rans_tpu_torch.infer import Predictor, load_graph
+    from gnn_bfs_rans_tpu_torch.models.flow_gnn import FlowGNN, ModelConfig
+    from gnn_bfs_rans_tpu_torch.train.checkpoint import save_checkpoint
+
+    cfg = ModelConfig(hidden_dim=HIDDEN, num_layers=LAYERS, layer_type="GAT",
+                      heads=HEADS, backend="pallas", compute_dtype="bfloat16")
+    model = FlowGNN(cfg, generator=gen)
+    state = model.state_dict()
+
+    def uniform(like, lo, hi):
+        return lo + (hi - lo) * torch.rand(like.shape, generator=gen)
+
+    # every bias and BatchNorm tensor away from its initial value, so a
+    # dropped or swapped key shows in the forward
+    for k, v in state.items():
+        if k.endswith("bias"):
+            state[k] = uniform(v, -0.1, 0.1)
+        elif k.startswith("norms."):
+            lo, hi = {"weight": (0.8, 1.2), "running_mean": (-0.3, 0.3),
+                      "running_var": (0.5, 2.0)}[k.split(".")[-1]]
+            state[k] = uniform(v, lo, hi)
+    ckpt, out = tmp / "ckpt_export", tmp / "exported.pt"
+    save_checkpoint(ckpt, "best", state, model_config=cfg, normalizer=None)
+    if cli_main(["export-torch", "--checkpoint", str(ckpt), "--output",
+                 str(out)]) != 0:
+        raise AssertionError("export-torch failed")
+    raw = torch.load(out, map_location=None, weights_only=False)
+    devices = {v.device.type for v in raw["model_state_dict"].values()}
+    ref = RefFlowGNN(hidden_dim=HIDDEN, num_layers=LAYERS, layer_type="GAT",
+                     heads=HEADS)
+    ref.load_state_dict(raw["model_state_dict"], strict=True)
+    with torch.no_grad():
+        want = ref.eval().to("cuda")(*ref_in).cpu().numpy()
+    pred = Predictor.from_checkpoint(ckpt)
+    f32 = FlowGNN(dataclasses.replace(pred.model_config,
+                                      compute_dtype="float32"))
+    f32.load_state_dict(pred.model.state_dict())
+    pred.model = f32.eval().to("cuda")
+    got = pred.predict_packed(load_graph(case, "GAT"))
+    gap = float(np.abs(got - want).max())
+    peak = float(np.abs(want).max())
+    log(f"export-torch gat{LAYERS}x{HIDDEN}-bf16 -> reference .pt: tensors "
+        f"on {sorted(devices)}, RefFlowGNN strict load, f32 forward max "
+        f"|gap| vs the port's f32 forward {gap:.3e} (bound the f32 "
+        f"tolerance: rtol 1e-5, atol 1e-5 x max |output| {peak:.3e})")
+    if devices != {"cpu"} or not np.allclose(got, want, rtol=1e-5,
+                                             atol=1e-5 * peak):
+        raise AssertionError("export-torch round trip failed")
+
+
+def mixed_prism(tmp, gen):
+    """``generate_mixed_prism_case(16, 16, 7)`` (2,560 cells, triangle and
+    quad faces, degree 8) served through ``predict_case`` by a seeded GCN
+    and GAT (6×256 f32) on its band (SpMM W 5), rows 8 and 1 held against
+    their plain versions there and the fields against the plain versions'."""
+    import numpy as np
+    import torch
+    from gnn_bfs_rans_tpu_torch.foam import generate_mixed_prism_case
+    from gnn_bfs_rans_tpu_torch.infer import load_graph, predict_case
+    from gnn_bfs_rans_tpu_torch.kernels import _build
+    from gnn_bfs_rans_tpu_torch.models.flow_gnn import FlowGNN, ModelConfig
+    from gnn_bfs_rans_tpu_torch.train.checkpoint import save_checkpoint
+
+    case = tmp / "mixed"
+    info = generate_mixed_prism_case(case, 16, 16, 7)
+    for layer in ("GCN", "GAT"):
+        cfg = ModelConfig(layer_type=layer, heads=HEADS, backend="pallas")
+        ckpt = tmp / f"ckpt_mixed_{layer}"
+        save_checkpoint(ckpt, "best", FlowGNN(cfg, generator=gen).state_dict(),
+                        model_config=cfg, normalizer=None)
+        _build.reset_launches()
+        pred, fields, graph = predict_case(ckpt, case)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        band = graph.band
+        if layer == "GCN" and band.gcn.shape[1] != 5:
+            raise AssertionError(f"mixed case: SpMM window "
+                                 f"{band.gcn.shape[1]}, expected 5")
+        if launches != {CONV_KERNEL[layer]: cfg.num_layers}:
+            raise AssertionError(f"mixed {layer}: launches {launches}")
+        with plain_versions():
+            plain = pred.predict_fields(load_graph(case, layer).to("cuda"))
+        errs = {k: float(np.abs(fields[k] - v).max()) for k, v in plain.items()}
+        log(f"mixed prism 16x16x7 ({info['n_cells']} cells, max degree "
+            f"{int(graph.in_degree.max())}) {layer} 6x256 f32 predict_case: "
+            f"Wcols {band.width_cols}, launches {launches}; fields vs "
+            f"the plain versions max abs "
+            + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+        for k, v in plain.items():
+            if errs[k] > SERVE_TOL * max(float(np.abs(v).max()), 1e-6):
+                raise AssertionError(f"mixed {layer} field {k} off by "
+                                     f"{errs[k]}")
+        if layer == "GCN":
+            check_spmm(graph.to("cuda"), "gcn", "float32", gen)
+        else:
+            check_gat(graph.to("cuda"), "float32", gen)
+
+
+def reference_phase(tmp, case, info):
+    """Phase 19 (see the module docstring)."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.cli.main import main as cli_main
+    from gnn_bfs_rans_tpu_torch.compat.torch_ref import RefFlowGNN
+    from gnn_bfs_rans_tpu_torch.foam import FoamCase, box_fields
+    from gnn_bfs_rans_tpu_torch.graph.build import build_graph
+    from gnn_bfs_rans_tpu_torch.infer import load_graph
+    from gnn_bfs_rans_tpu_torch.train.normalization import FieldNormalizer
+
+    gen = torch.Generator().manual_seed(19)
+    # the reference reads the mesh's own cell order
+    g = build_graph(FoamCase(case).load_mesh(), reorder="none")
+    n, ne = g.n_nodes, g.n_edges
+    ref_in = (g.node_feat[:n].cuda(),
+              torch.stack([g.senders[:ne], g.receivers[:ne]]).long().cuda(),
+              g.edge_feat[:ne].cuda())
+    norm = FieldNormalizer().fit(box_fields(info["cell_centers"]))
+    graphs, table = {}, {}
+    for i, (label, layer, edge_dim) in enumerate(REF_MODELS):
+        # PyTorch's own initialization, seeded
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(19 + i)
+            ref = RefFlowGNN(hidden_dim=HIDDEN, num_layers=REF_LAYERS,
+                             layer_type=layer, dropout=DROPOUT,
+                             edge_dim=edge_dim, heads=HEADS).cuda()
+        with torch.random.fork_rng(devices=[0]), torch.no_grad():
+            torch.cuda.manual_seed(19)
+            ref.train()
+            for _ in range(3):          # warm the BatchNorm statistics
+                ref(*ref_in)
+        ref.eval()
+        with torch.no_grad():
+            ref_out = ref(*ref_in).cpu().numpy()
+            ref_host = host_time_ms(lambda: ref(*ref_in))
+        pt = tmp / f"{label}.pt"
+        torch.save({"epoch": 100, "model_state_dict": ref.state_dict(),
+                    "optimizer_state_dict": {}, "val_loss": 0.123,
+                    "config": {"hidden_dim": HIDDEN,
+                               "num_layers": REF_LAYERS, "layer_type": layer,
+                               "dropout": DROPOUT, "lr": 3e-4},
+                    "normalizer": {"field_stats": norm.field_stats,
+                                   "scalers": norm.scalers}}, pt)
+        log(f"{label}: RefFlowGNN eval forward on the card, host clock "
+            f"median {ref_host[1]:.4f} ms (quartiles {ref_host[0]:.4f}, "
+            f"{ref_host[2]:.4f})")
+        if layer not in graphs:
+            graphs[layer] = load_graph(case, layer)
+        table[label] = serve_reference(pt, graphs[layer], ref_out, label,
+                                       CONV_KERNEL[layer], norm)
+        if layer == "GAT":
+            # exact_bn: the batch statistics of the case, as the reference
+            # model normalizes in train mode with dropout off
+            _no_dropout_(ref.train())
+            with torch.no_grad():
+                ref_bn = ref(*ref_in).cpu().numpy()
+            serve_reference(pt, graphs[layer], ref_bn, label,
+                            CONV_KERNEL[layer], norm, exact_bn=True)
+    log(json.dumps({"reference_checkpoints_max_rel_gap": table}))
+    export_round_trip(tmp, case, ref_in, gen)
+    mixed_prism(tmp, gen)
+    for argv in (["check-data", "--case_path", str(case), "--time_dirs",
+                  "100"], ["check-coordinates", "--case_path", str(case)]):
+        if cli_main(argv) != 0:
+            raise AssertionError(f"{argv[0]} returned non-zero")
+
+
 def main() -> int:
     import torch
 
@@ -3114,6 +3423,12 @@ def main() -> int:
         t1 = time.time()
         bench_phase(tmp, case)
         log(f"phase 18 (bench): {time.time() - t1:.1f} s")
+
+        # the reference's own .pt checkpoints served through the kernels;
+        # export-torch; the mixed hex/prism case; the host subcommands
+        t1 = time.time()
+        reference_phase(tmp, case, info)
+        log(f"phase 19 (reference checkpoints): {time.time() - t1:.1f} s")
 
     gat = {k: v for k, v in rows[("gat_train", 400, "bfloat16")].items()}
     kernels = [

@@ -10,8 +10,10 @@ Transformer convolutions on the ``pallas`` (banded kernels), ``dense`` and
 ``segment`` backends, BatchNorm (fused or unfused) or LayerNorm, served
 (``infer``, meshes with or without a band), trained (``train``) and
 benchmarked (``bench``, ``python -m gnn_bfs_rans_tpu_torch.bench``: the
-harness of ``utils/``); every TPU kernel function of the JAX package has
-its counterpart.
+harness of ``utils/``); checkpoints in the reference's own ``.pt`` format
+served (``Predictor.from_torch_checkpoint``) and written
+(``export-torch``); the plotting and data-check subcommands; every TPU
+kernel function of the JAX package has its counterpart.
 """
 
 __version__ = "0.1.0"

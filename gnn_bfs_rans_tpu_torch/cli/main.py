@@ -1,10 +1,12 @@
-"""Command-line interface of the port: the ``train``, ``infer`` and
-``bench`` subcommands.
+"""Command-line interface of the port: train / infer / export-torch /
+visualize / plot-lines / plot-training / check-data / check-coordinates /
+bench.
 
-``python -m gnn_bfs_rans_tpu_torch train|infer|bench [flags]`` take the
-flags of the JAX package's subcommands (``gnn_bfs_rans_tpu/cli/main.py:27-76,
-455-527, 632-653``) plus ``--device`` (``cuda`` by default; ``cpu`` runs
-the kernels' plain versions).  ``train`` defaults to the JAX CLI's model
+``python -m gnn_bfs_rans_tpu_torch <subcommand> [flags]`` take the flags
+of the JAX package's subcommands (``gnn_bfs_rans_tpu/cli/main.py``), and
+those that run a model (``train``, ``infer``, ``visualize``,
+``plot-lines``, ``bench``) also ``--device`` (``cuda`` by default; ``cpu``
+runs the kernels' plain versions).  ``train`` defaults to the JAX CLI's model
 (``--layer_type GCN``, 6 layers, hidden 256) and trains every layer type
 on every backend: ``--backend pallas`` (the port's default, where the JAX
 CLI defaults to ``dense``: the banded kernels, or the dense branches on a
@@ -16,9 +18,14 @@ once a block (the JAX CLI's ``lax.scan`` blocks).  ``bench`` prints one
 JSON line from ``utils/bench.py::run_benchmark`` (``--synthetic N``:
 ``utils/synthetic.py::run_scale_benchmark`` on a ~N-cell grid), its
 ``--backend`` defaulting to ``pallas`` as ``train``'s does; ``--mode dp``
-waits for the data-parallel module (ROADMAP Queue 1 item 4).  The JAX
-trainer's ``--progress`` bar and ``--no_aot`` cache are not ported, nor
-are the other subcommands.
+waits for the data-parallel module (ROADMAP Queue 1 item 4).
+``export-torch`` writes a checkpoint in the reference's ``.pt`` format
+(``compat/torch_port.py``).  ``visualize`` and ``plot-lines`` serve the
+checkpoint on the case (``infer.predict_case``) and plot it against a
+reference time; they and ``plot-training`` need matplotlib.
+``check-data`` and ``check-coordinates`` run on the host alone.  Not
+ported: the JAX trainer's ``--no_aot`` (its compile cache), and
+``train-multicase`` / ``train-multitopo`` (later slices).
 """
 
 from __future__ import annotations
@@ -64,7 +71,7 @@ def cmd_train(args) -> int:
         seed=args.seed, plateau_min_lr=args.min_lr, scheduler=args.scheduler,
         epoch_block=args.epoch_block, bn_recal=args.bn_recal)
     trainer = Trainer(dataset, mcfg, tcfg, output_dir=out_dir,
-                      device=args.device)
+                      device=args.device, progress=args.progress)
     trainer.initialize(resume=args.resume)
     trainer.train()
     print("Training completed!")
@@ -110,6 +117,155 @@ def cmd_infer(args) -> int:
     return 0
 
 
+def _predict_filtered(args):
+    """Common prefix of visualize/plot-lines: predict + z>=0 filter."""
+    from ..foam.reader import FoamCase
+    from ..infer import predict_case
+
+    _, fields, _ = predict_case(args.checkpoint, args.case_path,
+                                name=args.checkpoint_name,
+                                device=args.device)
+    case = FoamCase(args.case_path)
+    mesh = case.load_mesh()
+    ref_raw = case.load_fields(args.reference_time)
+    ref = {"U": ref_raw["U"]}
+    for name in ("p", "k", "epsilon", "nut"):
+        ref[name] = ref_raw[name].reshape(-1, 1)
+    cc = mesh.cell_centers
+    z_mask = cc[:, 2] >= 0
+    if z_mask.sum() == 0:
+        z_mask = np.ones(len(cc), dtype=bool)
+    cc = cc[z_mask]
+    fields = {k: np.asarray(v)[z_mask] for k, v in fields.items()}
+    ref = {k: np.asarray(v)[z_mask] for k, v in ref.items()}
+    return fields, ref, cc
+
+
+def cmd_export_torch(args) -> int:
+    from ..compat.torch_port import save_torch_checkpoint
+    from ..models.flow_gnn import ModelConfig
+    from ..train.checkpoint import load_checkpoint
+    from ..train.normalization import FieldNormalizer
+
+    state, meta = load_checkpoint(args.checkpoint, args.checkpoint_name)
+    mcfg = ModelConfig.from_dict(meta["model_config"])
+    normalizer = (FieldNormalizer.from_dict(meta["normalizer"])
+                  if meta.get("normalizer") else None)
+    save_torch_checkpoint(
+        args.output, state, mcfg, normalizer=normalizer,
+        epoch=int(meta.get("epoch", 0)),
+        val_loss=float(meta.get("val_loss", float("nan"))),
+        train_config=meta.get("train_config"))
+    print(f"Exported {args.checkpoint}/{args.checkpoint_name} -> {args.output} "
+          f"({mcfg.layer_type} {mcfg.hidden_dim}x{mcfg.num_layers}, "
+          "reference torch format)")
+    return 0
+
+
+def cmd_visualize(args) -> int:
+    from ..viz.fields import compare_fields
+
+    fields, ref, cc = _predict_filtered(args)
+    print("Creating visualization plots...")
+    stats = compare_fields(fields, ref, cc, args.output_dir)
+    (Path(args.output_dir) / "error_stats.json").write_text(
+        json.dumps(stats, indent=2))
+    print(f"\nVisualization complete! Plots saved to {args.output_dir}")
+    return 0
+
+
+def cmd_plot_lines(args) -> int:
+    from ..viz.lines import plot_line_comparison
+
+    fields, ref, cc = _predict_filtered(args)
+    out_dir = Path(args.output_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    print(f"\nPlotting along horizontal line Y = {args.y_line}...")
+    plot_line_comparison(
+        fields, ref, cc, y_line=args.y_line,
+        output_path=out_dir / f"line_Y_{args.y_line:.3f}.png", tol=args.tol)
+    print(f"\nPlotting along vertical line X = {args.x_line}...")
+    plot_line_comparison(
+        fields, ref, cc, x_line=args.x_line,
+        output_path=out_dir / f"line_X_{args.x_line:.3f}.png", tol=args.tol)
+    print(f"\nLine plots saved to {out_dir}")
+    return 0
+
+
+def cmd_plot_training(args) -> int:
+    from ..viz.training import plot_field_errors_detailed, plot_training_curves
+
+    if not Path(args.history).exists():
+        print(f"Error: history file not found: {args.history}")
+        return 1
+    plot_training_curves(args.history, args.output)
+    if args.detailed:
+        plot_field_errors_detailed(args.history)
+    return 0
+
+
+def cmd_check_data(args) -> int:
+    """Data-pipeline smoke check (parity with test_data_loading.py)."""
+    from ..foam.reader import FoamCase
+    from ..graph.build import build_graph
+
+    try:
+        case = FoamCase(args.case_path)
+        print("Loading mesh...")
+        mesh = case.load_mesh()
+        print(f"  points: {mesh.n_points}")
+        print(f"  faces: {mesh.n_faces} ({mesh.n_internal_faces} internal)")
+        print(f"  cells: {mesh.n_cells} ({mesh.n_internal_cells} internal)")
+        print(f"  boundaries: {list(mesh.boundaries)}")
+        for td in args.time_dirs:
+            fields = case.load_fields(td, n_cells=mesh.n_cells)
+            shapes = {k: v.shape for k, v in fields.items()}
+            print(f"  time {td}: {shapes}")
+        print("Building graph...")
+        graph = build_graph(mesh)
+        print(f"  nodes: {graph.n_nodes} (padded {graph.n_pad})")
+        print(f"  edges: {graph.n_edges} (padded {graph.e_pad})")
+        print(f"  max degree: {graph.max_degree}")
+        print("OK")
+        return 0
+    except Exception as e:  # smoke contract: exit code 1 on any failure
+        print(f"FAILED: {e}")
+        return 1
+
+
+def cmd_check_coordinates(args) -> int:
+    """Coordinate diagnostic (parity with check_coordinates.py)."""
+    from ..foam.reader import FoamCase
+
+    cc = FoamCase(args.case_path).load_mesh().cell_centers
+    print("Cell center coordinate ranges:")
+    for i, axis in enumerate("xyz"):
+        print(f"  {axis}: [{cc[:, i].min():.6f}, {cc[:, i].max():.6f}]")
+    # BFS region accounting (expectation from blockMeshDict, scale 0.001)
+    upstream = (cc[:, 0] < 0).sum()
+    downstream = (cc[:, 0] >= 0).sum()
+    below_step = ((cc[:, 0] >= 0) & (cc[:, 1] < 0)).sum()
+    print(f"BFS regions: upstream(x<0)={upstream}, downstream(x>=0)={downstream}, "
+          f"recirculation(x>=0,y<0)={below_step}")
+    if args.plot:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots(figsize=(12, 4))
+        ax.scatter(cc[:, 0], cc[:, 1], s=0.2)
+        ax.set_aspect("equal")
+        ax.set_xlabel("X [m]")
+        ax.set_ylabel("Y [m]")
+        out = Path(args.output_dir) / "geometry.png"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        plt.savefig(out, dpi=150, bbox_inches="tight")
+        plt.close(fig)
+        print(f"Saved geometry plot to {out}")
+    return 0
+
+
 def cmd_bench(args) -> int:
     if args.mode == "dp":
         raise NotImplementedError(
@@ -148,6 +304,22 @@ def cmd_bench(args) -> int:
     )
     print(json.dumps(result))
     return 0
+
+
+def _served_plot_parser(sub, name: str, helptext: str, func):
+    """The flags of a subcommand that serves a checkpoint on a case and
+    plots it against a reference time."""
+    p = sub.add_parser(name, help=helptext)
+    p.add_argument("--checkpoint", type=str, required=True)
+    p.add_argument("--checkpoint_name", type=str, default="best")
+    p.add_argument("--case_path", type=str, default="OpenFOAM-data",
+                   help="Path to OpenFOAM case directory")
+    p.add_argument("--reference_time", type=str, default="282")
+    p.add_argument("--output_dir", type=str, default="visualizations")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (the kernels) or cpu (their plain versions)")
+    p.set_defaults(func=func)
+    return p
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -203,6 +375,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Keep uniform (initial-condition) snapshots")
     p.add_argument("--resume", action="store_true",
                    help="Resume from the latest checkpoint in output_dir")
+    p.add_argument("--progress", action="store_true",
+                   help="Live tqdm epoch bar with loss postfix (parity with "
+                        "the reference's per-batch bar, train.py:165,194)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the kernels) or cpu (their plain versions)")
     p.set_defaults(func=cmd_train)
@@ -231,6 +406,44 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the kernels) or cpu (their plain versions)")
     p.set_defaults(func=cmd_infer)
+
+    p = sub.add_parser(
+        "export-torch",
+        help="Export a checkpoint to the reference's torch .pt format")
+    p.add_argument("--checkpoint", type=str, required=True,
+                   help="Checkpoint directory")
+    p.add_argument("--checkpoint_name", type=str, default="best")
+    p.add_argument("--output", type=str, default="best_model.pt")
+    p.set_defaults(func=cmd_export_torch)
+
+    p = _served_plot_parser(sub, "visualize", "Field-comparison plots",
+                            cmd_visualize)
+    p = _served_plot_parser(sub, "plot-lines", "Line-extraction plots",
+                            cmd_plot_lines)
+    p.add_argument("--x_line", type=float, default=0.15)
+    p.add_argument("--y_line", type=float, default=0.005)
+    p.add_argument("--tol", type=float, default=1e-4)
+
+    p = sub.add_parser("plot-training", help="Training-curve plots")
+    p.add_argument("--history", type=str,
+                   default="checkpoints/training_history.json")
+    p.add_argument("--output", type=str, default=None)
+    p.add_argument("--detailed", action="store_true")
+    p.set_defaults(func=cmd_plot_training)
+
+    p = sub.add_parser("check-data", help="Data-pipeline smoke check")
+    p.add_argument("--case_path", type=str, default="OpenFOAM-data",
+                   help="Path to OpenFOAM case directory")
+    p.add_argument("--time_dirs", type=str, nargs="+",
+                   default=["0", "100", "200", "282"])
+    p.set_defaults(func=cmd_check_data)
+
+    p = sub.add_parser("check-coordinates", help="Coordinate diagnostic")
+    p.add_argument("--case_path", type=str, default="OpenFOAM-data",
+                   help="Path to OpenFOAM case directory")
+    p.add_argument("--plot", action="store_true")
+    p.add_argument("--output_dir", type=str, default="visualizations")
+    p.set_defaults(func=cmd_check_coordinates)
 
     p = sub.add_parser("bench", help="Performance benchmark")
     p.add_argument("--case_path", type=str, default="OpenFOAM-data",

@@ -3,7 +3,8 @@
 Counterpart of ``gnn_bfs_rans_tpu/graph/build.py`` (numpy, same edge order,
 RCM permutation and band): bidirectional owner↔neighbour edges from internal
 faces, optional boundary self-loops, edge attributes ``[unit direction xyz,
-distance]``.  The result is a :class:`Graph` of CPU tensors; move it with
+distance]``; ``boundary_cell_mask`` marks the cells that own a patch's
+faces.  The result is a :class:`Graph` of CPU tensors; move it with
 ``graph.to(device)``.
 """
 
@@ -158,3 +159,17 @@ def validate_graph(graph: Graph, senders: np.ndarray, receivers: np.ndarray) -> 
         missing = int((~touched).sum())
         raise ValueError(f"{missing} isolated nodes in graph")
 
+
+def boundary_cell_mask(mesh: FoamMesh, patch_name: str) -> np.ndarray:
+    """Boolean mask of cells owning faces of a boundary patch.
+
+    Parity with ``graph_constructor.py:271-295`` (``get_boundary_mask``).
+    """
+    if patch_name not in mesh.boundaries:
+        raise ValueError(f"boundary {patch_name!r} not found")
+    patch = mesh.boundaries[patch_name]
+    mask = np.zeros(mesh.n_cells, dtype=bool)
+    faces = np.arange(patch.start_face, patch.start_face + patch.n_faces)
+    faces = faces[faces < mesh.n_faces]
+    mask[mesh.owner[faces]] = True
+    return mask

@@ -1,18 +1,23 @@
 """Checkpoint load + predict: the serving path.
 
 Counterpart of ``gnn_bfs_rans_tpu/infer.py``.  Which backend serves a
-checkpoint: an ordinary one is served on ``pallas`` whatever ``backend``
-its meta records (the JAX package's ``backend='auto'`` → ``dense`` rule
-exists to skip a minutes-long TPU compile that the card does not have), so
-on a banded mesh it runs through the kernels and on a mesh without a band
-(a window wider than 5 tiles: most 3D hex meshes) through the convs'
-dense branches, as the JAX convs route ``pallas`` there.  A checkpoint
-saved with BN recalibration (``meta['bn_recalibrated']``) keeps the
-backend it trained on, as the JAX package's does (``infer.py:89-93``):
-its exact statistics belong to that backend's arithmetic.  ``load_graph``
-builds the band planes the layer type reads (the Transformer's
-``bias_noself`` and its geo planes, or the generic edge planes for
-non-geometric features) when the backend is ``pallas``.
+checkpoint (``backend``, as in the JAX package's ``Predictor.from_checkpoint``
+and ``predict_case``): a name overrides the checkpoint's, ``None`` keeps the
+one it trained on, and ``'auto'`` (the default) serves an ordinary
+checkpoint on ``pallas`` whatever its meta records (the JAX package's
+``'auto'`` → ``dense`` rule exists to skip a minutes-long TPU compile that
+the card does not have), so on a banded mesh it runs through the kernels
+and on a mesh without a band (a window wider than 5 tiles: most 3D hex
+meshes) through the convs' dense branches, as the JAX convs route
+``pallas`` there.  Under ``'auto'`` a checkpoint saved with BN
+recalibration (``meta['bn_recalibrated']``) keeps the backend it trained
+on, as the JAX package's does (``infer.py:89-93``): its exact statistics
+belong to that backend's arithmetic.  ``load_graph`` builds the band planes
+the layer type reads (the Transformer's ``bias_noself`` and its geo
+planes, or the generic edge planes for non-geometric features) when the
+backend is ``pallas``.  ``Predictor.from_torch_checkpoint`` serves a
+checkpoint in the reference's own ``.pt`` format (``compat/torch_port.py``)
+under ``'auto'``.
 """
 
 from __future__ import annotations
@@ -38,6 +43,16 @@ from .train.recal import exact_stats
 # the graphs a Predictor keeps forwards (and their CUDA graphs) for; the
 # least recently used goes first
 FORWARDS_KEPT = 8
+
+
+def resolve_backend(backend: str | None, trained: str,
+                    recalibrated: bool) -> str:
+    """The backend that serves a checkpoint trained on ``trained``:
+    ``backend`` by name, ``trained`` for None, and for ``'auto'``
+    ``pallas`` unless the checkpoint was saved BN-recalibrated."""
+    if backend == "auto":
+        return trained if recalibrated else "pallas"
+    return trained if backend is None else backend
 
 
 @dataclasses.dataclass
@@ -71,23 +86,53 @@ class Predictor:
         cls,
         checkpoint_dir: str | Path,
         name: str = "best",
+        backend: str | None = "auto",
         exact_bn: bool | str = "auto",
         device: str | torch.device = "cuda",
     ) -> "Predictor":
-        """``exact_bn='auto'`` follows ``meta['bn_recalibrated']``."""
+        """``backend``: see :func:`resolve_backend`; ``exact_bn='auto'``
+        follows ``meta['bn_recalibrated']``."""
         dev = resolve_device(device)
         state, meta = load_checkpoint(checkpoint_dir, name)
+        normalizer = (FieldNormalizer.from_dict(meta["normalizer"])
+                      if meta.get("normalizer") else None)
+        return cls._build(state, ModelConfig.from_dict(meta["model_config"]),
+                          normalizer, meta, backend, exact_bn, dev)
+
+    @classmethod
+    def from_torch_checkpoint(
+        cls,
+        path: str | Path,
+        exact_bn: bool | str = "auto",
+        device: str | torch.device = "cuda",
+    ) -> "Predictor":
+        """A checkpoint in the reference's ``.pt`` format
+        (``compat/torch_port.py::load_torch_checkpoint``), served as a
+        native one is under ``backend='auto'``: on ``pallas`` (such a file
+        is never BN-recalibrated, so ``exact_bn='auto'`` is off)."""
+        from .compat.torch_port import load_torch_checkpoint
+
+        dev = resolve_device(device)
+        state, model_config, normalizer = load_torch_checkpoint(path)
+        meta = {"model_config": model_config.to_dict(),
+                "torch_checkpoint": str(path)}
+        return cls._build(state, model_config, normalizer, meta, "auto",
+                          exact_bn, dev)
+
+    @classmethod
+    def _build(cls, state: dict, model_config: ModelConfig,
+               normalizer: FieldNormalizer | None, meta: dict,
+               backend: str | None, exact_bn: bool | str,
+               dev: torch.device) -> "Predictor":
+        recalibrated = bool(meta.get("bn_recalibrated"))
         if exact_bn == "auto":
-            exact_bn = bool(meta.get("bn_recalibrated"))
-        model_config = ModelConfig.from_dict(meta["model_config"])
-        if not meta.get("bn_recalibrated"):
-            model_config = dataclasses.replace(model_config,
-                                               backend="pallas")
+            exact_bn = recalibrated
+        model_config = dataclasses.replace(
+            model_config, backend=resolve_backend(
+                backend, model_config.backend, recalibrated))
         model = FlowGNN(model_config)
         model.load_state_dict(state)
         model.eval().to(dev)
-        normalizer = (FieldNormalizer.from_dict(meta["normalizer"])
-                      if meta.get("normalizer") else None)
         return cls(model=model, model_config=model_config,
                    normalizer=normalizer, meta=meta, device=dev,
                    exact_bn=bool(exact_bn))
@@ -154,15 +199,19 @@ def predict_case(
     checkpoint_dir: str | Path,
     case_path: str | Path,
     name: str = "best",
+    backend: str | None = "auto",
     boundary_self_loops: bool = False,
     recalibrate_bn: bool = False,
     exact_bn: bool | str = "auto",
     device: str | torch.device = "cuda",
 ) -> tuple[Predictor, dict[str, np.ndarray], Graph]:
     """End to end: load checkpoint, parse case, build graph, (optionally)
-    recalibrate BN on it, predict."""
+    recalibrate BN on it, predict.  ``backend`` as in
+    :meth:`Predictor.from_checkpoint`; the graph gets its band only when
+    that backend is ``pallas``."""
     predictor = Predictor.from_checkpoint(checkpoint_dir, name,
-                                          exact_bn=exact_bn, device=device)
+                                          backend=backend, exact_bn=exact_bn,
+                                          device=device)
     cfg = predictor.model_config
     graph = load_graph(case_path, cfg.layer_type, boundary_self_loops,
                        cfg.backend).to(predictor.device)

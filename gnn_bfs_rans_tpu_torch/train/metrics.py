@@ -4,8 +4,9 @@ scripts.
 Counterpart of ``gnn_bfs_rans_tpu/train/metrics.py`` (which imports JAX,
 so the port keeps its own copy): ``compute_field_errors`` (torch, the
 training loop's per-field errors: U as the mean L2 norm of the per-cell
-velocity error, scalars as MAE) and the numpy ``comparison_stats`` /
-``compare_with_reference`` of inference.
+velocity error, scalars as MAE), the numpy ``comparison_stats`` /
+``compare_with_reference`` of inference and ``mean_normalized_error``,
+the visualization metric.
 """
 
 from __future__ import annotations
@@ -65,3 +66,16 @@ def compare_with_reference(
         else:
             out[name] = comparison_stats(pred, ref, vector=False)
     return out
+
+
+def mean_normalized_error(pred: np.ndarray, ref: np.ndarray) -> float:
+    """|pred−ref| / range(ref) × 100%, averaged — the visualization metric
+    (``visualize.py:236-273``)."""
+    pred = np.asarray(pred, dtype=np.float64).reshape(-1)
+    ref = np.asarray(ref, dtype=np.float64).reshape(-1)
+    ref_range = np.nanmax(ref) - np.nanmin(ref)
+    if ref_range < 1e-10:
+        ref_range = max(abs(np.nanmax(ref)), abs(np.nanmin(ref)))
+    eps = max(ref_range * 1e-6, 1e-10)
+    err = np.abs(pred - ref) / (ref_range + eps) * 100.0
+    return float(err.mean())

@@ -3,8 +3,10 @@
 Counterpart of ``gnn_bfs_rans_tpu/train/normalization.py``:
 ``FieldNormalizer`` — per-field z-score, velocity per component, std
 floored at 1e-10 → 1.0 — with its dict (JSON) form, the packed
-``[U(3), p, k, epsilon, nut]`` layout, and ``weighted_fieldwise_mse``, the
-field-weighted MSE with the pressure-mean anchor.
+``[U(3), p, k, epsilon, nut]`` layout (``pack_targets``, ``unpack_fields``,
+``packed_mean_std``), ``weighted_fieldwise_mse``, the field-weighted MSE
+with the pressure-mean anchor, and ``weighted_elementwise_mse``, the
+reference's legacy element-wise weighting (``normalization.py:237-250``).
 """
 
 from __future__ import annotations
@@ -81,6 +83,22 @@ class FieldNormalizer:
             out[name] = data * s["std"] + s["mean"]
         return out
 
+    # ---------------------------------------------------------- packed stats
+    def packed_mean_std(self) -> tuple[np.ndarray, np.ndarray]:
+        """Stats aligned with the packed [U(3), p, k, epsilon, nut] layout."""
+        mean = np.zeros(7)
+        std = np.ones(7)
+        if "U" in self.scalers:
+            # broadcasting takes per-component ([3]) and shared U stats alike
+            s = self.scalers["U"]
+            mean[0:3] = s["mean"]
+            std[0:3] = s["std"]
+        for i, name in enumerate(("p", "k", "epsilon", "nut"), start=3):
+            if name in self.scalers:
+                mean[i] = self.scalers[name]["mean"]
+                std[i] = self.scalers[name]["std"]
+        return mean, std
+
     # ---------------------------------------------------------- serialization
     def to_dict(self) -> dict:
         scalers = {}
@@ -111,6 +129,10 @@ class FieldNormalizer:
             }
         return norm
 
+    @classmethod
+    def load(cls, path: str | Path) -> "FieldNormalizer":
+        return cls.from_dict(json.loads(Path(path).read_text()))
+
 
 def pack_targets(fields: dict[str, np.ndarray]) -> np.ndarray:
     """Stack normalized fields into the canonical [N, 7] target layout."""
@@ -118,6 +140,12 @@ def pack_targets(fields: dict[str, np.ndarray]) -> np.ndarray:
     for name in ("p", "k", "epsilon", "nut"):
         cols.append(np.asarray(fields[name]).reshape(-1, 1))
     return np.concatenate(cols, axis=1)
+
+
+def unpack_fields(packed):
+    """Inverse of :func:`pack_targets` (numpy or tensor), [N, 1] scalars."""
+    return {"U": packed[:, 0:3], "p": packed[:, 3:4], "k": packed[:, 4:5],
+            "epsilon": packed[:, 5:6], "nut": packed[:, 6:7]}
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -150,3 +178,19 @@ def weighted_fieldwise_mse(
     nut_loss = _masked_mean(sq[:, 6:7], node_mask)
     return (w["U"] * u_loss + w["p"] * p_loss + w["k"] * k_loss
             + w["epsilon"] * eps_loss + w["nut"] * nut_loss)
+
+
+def weighted_elementwise_mse(
+    pred: torch.Tensor,
+    target: torch.Tensor,
+    node_mask: torch.Tensor,
+    field_weights: dict[str, float] | None = None,
+) -> torch.Tensor:
+    """Legacy element-wise weighting (``normalization.py:237-250``): each
+    channel's squared error times its field's weight, averaged over the
+    real nodes' channels."""
+    w = {**DEFAULT_FIELD_WEIGHTS, **(field_weights or {})}
+    channel_w = torch.tensor(
+        [w["U"]] * 3 + [w["p"], w["k"], w["epsilon"], w["nut"]],
+        dtype=pred.dtype, device=pred.device)
+    return _masked_mean((pred - target) ** 2 * channel_w, node_mask)

@@ -15,7 +15,12 @@ with the reference's ``train.py main()``):
 * ``training_history.json`` in the reference schema and ``metrics.jsonl``;
 * on ``KeyboardInterrupt`` (Ctrl-C, or SIGTERM raised as one): the last
   completed epoch saved as ``epoch_<N>`` with ``interrupted: True`` and the
-  history written, then the interrupt re-raised, so ``resume`` continues.
+  history written, then the interrupt re-raised, so ``resume`` continues;
+* ``progress``: a live tqdm bar over the epochs, log lines routed through
+  ``tqdm.write`` (the JAX trainer's ``--progress``).  The per-epoch loop
+  shows each batch's loss, which costs one host synchronization a batch;
+  the blocked loop advances the bar once a block.  Without tqdm it logs
+  that and trains on (a display option only).
 
 It trains on every backend (``pallas``, ``dense``, ``segment``; a
 ``pallas`` model on a mesh without a band takes the convs' dense
@@ -32,9 +37,8 @@ epoch and synchronizes once a block.  The first call of each graph runs
 eagerly (its warm-up) and the second captures it.  On the CPU the same
 functions run eagerly.  Not ported: the JAX trainer's Mosaic compile
 retries and dense-backend fallback (``kernels/fallback.py``: a TPU
-workaround that would hide a kernel fault here), its AOT executable cache,
-its tqdm bar and ``ModelConfig.remat`` (constructing a trainer for it
-raises).  Dropout masks, kernel seeds and the blocks' snapshot
+workaround that would hide a kernel fault here), its AOT executable cache
+and ``ModelConfig.remat`` (constructing a trainer for it raises).  Dropout masks, kernel seeds and the blocks' snapshot
 permutations come from one ``torch.Generator`` on the training device,
 seeded from ``TrainConfig.seed``; parameters are initialized from a CPU
 generator with the same seed.
@@ -112,6 +116,7 @@ class Trainer:
         output_dir: str | Path = "checkpoints",
         log_fn=print,
         device: str | torch.device = "cuda",
+        progress: bool = False,
     ):
         check_trainable(model_config)
         self.device = resolve_device(device)
@@ -121,6 +126,8 @@ class Trainer:
         self.output_dir = Path(output_dir)
         self.output_dir.mkdir(parents=True, exist_ok=True)
         self.log = log_fn
+        self.progress = progress
+        self._pbar = None
 
         self.model = FlowGNN(
             model_config,
@@ -184,6 +191,35 @@ class Trainer:
             self.log("BN recalibration ON: val loss / best selection on "
                      "exact batch statistics; checkpoints saved recalibrated")
 
+    def _open_pbar(self) -> None:
+        """Start the epoch bar and route log lines through ``tqdm.write``,
+        so they do not tear it."""
+        if not self.progress:
+            return
+        try:
+            from tqdm import tqdm
+        except ImportError:
+            self.log("tqdm not installed — --progress disabled")
+            self.progress = False
+            return
+        self._pbar = tqdm(total=self.config.epochs,
+                          initial=self.start_epoch - 1, desc="Training",
+                          unit="epoch", dynamic_ncols=True)
+        self._plain_log, self.log = self.log, tqdm.write
+
+    def _close_pbar(self) -> None:
+        if self._pbar is not None:
+            self._pbar.close()
+            self._pbar = None
+            self.log = self._plain_log
+
+    def _advance_pbar(self, epochs: int, train_loss: float, val_loss: float,
+                      lr: float) -> None:
+        if self._pbar is not None:
+            self._pbar.set_postfix(train=f"{train_loss:.6f}",
+                                   val=f"{val_loss:.6f}", lr=f"{lr:.1e}")
+            self._pbar.update(epochs)
+
     def _truncate_metrics_jsonl(self, start_epoch: int) -> None:
         """Drop metrics.jsonl rows at/after ``start_epoch`` so a resumed run
         does not record those epochs twice."""
@@ -225,13 +261,18 @@ class Trainer:
     def _train_loop(self) -> dict:
         cfg = self.config
         n = self.dataset.n_snapshots
-        if cfg.epoch_block > 1:
-            if n % min(cfg.batch_size, n) == 0:
-                return self._train_loop_blocked()
+        blocked = cfg.epoch_block > 1 and n % min(cfg.batch_size, n) == 0
+        if cfg.epoch_block > 1 and not blocked:
             self.log(f"epoch_block={cfg.epoch_block} needs n_snapshots ({n}) "
                      f"divisible by batch_size ({cfg.batch_size}); falling "
                      "back to the per-epoch loop")
-        self._run_epochs()
+        self._open_pbar()
+        try:
+            if blocked:
+                return self._train_loop_blocked()
+            self._run_epochs()
+        finally:
+            self._close_pbar()
         self.save_history()
         return self.history
 
@@ -282,6 +323,9 @@ class Trainer:
                 losses.append(step(order[start:start + len(idx)],
                                    lr).clone())
                 start += len(idx)
+                if self._pbar is not None:
+                    # the batch's loss: one host synchronization a batch
+                    self._pbar.set_postfix(loss=f"{losses[-1].item():.6f}")
             vals = torch.cat([torch.stack(losses).mean().float()[None],
                               self._eval()().float()]).tolist()
             train_loss, val_loss = vals[0], vals[1]
@@ -298,6 +342,7 @@ class Trainer:
             self._record(epoch, train_loss, val_loss, lr_used, errors, dt)
             self.log(f"Epoch {epoch}: train={train_loss:.6f} "
                      f"val={val_loss:.6f} lr={lr_used:.3e} ({dt:.2f}s)")
+            self._advance_pbar(1, train_loss, val_loss, lr_used)
 
             extra = {"best_val": min(self.best_val, val_loss), "lr": lr,
                      "sched_best": self.scheduler.best}
@@ -435,6 +480,7 @@ class Trainer:
             self.log(f"Epochs {epoch}-{epoch + k - 1}: train={rows[-1, 0]:.6f} "
                      f"val={rows[-1, 1]:.6f} lr={rows[-1, 2]:.3e} "
                      f"({dt:.2f}s, {dt / k * 1e3:.0f} ms/epoch)")
+            self._advance_pbar(k, *map(float, rows[-1, :3]))
         self.scheduler.lr, self.scheduler.best = lr, best
         extra = {"best_val": min(self.best_val, block_best),
                  "lr": self.scheduler.lr, "sched_best": self.scheduler.best}

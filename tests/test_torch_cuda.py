@@ -60,7 +60,7 @@ from gnn_bfs_rans_tpu_torch.kernels.epilogue import (
     fused_epilogue_fwd,
     fused_epilogue_fwd_plain,
 )
-from gnn_bfs_rans_tpu_torch.models.flow_gnn import FlowGNN, ModelConfig
+from gnn_bfs_rans_tpu_torch.models.flow_gnn import FlowGNN, ModelConfig, split_fields
 from gnn_bfs_rans_tpu_torch.train.checkpoint import save_checkpoint
 from gnn_bfs_rans_tpu_torch.train.loop import (
     TrainConfig,
@@ -1785,3 +1785,91 @@ def test_chained_marginal_time_on_the_card(card, tmp_path):
                               min_snr=0.0, max_reps=16)
     assert 0 < t.step_s < 1.0 and t.reps == 16
     assert _build.LAUNCHES["banded_gat_mean_fused"] == 2 * 36
+
+
+# ---- reference-format .pt checkpoints served on the card
+REF_MODELS = (("GCN", None), ("GAT", None), ("GIN", None),
+              ("Transformer", None), ("Transformer", 4))
+REF_CONV = {"GCN": "banded_spmm", "GIN": "banded_spmm",
+            "GAT": "banded_gat_mean_fused",
+            "Transformer": "banded_transformer_fwd"}
+
+
+@pytest.mark.parametrize("layer_type,edge_dim", REF_MODELS,
+                         ids=["GCN", "GAT", "GIN", "Transformer",
+                              "Transformer-lin_edge"])
+def test_reference_checkpoint_served_on_the_card(card, tmp_path, layer_type,
+                                                 edge_dim):
+    """A reference .pt (written as the reference's train.py writes it, from
+    a model on the card) served through the Predictor on pallas, the conv
+    kernel once per layer, within the JAX package's parity bound of
+    RefFlowGNN's eval forward on the card."""
+    from gnn_bfs_rans_tpu_torch.compat.torch_ref import RefFlowGNN
+    from gnn_bfs_rans_tpu_torch.foam import FoamCase
+    from gnn_bfs_rans_tpu_torch.graph.build import build_graph
+    from gnn_bfs_rans_tpu_torch.infer import Predictor, load_graph
+
+    info = generate_box_case(tmp_path / "case", 40, 30, 1)
+    g = build_graph(FoamCase(tmp_path / "case").load_mesh(), reorder="none")
+    n, ne = g.n_nodes, g.n_edges
+    x, ea = g.node_feat[:n].to(card), g.edge_feat[:ne].to(card)
+    ei = torch.stack([g.senders[:ne], g.receivers[:ne]]).long().to(card)
+    with torch.random.fork_rng(devices=[card]):
+        torch.manual_seed(0)
+        ref = RefFlowGNN(hidden_dim=64, num_layers=2, layer_type=layer_type,
+                         edge_dim=edge_dim).to(card)
+        ref.train()
+        with torch.no_grad():
+            for _ in range(3):
+                ref(x, ei, ea)
+    ref.eval()
+    with torch.no_grad():
+        want = ref(x, ei, ea).cpu().numpy()
+    norm = FieldNormalizer().fit(box_fields(info["cell_centers"]))
+    torch.save({"epoch": 1, "model_state_dict": ref.state_dict(),
+                "optimizer_state_dict": {}, "val_loss": 0.1,
+                "config": {"hidden_dim": 64, "num_layers": 2,
+                           "layer_type": layer_type, "dropout": 0.1},
+                "normalizer": {"field_stats": norm.field_stats,
+                               "scalers": norm.scalers}},
+               tmp_path / "ref.pt")
+    pred = Predictor.from_torch_checkpoint(tmp_path / "ref.pt")
+    assert pred.model_config.backend == "pallas"
+    graph = load_graph(tmp_path / "case", layer_type)
+    _build.reset_launches()
+    got = pred.predict_packed(graph)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        REF_CONV[layer_type]: 2}
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=5e-4)
+    fields = pred.predict_fields(graph)
+    theirs = norm.inverse_transform(split_fields(want))
+    for f, v in theirs.items():
+        std_f = float(np.max(np.asarray(norm.scalers[f]["std"])))
+        np.testing.assert_allclose(
+            fields[f], v, rtol=1e-3,
+            atol=1e-3 * float(np.abs(v).max()) + 1e-3 * std_f, err_msg=f)
+
+
+def test_export_writes_cpu_tensors(card, tmp_path):
+    """export-torch of a checkpoint trained on the card: every tensor of
+    the .pt on the CPU, loadable by RefFlowGNN on a machine without one."""
+    from gnn_bfs_rans_tpu_torch.cli.main import main
+    from gnn_bfs_rans_tpu_torch.compat.torch_port import export_state_dict
+    from gnn_bfs_rans_tpu_torch.compat.torch_ref import RefFlowGNN
+
+    cfg = ModelConfig(hidden_dim=64, num_layers=2, layer_type="GAT",
+                      backend="pallas")
+    model = FlowGNN(cfg).to(card)
+    assert all(v.device.type == "cpu"
+               for v in export_state_dict(model.state_dict(), cfg).values())
+    save_checkpoint(tmp_path / "ckpt", "best", model.state_dict(),
+                    model_config=cfg, normalizer=None)
+    assert main(["export-torch", "--checkpoint", str(tmp_path / "ckpt"),
+                 "--output", str(tmp_path / "out.pt")]) == 0
+    raw = torch.load(tmp_path / "out.pt", map_location=None,
+                     weights_only=False)
+    assert all(v.device.type == "cpu"
+               for v in raw["model_state_dict"].values())
+    RefFlowGNN(hidden_dim=64, num_layers=2, layer_type="GAT").load_state_dict(
+        raw["model_state_dict"], strict=True)
