@@ -171,7 +171,30 @@ Phases (any failure raises and exits non-zero):
     ``predict_case`` with a GCN and a GAT 6×256 f32 checkpoint, rows 8 and
     1 against their plain versions on its band; ``check-data`` and
     ``check-coordinates`` on the box (exit code 0);
-20. print the kernel table as one JSON line, then the result line.
+20. scale-out (``parallel/``, ``models/partitioned.py``,
+    ``train/streaming.py``, ``utils/dp_bench.py``): rows 1 (GAT eval), 4 +
+    5 + 6 (the unfused GAT's training, dropout 0.1), 8 (GCN f32) and 9 (the
+    Transformer's geo head mean) on shards 0, 1 and 3 of a 4-shard
+    partition of a 96 × 64 grid (halo 128: the slices of the band, their
+    all-zero outer halo tiles and patched ``bias_self`` diagonal), each
+    against its plain version on the shard and its owned rows against the
+    same conv on the whole grid; then, in a NCCL group of
+    ``torch.cuda.device_count()`` ranks (1 on a one-card machine: the
+    multi-rank exchange needs a card a rank), the partitioned GAT 4×256
+    forward (f32, bf16) against ``FlowGNN``'s and its train step against
+    ``train_step`` with ``fuse_epilogue=False, fuse_train=False`` (and on
+    more cards the same on spawned NCCL ranks); the DP step (4 snapshots)
+    against ``train_step``, the multi-case step on 4 perturbed boxes and
+    its forward's case order, ``train_multicase_streamed`` (2 epochs,
+    ``Prefetcher(depth=2)``), ``bench --mode dp --devices 1``; one
+    125,000-cell shard of a 1M-cell grid (``run_partition_shard_benchmark``,
+    hidden 256); and a step with and without ``remat`` (GAT 4×256 unfused
+    and Transformer 4×256, bf16, dropout 0.1) from one state and generator,
+    bit for bit, with peak memory and step time on the box and a
+    250,080-cell grid; each reading beside the card's name and power
+    limit.  ``python3 chip_smoke.py --phase 20`` runs this phase alone
+    (no kernel table, no result line);
+21. print the kernel table as one JSON line, then the result line.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times per
 call: ten calls captured in one CUDA graph and replayed, so host launch
@@ -192,6 +215,7 @@ scratch files only under the temporary directory.
 
 import contextlib
 import dataclasses
+import io
 import json
 import re
 import subprocess
@@ -3233,6 +3257,581 @@ def reference_phase(tmp, case, info):
             raise AssertionError(f"{argv[0]} returned non-zero")
 
 
+# ------------------------------------------------------------ phase 20
+# scale-out (parallel/, models/partitioned.py, train/streaming.py,
+# utils/dp_bench.py): the flagship GAT 4×256 bf16, the Transformer 4×256
+# bf16 for remat.  Sliced bands: a 96 × 64 grid (6,144 cells, RCM-free
+# bandwidth 96) in 4 shards of 1,536 rows, halo 128; shards 0, 1 and 3
+# (both boundary kinds and an inner one)
+SHARD_GRID = (96, 64)
+SHARDS, SHARD_HALO = 4, 128
+# the owned rows of a conv on a shard vs the same conv on the whole graph
+# (the same window rows; f32 summation order, and in bf16 one rounding of
+# an output that may flip): × max |full|
+SHARD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# remat: GAT 4×256 bf16 unfused and the Transformer 4×256 bf16, dropout
+# 0.1, on the box and on a grid of ≥ 250,000 cells (96 × 2,605)
+REMAT_GRID = (96, 2605)
+STREAM_CASES = 8
+
+
+def _owned(d, n_loc):
+    return slice(d * n_loc, (d + 1) * n_loc)
+
+
+def _conv_forms():
+    """(label, the conv's constructor, its call, dtype, the plain-version
+    kernel it is held against, needs a backward)."""
+    from gnn_bfs_rans_tpu_torch.models.convs import (GATConv, GCNConv,
+                                                     TransformerConv)
+
+    bf16 = "bfloat16"
+    return [
+        ("row 1 GAT eval", lambda: GATConv(HIDDEN, heads=HEADS,
+                                           backend="pallas",
+                                           dtype=None),
+         lambda c, x, g, s: c(x, g), bf16, False),
+        ("rows 4+5+6 GAT train (unfused)",
+         lambda: GATConv(HIDDEN, heads=HEADS, dropout=DROPOUT,
+                         fuse_train=False, backend="pallas", dtype=None),
+         lambda c, x, g, s: c(x, g, train=True, seed=s), bf16, True),
+        ("row 8 GCN", lambda: GCNConv(HIDDEN, backend="pallas", dtype=None),
+         lambda c, x, g, s: c(x, g), "float32", True),
+        ("row 9 Transformer geo mean",
+         lambda: TransformerConv(HIDDEN, heads=HEADS, edge_dim=4,
+                                 backend="pallas", dtype=None),
+         lambda c, x, g, s: c(x, g), bf16, False),
+    ]
+
+
+def sliced_band_checks(gen):
+    """Rows 1, 4 + 5 + 6, 8 and 9 on the shards' slices of the band: each
+    against its plain version on the shard (its owned rows; at dropout 0.1
+    where the form has dropout: the same seed, the same masks), and the
+    owned rows
+    against the same conv on the whole graph (dropout 0: the masks are
+    keyed by tile, which differs between a shard and the whole graph); in
+    the backward forms dx on the owned rows and the weight gradients,
+    with the cotangent on the shard's owned rows only."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.parallel.partition import (
+        _local_graph, build_partition, shard_partition)
+    from gnn_bfs_rans_tpu_torch.utils.synthetic import build_grid_graph
+
+    dev = torch.device("cuda")
+    grid = build_grid_graph(*SHARD_GRID, with_band=True,
+                            band_components=("gcn", "bias_self",
+                                             "bias_noself", "geo"))
+    pg = build_partition(grid, SHARDS, SHARD_HALO)
+    if not pg.has_band:
+        raise AssertionError("the grid's partition carries no band slices")
+    full = grid.to(dev)
+    n_loc, halo, n_pad = pg.n_loc, SHARD_HALO, grid.n_pad
+    log(f"sliced bands: {SHARD_GRID[0]}x{SHARD_GRID[1]} grid, n_pad {n_pad}, "
+        f"{SHARDS} shards of {n_loc} rows + 2 x {halo} halo, band tile "
+        f"{pg.band_tile}, W {grid.band.gcn.shape[1]}, Wcols "
+        f"{grid.band.bias_self.shape[-1]}")
+    seed = torch.tensor([4321], dtype=torch.int32, device=dev)
+    for label, make, call, dt_name, bwd in _conv_forms():
+        dt = getattr(torch, dt_name)
+        conv = make()
+        conv.reset_parameters(gen)
+        conv = conv.to(dev)
+        x_full = torch.randn(n_pad, HIDDEN, generator=gen).to(dev, dt)
+        g_full = torch.randn(n_pad, HIDDEN, generator=gen).to(dev, dt)
+        for d in (0, 1, SHARDS - 1):
+            local = _local_graph(shard_partition(pg, d, dev))
+            lo = d * n_loc - halo
+            src = torch.arange(lo, lo + n_loc + 2 * halo, device=dev)
+            inside = (src >= 0) & (src < n_pad)
+            x = torch.where(inside[:, None],
+                            x_full[src.clamp(0, n_pad - 1)], 0).to(dt)
+            g = torch.zeros_like(x)
+            g[halo:halo + n_loc] = g_full[_owned(d, n_loc)]
+            g_mask = torch.zeros_like(g_full)
+            g_mask[_owned(d, n_loc)] = g_full[_owned(d, n_loc)]
+
+            def run(graph, xin, cot, s, plain):
+                xin = xin.clone().requires_grad_(bwd)
+                for p in conv.parameters():
+                    p.grad = None
+                with plain_versions() if plain else contextlib.nullcontext():
+                    out = call(conv, xin, graph, s)
+                    if bwd:
+                        out.backward(cot)
+                grads = ([xin.grad] + [p.grad.clone()
+                                       for p in conv.parameters()]
+                         if bwd else [])
+                return out.detach(), grads
+
+            rate_seed = seed if "train" in label else None
+            got, g_got = run(local, x, g, rate_seed, False)
+            ref, g_ref = run(local, x, g, rate_seed, True)
+            torch.cuda.synchronize()
+            # the forward on the owned rows: a halo row's window reaches
+            # senders beyond the shard's rows, which the kernels drop and
+            # the plain versions window as zero rows (its output is
+            # replaced by the exchange, its cotangent is zero)
+            own = slice(halo, halo + n_loc)
+            err, scale = _rel_err(got[own], ref[own])
+            halo_gap = _rel_err(got, ref)[0] / scale
+            tol = GAT_TOL[dt_name] if dt_name == "bfloat16" else SPMM_TOL[
+                dt_name]
+            bwd_err = max((_rel_err(a, b)[0] / max(_rel_err(a, b)[1], 1e-30)
+                           for a, b in zip(g_got, g_ref)), default=0.0)
+            # the whole graph, dropout 0
+            sh, g_sh = run(local, x, g, None, False)
+            wh, g_wh = run(full, x_full, g_mask, None, False)
+            f_err, f_scale = _rel_err(sh[own], wh[_owned(d, n_loc)])
+            fb_err = 0.0
+            if bwd:
+                pairs = [(g_sh[0][own], g_wh[0][_owned(d, n_loc)])] + list(
+                    zip(g_sh[1:], g_wh[1:]))
+                fb_err = max(_rel_err(a, b)[0] / max(_rel_err(a, b)[1],
+                                                     1e-30)
+                             for a, b in pairs)
+            log(f"{label} {dt_name} shard {d}: kernel vs plain on the "
+                f"owned rows {err / scale:.3e} (tol {tol}; all rows "
+                f"{halo_gap:.3e}), backward "
+                f"{bwd_err:.3e} (tol {BWD_TOL[dt_name]}); owned rows vs the "
+                f"whole graph {f_err / f_scale:.3e}, backward {fb_err:.3e} "
+                f"(tol {SHARD_TOL[dt_name]})")
+            if not (torch.isfinite(got).all() and err <= tol * scale
+                    and bwd_err <= BWD_TOL[dt_name]
+                    and f_err <= SHARD_TOL[dt_name] * f_scale
+                    and fb_err <= max(SHARD_TOL[dt_name],
+                                      BWD_TOL[dt_name])):
+                raise AssertionError(f"{label} on shard {d}: kernel "
+                                     f"{err}/{bwd_err}, whole graph "
+                                     f"{f_err}/{fb_err}")
+
+
+def _flagship(dt="bfloat16", layer_type="GAT", **kw):
+    from gnn_bfs_rans_tpu_torch.models.flow_gnn import ModelConfig
+
+    return ModelConfig(**{**dict(hidden_dim=HIDDEN, num_layers=LAYERS,
+                                 layer_type=layer_type, heads=HEADS,
+                                 backend="pallas", dropout=0.0,
+                                 compute_dtype=dt), **kw})
+
+
+def _grads(model):
+    return {k: p.grad.detach().float().clone()
+            for k, p in model.named_parameters()}
+
+
+def _step_gap(label, got, want, own=None, bf16=False):
+    """A step's loss and gradients against a reference step's: f32 within
+    the f32 step limits; bf16 (``own``: the reference's bf16 step and
+    ``want`` its f32 step) no further from the f32 step than 1.5 × the
+    reference bf16 step."""
+    (l_g, g_g), (l_w, g_w) = got, want
+    if not bf16:
+        if abs(l_g - l_w) > STEP_LOSS_TOL["float32"] * abs(l_w):
+            raise AssertionError(f"{label}: loss {l_g} vs {l_w}")
+        g_max = max(v.abs().max().item() for v in g_w.values())
+        worst = 0.0
+        for k in g_w:
+            err, scale = _rel_err(g_g[k], g_w[k])
+            floor = g_max if _zero_grad(k) else 1e-3 * g_max
+            worst = max(worst, err / max(scale, floor))
+        log(f"{label} f32: loss {l_g:.7f} vs {l_w:.7f}, worst gradient gap "
+            f"{worst:.3e} (limit {STEP_TOL_F32})")
+        if worst > STEP_TOL_F32:
+            raise AssertionError(f"{label}: gradient gap {worst}")
+        return
+    l_o, g_o = own
+    if abs(l_g - l_o) > STEP_LOSS_TOL["bfloat16"] * abs(l_o):
+        raise AssertionError(f"{label}: loss {l_g} vs {l_o}")
+    g_norm = max(v.norm().item() for v in g_w.values())
+    worst = 0.0
+    for k in g_w:
+        dist = (g_g[k] - g_w[k]).norm().item()
+        ref = (g_o[k] - g_w[k]).norm().item()
+        if _zero_grad(k):
+            if dist > ZERO_GRAD_TOL * g_norm:
+                raise AssertionError(f"{label} {k}: |g| {dist}")
+            continue
+        if dist > STEP_F32_RATIO * ref + 1e-4 * g_w[k].norm().item():
+            raise AssertionError(f"{label} {k}: {dist} from the f32 step > "
+                                 f"{STEP_F32_RATIO} x {ref}")
+        worst = max(worst, dist / max(ref, 1e-30))
+    log(f"{label} bf16: loss {l_g:.7f} vs {l_o:.7f}, largest ratio to the "
+        f"reference bf16 step's distance from f32 {worst:.3f} (limit "
+        f"{STEP_F32_RATIO})")
+
+
+def partitioned_checks(case, smi):
+    """The partitioned forward and train step at world 1 (NCCL) on the
+    box, against ``FlowGNN``'s forward and the unfused ``train_step``; on
+    more than one card the forward and step on ``torch.cuda.device_count()``
+    spawned NCCL ranks against one rank's, on the sliced-band grid, whose
+    shards are whole band tiles, so that the kernels meet the exchange."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.graph.band import LAYER_COMPONENTS
+    from gnn_bfs_rans_tpu_torch.infer import load_graph
+    from gnn_bfs_rans_tpu_torch.models.flow_gnn import FlowGNN
+    from gnn_bfs_rans_tpu_torch.models.partitioned import PartitionedFlowGNN
+    from gnn_bfs_rans_tpu_torch.parallel.distributed import launch, world_size
+    from gnn_bfs_rans_tpu_torch.parallel.partition import (
+        build_partition, gather_partitioned, make_partitioned_forward,
+        make_partitioned_train_step, shard_partition,
+        shard_partitioned_targets)
+    from gnn_bfs_rans_tpu_torch.parallel.ranks import run_jobs
+    from gnn_bfs_rans_tpu_torch.train.loop import (TrainConfig,
+                                                   make_optimizer, train_step)
+    from gnn_bfs_rans_tpu_torch.utils.synthetic import build_grid_graph
+
+    dev = torch.device("cuda")
+    graph = load_graph(case, "GAT")
+    gd = graph.to(dev)
+    world = world_size()
+    pg = build_partition(graph, world, SHARD_HALO)
+    shard = shard_partition(pg, 0, dev)
+    targets = torch.randn(2, graph.n_pad, 7,
+                          generator=torch.Generator().manual_seed(9))
+    tcfg = TrainConfig(lr=1e-3)
+    fwd = {}
+    for dt in ("float32", "bfloat16"):
+        model = FlowGNN(_flagship(dt), torch.Generator().manual_seed(1)).to(dev)
+        model.eval()
+        with torch.no_grad():
+            whole = model(gd)[:graph.n_nodes].float()
+        part = gather_partitioned(make_partitioned_forward(model, SHARD_HALO)(
+            shard), shard)
+        fwd[dt] = (torch.from_numpy(part).to(dev), whole)
+    (p32, w32), (p16, w16) = fwd["float32"], fwd["bfloat16"]
+    err, scale = _rel_err(p32, w32)
+    own_dist = (w16 - w32).abs().max().item()
+    dist = (p16 - w32).abs().max().item()
+    log(f"partitioned forward GAT 4x256 at world {world} (NCCL): f32 vs "
+        f"FlowGNN {err / scale:.3e} (tol 1e-5); bf16 from the f32 forward "
+        f"{dist:.3e} vs FlowGNN bf16's {own_dist:.3e} (limit "
+        f"{SERVE_F32_RATIO}x); {smi}")
+    if not (err <= 1e-5 * scale and dist <= SERVE_F32_RATIO * own_dist):
+        raise AssertionError("partitioned forward disagrees with FlowGNN")
+
+    # both steps clip their gradients alike: the gradients compared are
+    # those the optimizer applied
+    def flow_step(dt):
+        model = FlowGNN(_flagship(dt, fuse_epilogue=False, fuse_train=False),
+                        torch.Generator().manual_seed(1)).to(dev)
+        loss = train_step(model, make_optimizer(model, tcfg), gd,
+                          targets.to(dev), 1e-3, tcfg)
+        return loss.item(), _grads(model)
+
+    def part_step(dt, pg=pg, shard=shard, targets=targets, cfg=tcfg):
+        model = PartitionedFlowGNN(_flagship(dt),
+                                   torch.Generator().manual_seed(1)).to(dev)
+        step = make_partitioned_train_step(model, make_optimizer(model, cfg),
+                                           cfg, SHARD_HALO)
+        loss = step(shard, shard_partitioned_targets(targets.numpy(), pg, 0,
+                                                     dev), 1e-3)
+        return loss.item(), _grads(model)
+
+    f32, f16 = flow_step("float32"), flow_step("bfloat16")
+    _step_gap(f"partitioned step world {world}", part_step("float32"), f32)
+    _step_gap(f"partitioned step world {world}", part_step("bfloat16"), f32,
+              own=f16, bf16=True)
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        log(f"partitioned NCCL exchange: 1 card, world 1 (a multi-rank "
+            f"exchange needs one card a rank); {smi}")
+        return world
+    # the grid's 48 band tiles split into whole tiles at 2, 3, 4, 6 or 8
+    # ranks (the box's shards would not, and would take the dense route);
+    # a clip that never fires, so that the gradients compared are the
+    # SUM-reduced ones and a scale error shows
+    grid = build_grid_graph(*SHARD_GRID, with_band=True,
+                            band_components=LAYER_COMPONENTS["GAT"])
+    g_targets = torch.randn(2, grid.n_pad, 7,
+                            generator=torch.Generator().manual_seed(10))
+    no_clip = TrainConfig(lr=1e-3, grad_clip=1e9)
+    g_pg = build_partition(grid, 1, SHARD_HALO)
+    g_shard = shard_partition(g_pg, 0, dev)
+    model = FlowGNN(_flagship("float32"),
+                    torch.Generator().manual_seed(1)).to(dev)
+    one_fwd = torch.from_numpy(gather_partitioned(
+        make_partitioned_forward(model, SHARD_HALO)(g_shard), g_shard))
+    one_step = part_step("float32", g_pg, g_shard, g_targets, no_clip)
+    sd = {k: v.cpu().numpy() for k, v in model.state_dict().items()}
+    p = dict(config=_flagship("float32").to_dict(), state=sd, graph=grid,
+             halo=SHARD_HALO, targets=g_targets.numpy(),
+             train=no_clip.to_dict(), lr=1e-3)
+    jobs = [("partitioned_forward", p), ("partitioned_step", p)]
+    t = time.time()
+    many = launch(run_jobs, n_cards, (jobs, "cuda"), device="cuda")[0]
+    if not many[0]["has_band"]:
+        raise AssertionError(f"the {n_cards}-rank partition of the grid has "
+                             "no band slices")
+    err, scale = _rel_err(torch.from_numpy(many[0]["out"]), one_fwd)
+    log(f"partitioned forward and step on {n_cards} NCCL ranks "
+        f"({SHARD_GRID[0]}x{SHARD_GRID[1]} grid, sliced bands) in "
+        f"{time.time() - t:.1f} s: forward vs one rank {err / scale:.3e} "
+        f"(tol 1e-5); {smi}")
+    if not err <= 1e-5 * scale:
+        raise AssertionError(f"{n_cards}-rank partitioned forward: {err}")
+    _step_gap(f"partitioned step on {n_cards} NCCL ranks vs one rank",
+              (many[1]["loss"], {k: torch.from_numpy(v).to(dev)
+                                 for k, v in many[1]["grads"].items()}),
+              one_step)
+    return n_cards
+
+
+def _times(step, label, smi, steps=10):
+    """Host time (quartiles, synchronized), device time and idle share of
+    ``step()`` (eager)."""
+    q = host_time_ms(step, reps=steps, warmup=2)
+    dev_us, idle = profile_forward(step, label, steps=3, with_idle=True,
+                                   top=4)
+    log(f"{label}: host ms {q[1]:.4f} ({q[0]:.4f}, {q[2]:.4f}), device "
+        f"{(dev_us or 0) / 1e3:.4f} ms, idle {idle}; {smi}")
+
+
+def dp_multicase_checks(case, train_case, smi):
+    """The DP step (4 snapshots) against train_step on the same batch; the
+    multi-case step on 4 perturbed box cases and its forward's case order;
+    train_multicase_streamed for 2 epochs with Prefetcher(depth=2);
+    ``bench --mode dp --devices 1``."""
+    import numpy as np
+    import torch
+    from gnn_bfs_rans_tpu_torch.cli.main import main as cli_main
+    from gnn_bfs_rans_tpu_torch.foam import FoamCase
+    from gnn_bfs_rans_tpu_torch.graph.band import LAYER_COMPONENTS
+    from gnn_bfs_rans_tpu_torch.graph.build import attach_band
+    from gnn_bfs_rans_tpu_torch.models.flow_gnn import FlowGNN
+    from gnn_bfs_rans_tpu_torch.parallel import (
+        make_dp_train_step, make_multicase_forward, make_multicase_train_step,
+        make_perturbed_cases, shard_cases, shard_targets)
+    from gnn_bfs_rans_tpu_torch.parallel.generalization import (
+        analytic_targets, train_multicase_streamed)
+    from gnn_bfs_rans_tpu_torch.train.data import load_dataset
+    from gnn_bfs_rans_tpu_torch.train.loop import (TrainConfig,
+                                                   make_optimizer, train_step)
+    from gnn_bfs_rans_tpu_torch.train.streaming import perturbed_case_source
+
+    dev = torch.device("cuda")
+    ds = load_dataset(train_case, TRAIN_TIMES, with_band=True,
+                      band_components=LAYER_COMPONENTS["GAT"])
+    gd = ds.graph.to(dev)
+    batch = ds.targets[np.arange(4) % ds.n_snapshots]
+    tcfg = TrainConfig(lr=1e-3)
+    runs = []
+    for dp in (False, True):
+        model = FlowGNN(_flagship(), torch.Generator().manual_seed(1)).to(dev)
+        opt = make_optimizer(model, tcfg)
+        if dp:
+            tg, w = shard_targets(batch, device=dev)
+            step = make_dp_train_step(model, opt, tcfg)
+            loss = step(gd, tg, w, 1e-3)
+            run = lambda: step(gd, tg, w, 1e-3)  # noqa: E731
+        else:
+            tg = torch.from_numpy(batch).to(dev)
+            loss = train_step(model, opt, gd, tg, 1e-3, tcfg)
+        runs.append((loss.item(), _grads(model)))
+    (l_s, g_s), (l_d, g_d) = runs
+    g_max = max(v.abs().max().item() for v in g_s.values())
+    gap = max(_rel_err(g_d[k], g_s[k])[0] / max(g_s[k].abs().max().item(),
+                                                g_max if _zero_grad(k)
+                                                else 1e-3 * g_max)
+              for k in g_s)
+    log(f"DP step (world 1, 4 snapshots, GAT 4x256 bf16) vs train_step: "
+        f"loss {l_d:.7f} vs {l_s:.7f}, worst gradient gap {gap:.3e}")
+    if abs(l_d - l_s) > STEP_LOSS_TOL["bfloat16"] * abs(l_s) or gap > 1e-2:
+        raise AssertionError(f"DP step: loss {l_d} vs {l_s}, gap {gap}")
+    _times(run, "DP step GAT 4x256 bf16, 4 snapshots, world 1", smi)
+
+    mesh = FoamCase(case).load_mesh()
+    base, cases = make_perturbed_cases(mesh, 4, amplitude=0.05, seed=0)
+    base = attach_band(base, LAYER_COMPONENTS["GAT"])
+    bd = base.to(dev)
+    tg = np.stack([analytic_targets(c, cases.node_feats[c])
+                   for c in range(4)])
+    cases = dataclasses.replace(cases, targets=tg)
+    model = FlowGNN(_flagship(), torch.Generator().manual_seed(1)).to(dev)
+    local = shard_cases(cases, device=dev)
+    step = make_multicase_train_step(model, make_optimizer(model, tcfg), tcfg)
+    losses = [step(bd, local, 1e-3).item() for _ in range(3)]
+    _times(lambda: step(bd, local, 1e-3),
+           "multi-case step GAT 4x256 bf16, 4 cases, world 1", smi)
+    out = make_multicase_forward(model)(bd, local)
+    model.eval()
+    with torch.no_grad():
+        each = torch.stack([model(dataclasses.replace(
+            bd, node_feat=local.node_feats[c], edge_feat=local.edge_feats[c]))
+            for c in range(4)])
+    order_err, _ = _rel_err(out, each)
+    log(f"multi-case: losses {losses}; forward vs per-case FlowGNN "
+        f"forwards, case order: max gap {order_err:.3e}")
+    if order_err != 0 or not np.isfinite(losses).all():
+        raise AssertionError(f"multi-case forward order gap {order_err}")
+
+    def source():
+        return perturbed_case_source(base, STREAM_CASES, chunk=1,
+                                     amplitude=0.05, seed=0,
+                                     targets_for=analytic_targets)
+
+    timings = []
+    model = FlowGNN(_flagship(), torch.Generator().manual_seed(1)).to(dev)
+    _, hist = train_multicase_streamed(model, tcfg, base, source, epochs=2,
+                                       lr=1e-3, prefetch_depth=2,
+                                       timings=timings)
+    for h, t in zip(hist, timings):
+        log(f"streamed epoch {h['epoch']}: loss {h['loss']:.6f}, "
+            f"{h['seconds'] / t['chunks'] * 1e3:.3f} ms a chunk "
+            f"({t['chunks']} chunks of 1 case); step {t['step_s'] * 1e3:.3f} "
+            f"ms in all, consumer's wait on the prefetch queue "
+            f"{t['prefetch_wait_s'] * 1e3:.3f} ms; {smi}")
+    if not np.isfinite([h["loss"] for h in hist]).all():
+        raise AssertionError(f"streamed training: {hist}")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["bench", "--mode", "dp", "--devices", "1",
+                       "--case_path", str(train_case), "--compute_dtype",
+                       "bfloat16", "--device", "cuda"])
+    line = buf.getvalue().strip().splitlines()[-1]
+    res = json.loads(line)
+    log(f"bench --mode dp --devices 1 ({res['note']}): {line}; {smi}")
+    if rc != 0 or res["value"] != 1.0 or res["step_s_1dev"] <= 0:
+        raise AssertionError(f"bench --mode dp: {line}")
+
+
+def shard_benchmark(smi):
+    """One 125,000-cell shard (+ 256 halo rows) of a 1M-cell grid in 8
+    shards, GAT 4×256 bf16: its chained marginal forward, edge messages/s,
+    and the eager forward's idle share."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.models.flow_gnn import FlowGNN
+    from gnn_bfs_rans_tpu_torch.parallel.partition import (
+        build_partition, make_partitioned_forward, shard_partition)
+    from gnn_bfs_rans_tpu_torch.utils.synthetic import (
+        build_grid_graph, run_partition_shard_benchmark)
+
+    t = time.time()
+    res = run_partition_shard_benchmark(global_nodes=1_000_000, n_shards=8,
+                                        hidden_dim=256)
+    log(f"run_partition_shard_benchmark in {time.time() - t:.1f} s: "
+        f"{json.dumps(res)}")
+    # the eager forward's device time and idle share on the same shard
+    grid = build_grid_graph(96, res["shard_nodes"] // 96, with_band=True,
+                            band_components=("bias_self",))
+    shard = shard_partition(build_partition(grid, 1, SHARD_HALO), 0, "cuda")
+    model = FlowGNN(_flagship(), torch.Generator().manual_seed(0)).cuda()
+    fwd = make_partitioned_forward(model, SHARD_HALO)
+    dev_us, idle = profile_forward(lambda: fwd(shard), "shard forward",
+                                   steps=5, with_idle=True, top=6)
+    log(f"1M-cell shard (125,000 + 256 rows) GAT 4x256 bf16: span "
+        f"{res['step_median_s'] * 1e3:.4f} ms (chained marginal), "
+        f"{res['value']:.4e} edge msgs/s; eager device "
+        f"{(dev_us or 0) / 1e3:.4f} ms, idle {idle}; {smi}")
+
+
+def remat_checks(case, train_case, smi):
+    """One step with and without remat from the same state and generator
+    (GAT 4×256 bf16 unfused; Transformer 4×256 bf16; dropout 0.1):
+    parameters bit for bit; peak memory and step time on the box and on a
+    grid of 250,080 cells; and the remat step replayed as the Trainer's
+    CUDA graph against eager steps (phase 17's check), bit for bit."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.graph.band import LAYER_COMPONENTS
+    from gnn_bfs_rans_tpu_torch.infer import load_graph
+    from gnn_bfs_rans_tpu_torch.models.flow_gnn import FlowGNN
+    from gnn_bfs_rans_tpu_torch.train.data import load_dataset
+    from gnn_bfs_rans_tpu_torch.train.loop import (TrainConfig,
+                                                   make_optimizer, train_step)
+    from gnn_bfs_rans_tpu_torch.utils.synthetic import build_grid_graph
+
+    for layer, kw in (("GAT", dict(fuse_train=False)), ("Transformer", {})):
+        ds = load_dataset(train_case, list(TRAIN_TIMES), with_band=True,
+                          band_components=LAYER_COMPONENTS[layer])
+        tr = _graph_trainer(train_case.parent, ds, f"remat-{layer}", DROPOUT,
+                            layer_type=layer, num_layers=LAYERS,
+                            compute_dtype="bfloat16", remat=True, **kw)
+        replays_vs_eager(tr, f"{layer.lower()}4x256-bf16-remat")
+
+    dev = torch.device("cuda")
+    tcfg = TrainConfig(lr=1e-3)
+    t = time.time()
+    big = build_grid_graph(*REMAT_GRID, with_band=True,
+                           band_components=("bias_self", "bias_noself",
+                                            "geo")).to(dev)
+    log(f"remat grid {REMAT_GRID[0]}x{REMAT_GRID[1]} ({big.n_nodes} cells) "
+        f"built in {time.time() - t:.1f} s")
+    graphs = {"box": None, "grid": big}
+    for layer, kw in (("GAT", dict(fuse_train=False)), ("Transformer", {})):
+        graphs["box"] = load_graph(case, layer).to(dev)
+        for where, g in graphs.items():
+            targets = torch.randn(1, g.n_pad, 7, device=dev,
+                                  generator=torch.Generator(dev).manual_seed(3))
+            out = {}
+            for remat in (False, True):
+                cfg = _flagship(layer_type=layer, dropout=DROPOUT,
+                                remat=remat, **kw)
+                model = FlowGNN(cfg, torch.Generator().manual_seed(1)).to(dev)
+                opt = make_optimizer(model, tcfg)
+                gen = torch.Generator(device=dev).manual_seed(5)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base_mem = torch.cuda.memory_allocated()
+                loss = train_step(model, opt, g, targets, 1e-3, tcfg, gen)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base_mem
+                state = {k: v.clone() for k, v in model.state_dict().items()}
+                gen_state = gen.get_state()
+                q = host_time_ms(lambda: train_step(model, opt, g, targets,
+                                                    1e-3, tcfg, gen),
+                                 reps=5, warmup=1)
+                out[remat] = (loss.item(), state, gen_state, peak, q[1])
+            (l0, s0, r0, m0, t0), (l1, s1, r1, m1, t1) = out[False], out[True]
+            gap = max((s0[k].float() - s1[k].float()).abs().max().item()
+                      for k in s0)
+            same = l0 == l1 and gap == 0 and torch.equal(r0, r1)
+            log(f"remat {layer} 4x256 bf16 dropout {DROPOUT} on the {where} "
+                f"({g.n_nodes} cells): bit-identical {same} (loss {l1:.7f} vs "
+                f"{l0:.7f}, max parameter gap {gap:.3e}, generator state "
+                f"equal {torch.equal(r0, r1)}); peak memory above the "
+                f"model {m1 / 2**20:.1f} MiB vs {m0 / 2**20:.1f} MiB without "
+                f"({m1 / max(m0, 1):.3f}x); step host ms {t1:.4f} vs "
+                f"{t0:.4f} ({t1 / t0:.3f}x); {smi}")
+            if not same:
+                raise AssertionError(f"remat {layer} {where}: loss {l1} vs "
+                                     f"{l0}, parameter gap {gap}")
+
+
+def scaleout_phase(case, train_case, gen, smi):
+    """Phase 20: the sliced-band kernels, the partitioned forward and step
+    (NCCL), the DP, multi-case and streamed steps, ``bench --mode dp``,
+    the 1M-cell shard, remat."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.parallel.distributed import init_distributed
+
+    t0 = time.time()
+    sliced_band_checks(gen)
+    log(f"phase 20 sliced bands: {time.time() - t0:.1f} s")
+    info = init_distributed(world_size=1, device="cuda")
+    log(f"phase 20 group: {info} (backend "
+        f"{torch.distributed.get_backend()})")
+    try:
+        t = time.time()
+        world = partitioned_checks(case, smi)
+        log(f"phase 20 partitioned (world {world}): {time.time() - t:.1f} s")
+        t = time.time()
+        dp_multicase_checks(case, train_case, smi)
+        log(f"phase 20 DP / multi-case / streamed / bench dp: "
+            f"{time.time() - t:.1f} s")
+    finally:
+        torch.distributed.destroy_process_group()
+    t = time.time()
+    shard_benchmark(smi)
+    log(f"phase 20 shard benchmark: {time.time() - t:.1f} s")
+    t = time.time()
+    remat_checks(case, train_case, smi)
+    log(f"phase 20 remat: {time.time() - t:.1f} s; phase 20 in all "
+        f"{time.time() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3271,6 +3870,19 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     log(f"card: {smi}")
+
+    if sys.argv[1:] == ["--phase", "20"]:
+        # phase 20 alone (a quicker call while working on it): no kernel
+        # table and no result line
+        with tempfile.TemporaryDirectory() as tmp:
+            case, train_case = Path(tmp) / "case", Path(tmp) / "train_case"
+            generate_box_case(case, 400, 30, 1)
+            generate_box_case(train_case, 400, 30, 1, time_dirs=TRAIN_TIMES,
+                              time_field_fn=drifting_box_fields)
+            scaleout_phase(case, train_case, torch.Generator().manual_seed(0),
+                           smi)
+        log("phase 20 alone: passed")
+        return 0
 
     gen = torch.Generator().manual_seed(0)
     rows = {}
@@ -3429,6 +4041,12 @@ def main() -> int:
         t1 = time.time()
         reference_phase(tmp, case, info)
         log(f"phase 19 (reference checkpoints): {time.time() - t1:.1f} s")
+
+        # scale-out: sliced bands, the partitioned forward and step (NCCL),
+        # DP, multi-case and streamed steps, bench --mode dp, remat
+        t1 = time.time()
+        scaleout_phase(case, train_case, gen, smi)
+        log(f"phase 20 (scale-out): {time.time() - t1:.1f} s")
 
     gat = {k: v for k, v in rows[("gat_train", 400, "bfloat16")].items()}
     kernels = [

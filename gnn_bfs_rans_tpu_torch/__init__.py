@@ -12,8 +12,11 @@ Transformer convolutions on the ``pallas`` (banded kernels), ``dense`` and
 benchmarked (``bench``, ``python -m gnn_bfs_rans_tpu_torch.bench``: the
 harness of ``utils/``); checkpoints in the reference's own ``.pt`` format
 served (``Predictor.from_torch_checkpoint``) and written
-(``export-torch``); the plotting and data-check subcommands; every TPU
-kernel function of the JAX package has its counterpart.
+(``export-torch``); the plotting and data-check subcommands; scale-out on
+``torch.distributed`` (``parallel/``: data-parallel, multi-case and
+node-partitioned training and serving, one rank a card; the streamed case
+loader; ``train-multicase``, ``bench --mode dp``); every TPU kernel
+function of the JAX package has its counterpart.
 """
 
 __version__ = "0.1.0"

@@ -17,15 +17,23 @@ CUDA graph of the epoch replayed once an epoch, and synchronizes the host
 once a block (the JAX CLI's ``lax.scan`` blocks).  ``bench`` prints one
 JSON line from ``utils/bench.py::run_benchmark`` (``--synthetic N``:
 ``utils/synthetic.py::run_scale_benchmark`` on a ~N-cell grid), its
-``--backend`` defaulting to ``pallas`` as ``train``'s does; ``--mode dp``
-waits for the data-parallel module (ROADMAP Queue 1 item 4).
+``--backend`` defaulting to ``pallas`` as ``train``'s does; ``--mode dp
+--devices N`` the data-parallel scaling efficiency at 1 and N ranks
+(``utils/dp_bench.py``: one rank a card over NCCL; gloo ranks with
+``--device cpu``).  ``train-multicase`` (the JAX subcommand's flags and
+defaults) trains over a streamed family of cases sharing one mesh topology
+on ``--devices`` ranks (default: every visible card; 1 with ``--device
+cpu``): real OpenFOAM cases (``--case_paths``) or a perturbed-geometry
+family of ``--case_path`` with analytic targets and the
+geometry-generalization report, writing ``normalizer.json``,
+``history.json`` and ``generalization.json`` as the JAX CLI does.
 ``export-torch`` writes a checkpoint in the reference's ``.pt`` format
 (``compat/torch_port.py``).  ``visualize`` and ``plot-lines`` serve the
 checkpoint on the case (``infer.predict_case``) and plot it against a
 reference time; they and ``plot-training`` need matplotlib.
 ``check-data`` and ``check-coordinates`` run on the host alone.  Not
 ported: the JAX trainer's ``--no_aot`` (its compile cache), and
-``train-multicase`` / ``train-multitopo`` (later slices).
+``train-multitopo`` (a later slice).
 """
 
 from __future__ import annotations
@@ -266,12 +274,61 @@ def cmd_check_coordinates(args) -> int:
     return 0
 
 
+def cmd_train_multicase(args) -> int:
+    """Streamed multi-case training on ``--devices`` ranks; rank 0's
+    results are written here (the JAX ``cmd_train_multicase``)."""
+    import torch
+
+    from ..device import resolve_device
+    from ..parallel.distributed import launch
+    from ..parallel.ranks import train_multicase_rank
+
+    dev = resolve_device(args.device)
+    n_dev = args.devices or (torch.cuda.device_count()
+                             if dev.type == "cuda" else 1)
+    print(f"Data ranks: {n_dev} × {dev.type}")
+    out_dir = Path(args.output_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rank_args = {k: v for k, v in vars(args).items() if k != "func"}
+    res = launch(train_multicase_rank, n_dev, (rank_args,), device=dev.type,
+                 join_timeout_s=None)[0]
+    if args.case_paths:
+        res["normalizer"].save(out_dir / "normalizer.json")
+        history = res["history"]
+        for h in history:
+            print(f"epoch {h['epoch']}: loss={h['loss']:.6f} "
+                  f"({h['seconds']:.1f}s)")
+        (out_dir / "history.json").write_text(json.dumps(history, indent=2))
+        print("Multi-case training completed!")
+        return 0
+    print(f"final train loss: {res['history'][-1]['loss']:.6f}")
+    print("per-field errors (train-family / held-out geometry / ratio):")
+    for f in ("U", "p", "k", "epsilon", "nut"):
+        tr, te = res["train_errors"][f], res["heldout_errors"][f]
+        print(f"  {f:8s} {tr:.5f} / {te:.5f} / "
+              f"{res['generalization_ratio'][f]:.2f}×")
+    (out_dir / "generalization.json").write_text(json.dumps(res, indent=2))
+    print(f"Saved report to {out_dir / 'generalization.json'}")
+    return 0
+
+
 def cmd_bench(args) -> int:
     if args.mode == "dp":
-        raise NotImplementedError(
-            "bench --mode dp needs the data-parallel module, not ported yet "
-            "(ROADMAP.md Queue 1 item 4: parallel/data_parallel.py and "
-            "utils/dp_bench.py)")
+        from ..utils.dp_bench import run_dp_scaling_benchmark
+
+        result = run_dp_scaling_benchmark(
+            n_devices=args.devices,
+            case_path=args.case_path,
+            layer_type=args.layer_type,
+            num_layers=args.num_layers,
+            hidden_dim=args.hidden_dim,
+            backend=args.backend,
+            compute_dtype=args.compute_dtype,
+            steps=args.steps,
+            device=args.device,
+        )
+        print(json.dumps(result))
+        return 0
     if args.synthetic:
         from ..utils.synthetic import run_scale_benchmark
 
@@ -445,6 +502,40 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_dir", type=str, default="visualizations")
     p.set_defaults(func=cmd_check_coordinates)
 
+    p = sub.add_parser(
+        "train-multicase",
+        help="Streamed multi-case DP training / geometry generalization",
+    )
+    p.add_argument("--case_path", type=str, default="OpenFOAM-data",
+                   help="Path to OpenFOAM case directory")
+    p.add_argument("--case_paths", type=str, nargs="*", default=None,
+                   help="Real OpenFOAM case dirs sharing one mesh topology; "
+                        "omit for the synthetic perturbed-geometry family")
+    p.add_argument("--time_dir", type=str, default="282")
+    p.add_argument("--output_dir", type=str, default="multicase_out")
+    p.add_argument("--devices", type=int, default=None,
+                   help="Ranks (default: every visible card; 1 with "
+                        "--device cpu)")
+    p.add_argument("--n_cases", type=int, default=16)
+    p.add_argument("--n_test_cases", type=int, default=4)
+    p.add_argument("--amplitude", type=float, default=0.05)
+    p.add_argument("--epochs", type=int, default=30)
+    p.add_argument("--hidden_dim", type=int, default=64)
+    p.add_argument("--num_layers", type=int, default=3)
+    p.add_argument("--layer_type", type=str, default="GCN",
+                   choices=["GCN", "GAT", "GIN", "Transformer"])
+    p.add_argument("--dropout", type=float, default=0.0)
+    p.add_argument("--norm_type", type=str, default="layer",
+                   choices=["batch", "layer", "none"])
+    p.add_argument("--backend", type=str, default="dense",
+                   choices=["segment", "dense", "pallas"])
+    p.add_argument("--lr", type=float, default=3e-3)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--log_every", type=int, default=0)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (one rank a card, NCCL) or cpu (gloo ranks)")
+    p.set_defaults(func=cmd_train_multicase)
+
     p = sub.add_parser("bench", help="Performance benchmark")
     p.add_argument("--case_path", type=str, default="OpenFOAM-data",
                    help="Path to OpenFOAM case directory")
@@ -460,7 +551,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mode", type=str, default="forward",
                    choices=["forward", "train", "dp"])
     p.add_argument("--devices", type=int, default=None,
-                   help="mode=dp: data-mesh size (dp is not ported yet)")
+                   help="mode=dp: ranks (default: every visible card; 1 "
+                        "with --device cpu)")
     p.add_argument("--synthetic", type=int, default=0,
                    help="Benchmark a synthetic quad-grid of ~N cells instead")
     p.add_argument("--trace", action="store_true",

@@ -66,6 +66,19 @@ class Band:
         f = self.adj if self.adj is not None else self.gcn
         return f.shape[1] * self.tile
 
+    @property
+    def reach(self) -> int:
+        """The farthest sender row a window covers on either side (rows):
+        the halo a node-partitioned shard needs (``parallel/partition``)."""
+        r = 0
+        for f in (self.adj, self.gcn):
+            if f is not None:
+                r = max(r, (f.shape[1] // 2) * self.tile)
+        for f in (self.bias_self, self.bias_noself, self.edge, self.geo):
+            if f is not None:
+                r = max(r, (f.shape[-1] - self.tile) // 2)
+        return r
+
     def transposed(self, name: str) -> torch.Tensor:
         """The ``name`` plane ('gcn' or 'adj') of Aᵀ for the SpMM's
         backward, or the attention mask 'bias_self' as [n_tiles, Wcols, T]

@@ -106,24 +106,33 @@ def build_graph(
         graph = _dc.replace(graph, perm=torch.from_numpy(perm_pad))
 
     if with_band:
-        from .band import ALL_COMPONENTS, build_band
-
-        comps = band_components or ALL_COMPONENTS
-        band = build_band(
-            graph.senders.numpy()[: graph.n_edges],
-            graph.receivers.numpy()[: graph.n_edges],
-            graph.n_pad,
-            graph.node_mask.numpy(),
-            graph.in_degree.numpy(),
-            tile=node_align,
-            components=comps,
-            edge_feat=(graph.edge_feat.numpy()[: graph.n_edges]
-                       if ("edge" in comps or "geo" in comps) else None),
-            node_pos=graph.node_feat.numpy(),
-        )
-        if band is not None:
-            graph = _dc.replace(graph, band=band)
+        graph = attach_band(graph, band_components, tile=node_align)
     return graph
+
+
+def attach_band(graph: Graph, components: tuple[str, ...] | None = None,
+                tile: int = 128) -> Graph:
+    """``graph`` with the band planes ``components`` (default: all) built
+    from its edges, when it is band-limited (``graph/band.py``)."""
+    import dataclasses as _dc
+
+    from .band import ALL_COMPONENTS, build_band
+
+    comps = components or ALL_COMPONENTS
+    ne = graph.n_edges
+    band = build_band(
+        graph.senders.numpy()[:ne],
+        graph.receivers.numpy()[:ne],
+        graph.n_pad,
+        graph.node_mask.numpy(),
+        graph.in_degree.numpy(),
+        tile=tile,
+        components=comps,
+        edge_feat=(graph.edge_feat.numpy()[:ne]
+                   if ("edge" in comps or "geo" in comps) else None),
+        node_pos=graph.node_feat.numpy(),
+    )
+    return graph if band is None else _dc.replace(graph, band=band)
 
 
 def validate_graph(graph: Graph, senders: np.ndarray, receivers: np.ndarray) -> None:

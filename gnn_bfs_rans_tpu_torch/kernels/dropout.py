@@ -96,10 +96,40 @@ def draw_seed(generator: torch.Generator, device) -> torch.Tensor:
                          device=device, dtype=torch.int32)
 
 
-def bernoulli_keep(shape, rate: float, generator: torch.Generator,
+class MaskTape:
+    """A generator stand-in that replays its masks: the keep masks drawn
+    through :func:`bernoulli_keep` are drawn from ``generator`` once, kept,
+    and handed out again, in order, after :meth:`rewind`.  A conv
+    recomputed in the backward (``ModelConfig.remat``) so sees the masks
+    of its forward, and the generator advances once, as without remat;
+    nothing reads or sets the generator's state, so the step still
+    captures into a CUDA graph."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self.masks: list[torch.Tensor] = []
+        self.pos = 0
+
+    def rewind(self) -> None:
+        self.pos = 0
+
+    def keep(self, shape, rate: float, device) -> torch.Tensor:
+        if self.pos == len(self.masks):
+            self.masks.append(torch.rand(shape, generator=self.generator,
+                                         device=device) < 1.0 - rate)
+        mask = self.masks[self.pos]
+        self.pos += 1
+        return mask
+
+
+def bernoulli_keep(shape, rate: float,
+                   generator: torch.Generator | MaskTape,
                    device) -> torch.Tensor:
     """Keep mask of the dense and segment backends' attention dropout: each
-    element kept with probability 1 − rate, drawn from ``generator``.  The
-    JAX package draws these from ``jax.random.bernoulli``, which torch
-    cannot reproduce: masks match in distribution, not bit for bit."""
+    element kept with probability 1 − rate, drawn from ``generator`` (or
+    replayed by a :class:`MaskTape`).  The JAX package draws these from
+    ``jax.random.bernoulli``, which torch cannot reproduce: masks match in
+    distribution, not bit for bit."""
+    if isinstance(generator, MaskTape):
+        return generator.keep(shape, rate, device)
     return torch.rand(shape, generator=generator, device=device) < 1.0 - rate

@@ -376,7 +376,8 @@ class TransformerConv(nn.Module):
     def forward(self, x: torch.Tensor, graph: Graph, train: bool = False,
                 seed: torch.Tensor | None = None,
                 fused_ok: bool = True,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                use_edge: bool = True) -> torch.Tensor:
         """``train``: the training forms, the geo head-mean path through
         ``banded_transformer_geo_mean_projgrad`` (the JAX module's branch,
         which the port takes in training only).  Attention dropout at
@@ -385,29 +386,32 @@ class TransformerConv(nn.Module):
         ``generator``.  ``fused_ok``: the forward is deterministic (the JAX
         module's ``deterministic``), so ``fuse_eval`` may take row 11 in
         eval; the ``exact_bn`` forward passes False, as the JAX package runs
-        it in train mode."""
+        it in train mode.  ``use_edge`` False: the conv as built without
+        ``edge_dim`` (the partitioned model's ``edge_ok`` rule)."""
+        edge_dim = self.edge_dim if use_edge else None
         mask = _plane(graph, "bias_noself", self.backend)
         band = graph.band
-        if mask is not None and self.edge_dim is not None and (
+        if mask is not None and edge_dim is not None and (
                 band.geo is None and band.edge is None):
             mask = None          # edge conditioning needs geo or edge planes
         if mask is None:
-            out = self._unbanded(x, graph, generator)
+            out = self._unbanded(x, graph, generator, edge_dim)
         else:
-            out = self._banded(x, mask, band, train, seed, fused_ok)
+            out = self._banded(x, mask, band, train, seed, fused_ok,
+                               edge_dim)
         return out + dense(self.lin_skip, x, self.dtype)
 
-    def _banded(self, x, mask, band, train, seed, fused_ok):
+    def _banded(self, x, mask, band, train, seed, fused_ok, edge_dim):
         H, C = self.heads, self.features
         dt = x.dtype
         rate = self.dropout if seed is not None else 0.0
-        if self.edge_dim is None:
+        if edge_dim is None:
             q, k, v = (dense(m, x) for m in
                        (self.lin_query, self.lin_key, self.lin_value))
             return banded_transformer_fwd(mask, q, k, v, H,
                                           mean_heads=not self.concat,
                                           dropout_rate=rate, seed=seed)
-        d_e = self.edge_dim
+        d_e = edge_dim
         # W_e = lin_edge(I) in the compute dtype, [D_e, H, C]
         w_e = self.lin_edge.weight.t().to(dt).view(d_e, H, C)
         # block-diagonal [H·C, H·D_e]: qw[n, h·D + d] = q_h · w_e[d, h]
@@ -445,7 +449,7 @@ class TransformerConv(nn.Module):
         edge_term = (s @ w_flat.float()) * (1.0 / H)
         return out + edge_term.to(out.dtype)
 
-    def _unbanded(self, x, graph, generator):
+    def _unbanded(self, x, graph, generator, edge_dim):
         """The dense and segment branches: k and v conditioned on the
         per-edge ``edge_kv = lin_edge(edge_feat)``, logits scaled by 1/√C in
         x's dtype, the softmax in f32."""
@@ -457,7 +461,7 @@ class TransformerConv(nn.Module):
         # a CUDA graph
         scale = 1.0 / torch.sqrt(torch.tensor(float(C), dtype=x.dtype))
         edge_kv = None
-        if self.edge_dim is not None:
+        if edge_dim is not None:
             edge_kv = dense(self.lin_edge, graph.edge_feat,
                             self.dtype).view(-1, H, C)
 

@@ -34,6 +34,17 @@ masks and the flax-style dropout masks drawn from the explicit ``g``
 (never the global RNG), and the running BatchNorm statistics updated.
 Without a generator the training forward is deterministic (the JAX
 package's dropout-free train-mode forward of the recalibration).
+
+``remat`` (the JAX module's ``nn.remat`` of each conv,
+``flow_gnn.py:122-128``): in a training forward that records gradients
+each conv runs under ``torch.utils.checkpoint`` (non-reentrant), which
+keeps its input and recomputes its activations in the backward.  The
+kernel convs take their dropout seed as an input, drawn before the conv,
+so the recompute sees it again; the dense and segment convs draw their
+attention masks inside the conv, so they draw through a
+``kernels/dropout.py::MaskTape``, which replays the forward's masks in the
+recompute.  The step then equals the step without remat, and leaves the
+generator where that step leaves it.
 """
 
 from __future__ import annotations
@@ -44,9 +55,10 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..graph.structs import Graph
-from ..kernels.dropout import draw_seed
+from ..kernels.dropout import MaskTape, draw_seed
 from .convs import (GATConv, GCNConv, GINConv, TransformerConv, dense,
                     lecun_init_)
 from .norm import LayerNorm, MaskedBatchNorm
@@ -75,9 +87,8 @@ class ModelConfig:
     fuse_eval: bool = False
     fuse_train: bool = True
     fuse_epilogue: bool = True
-    # parsed so that JAX meta files load, and served as is (the JAX
-    # package's nn.remat changes no forward value); training with it raises
-    # (train/loop.py::check_trainable)
+    # each conv rematerialized in training (torch.utils.checkpoint, the JAX
+    # package's nn.remat): its activations recomputed in the backward
     remat: bool = False
 
     def to_dict(self) -> dict[str, Any]:
@@ -180,19 +191,21 @@ class FlowGNN(nn.Module):
         if mixed:
             # f32 residual stream; convs see bf16, their outputs rejoin in f32
             x = x.float()
+        remat = cfg.remat and train and torch.is_grad_enabled()
         for i, conv in enumerate(self.convs):
             x_in = x.to(torch.bfloat16) if mixed else x
             if cfg.layer_type == "GAT":
-                x_new = conv(x_in, graph, train=train, seed=seed(),
-                             generator=conv_gen)
+                kw = dict(train=train, seed=seed(), generator=conv_gen)
             elif cfg.layer_type == "Transformer":
                 # the JAX package runs exact_bn (and the recalibration) in
                 # train mode, where fuse_eval does not apply
-                x_new = conv(x_in, graph, train=train, seed=seed(),
-                             fused_ok=not (train or exact_bn),
-                             generator=conv_gen)
+                kw = dict(train=train, seed=seed(),
+                          fused_ok=not (train or exact_bn),
+                          generator=conv_gen)
             else:
-                x_new = conv(x_in, graph)
+                kw = {}
+            x_new = (_remat(conv, x_in, graph, kw) if remat
+                     else conv(x_in, graph, **kw))
             if mixed:
                 x_new = x_new.float()
             if self.fused_ep and train:
@@ -229,6 +242,23 @@ class FlowGNN(nn.Module):
                           device=h.device) < keep
         div = float(torch.tensor(keep).to(h.dtype))
         return torch.where(mask, h / div, torch.zeros_like(h))
+
+
+def _remat(conv: nn.Module, x: torch.Tensor, graph: Graph,
+           kw: dict) -> torch.Tensor:
+    """``conv(x, graph, **kw)`` under ``torch.utils.checkpoint``, its
+    attention masks drawn through a :class:`MaskTape` (see the module
+    doc)."""
+    gen = kw.get("generator")
+    tape = MaskTape(gen) if gen is not None else None
+
+    def run(x):
+        if tape is None:
+            return conv(x, graph, **kw)
+        tape.rewind()
+        return conv(x, graph, **{**kw, "generator": tape})
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 def split_fields(output):

@@ -63,14 +63,29 @@ class MaskedBatchNorm(nn.Module):
         return (x - mean_lo) * eff_scale.to(dt) + eff_bias.to(dt)
 
     def batch_norm(self, x: torch.Tensor, node_mask: torch.Tensor,
-                   update: bool = True) -> torch.Tensor:
+                   update: bool = True, group=None) -> torch.Tensor:
         """Train-mode BatchNorm with the batch statistics of the rows under
-        ``node_mask``; with ``update`` also the running-statistics update."""
+        ``node_mask``; with ``update`` also the running-statistics update.
+        ``group``: the rows are one shard of a node-partitioned graph
+        (``axis_name``); the masked count and sums are summed over the
+        group's ranks in the JAX module's order: each shard's count
+        max(Σmask, 1), then the sums of the counts and totals, the mean,
+        the sum of Σ(x − mean)²·mask, the biased variance.  The sums are
+        differentiable (``parallel.distributed.psum``)."""
+        from ..parallel.distributed import psum
+
         xf = x.float()
         m = node_mask.float()[:, None]
         count = m.sum().clamp_min(1.0)
-        mean = (xf * m).sum(0) / count
-        var = (((xf - mean) ** 2) * m).sum(0) / count       # biased
+        total = (xf * m).sum(0)
+        if group is not None:
+            count = psum(count, group)
+            total = psum(total, group)
+        mean = total / count
+        sq = (((xf - mean) ** 2) * m).sum(0)
+        if group is not None:
+            sq = psum(sq, group)
+        var = sq / count                                    # biased
         if update:
             with torch.no_grad():
                 unbiased = var * count / (count - 1.0).clamp_min(1.0)

@@ -3,8 +3,7 @@
 The public names of ``gnn_bfs_rans_tpu/train/__init__.py`` that the port
 has; the JAX package's jitted-step factories (``make_train_step``,
 ``make_eval_step``, ``make_forward``, ``init_state``, ``TrainState``) are
-the port's ``train_step``, ``eval_step`` and ``FlowGNN`` itself, and its
-streaming names wait for the scale-out slice.
+the port's ``train_step``, ``eval_step`` and ``FlowGNN`` itself.
 """
 
 from .checkpoint import (
@@ -28,6 +27,7 @@ from .normalization import (
     weighted_elementwise_mse,
     weighted_fieldwise_mse,
 )
+from .streaming import Prefetcher, foam_case_source, perturbed_case_source
 from .trainer import Trainer
 
 __all__ = [
@@ -51,4 +51,7 @@ __all__ = [
     "load_checkpoint",
     "load_meta",
     "latest_checkpoint",
+    "Prefetcher",
+    "perturbed_case_source",
+    "foam_case_source",
 ]

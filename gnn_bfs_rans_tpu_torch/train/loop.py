@@ -28,10 +28,9 @@ The pressure freeze masks the gradient of ``out_3``'s pressure column
 post-optimizer update too (``loop.py:180-188``), because the L2 term added
 inside the chain would otherwise move the frozen column.  Adam cannot mask
 its own update, so the column is saved before ``step()`` and restored
-after; the moments then evolve exactly as optax's do.
-``ModelConfig.remat`` (the JAX package's ``nn.remat`` of each conv) is not
-ported: training a model with it raises (:func:`check_trainable`), serving
-one does not, since rematerialization changes no forward value.
+after; the moments then evolve exactly as optax's do
+(:func:`apply_update`, which the data-parallel, multi-case and
+partitioned steps of ``parallel/`` share).
 """
 
 from __future__ import annotations
@@ -78,17 +77,6 @@ class TrainConfig:
     def from_dict(cls, d: dict) -> "TrainConfig":
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
-
-
-def check_trainable(model_config) -> None:
-    """Raise on a model configuration whose training is not ported:
-    ``remat=True`` (each conv's activations recomputed in the backward)
-    changes what a train step keeps in memory, and a replayed conv would
-    have to draw its dropout seed again from the explicit generator."""
-    if model_config.remat:
-        raise NotImplementedError(
-            "remat=True is not ported yet (ROADMAP.md Queue 1 item 4: "
-            "torch.utils.checkpoint of each conv); train with remat=False")
 
 
 def make_optimizer(model: FlowGNN, cfg: TrainConfig) -> torch.optim.Adam:
@@ -174,22 +162,10 @@ def batch_loss(out: torch.Tensor, targets: torch.Tensor, graph: Graph,
         for t in targets]).mean()
 
 
-def train_step(model: FlowGNN, optimizer: torch.optim.Optimizer,
-               graph: Graph, targets: torch.Tensor, lr,
-               cfg: TrainConfig, generator: torch.Generator | None = None,
-               freeze_pressure: bool = False) -> torch.Tensor:
-    """One optimizer step on a batch of snapshots; returns the loss (a
-    device scalar: no host synchronization).  ``lr``: a float or a 0-d
-    tensor (:func:`set_lr`).  Dropout masks and kernel seeds come from
-    ``generator`` (None: deterministic).  The step captures into a CUDA
-    graph (``train/graphs.py``), ``freeze_pressure`` being part of what is
-    captured, as the JAX step's static argument."""
-    check_trainable(model.config)
-    model.train()
-    optimizer.zero_grad(set_to_none=True)
-    out = model(graph, train=True, generator=generator)
-    loss = batch_loss(out, targets, graph, cfg)
-    loss.backward()
+def apply_update(model: FlowGNN, optimizer: torch.optim.Optimizer, lr,
+                 cfg: TrainConfig, freeze_pressure: bool = False) -> None:
+    """The update from the gradients in ``p.grad``: the pressure freeze,
+    the global-norm clip, then Adam at ``lr`` (the JAX steps' order)."""
     frozen = []
     if freeze_pressure:
         for p, idx in _pressure_column(model):
@@ -201,6 +177,24 @@ def train_step(model: FlowGNN, optimizer: torch.optim.Optimizer,
     with torch.no_grad():
         for p, idx, saved in frozen:
             p[idx] = saved
+
+
+def train_step(model: FlowGNN, optimizer: torch.optim.Optimizer,
+               graph: Graph, targets: torch.Tensor, lr,
+               cfg: TrainConfig, generator: torch.Generator | None = None,
+               freeze_pressure: bool = False) -> torch.Tensor:
+    """One optimizer step on a batch of snapshots; returns the loss (a
+    device scalar: no host synchronization).  ``lr``: a float or a 0-d
+    tensor (:func:`set_lr`).  Dropout masks and kernel seeds come from
+    ``generator`` (None: deterministic).  The step captures into a CUDA
+    graph (``train/graphs.py``), ``freeze_pressure`` being part of what is
+    captured, as the JAX step's static argument."""
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    out = model(graph, train=True, generator=generator)
+    loss = batch_loss(out, targets, graph, cfg)
+    loss.backward()
+    apply_update(model, optimizer, lr, cfg, freeze_pressure)
     return loss.detach()
 
 

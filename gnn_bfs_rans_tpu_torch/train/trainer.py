@@ -37,8 +37,8 @@ epoch and synchronizes once a block.  The first call of each graph runs
 eagerly (its warm-up) and the second captures it.  On the CPU the same
 functions run eagerly.  Not ported: the JAX trainer's Mosaic compile
 retries and dense-backend fallback (``kernels/fallback.py``: a TPU
-workaround that would hide a kernel fault here), its AOT executable cache
-and ``ModelConfig.remat`` (constructing a trainer for it raises).  Dropout masks, kernel seeds and the blocks' snapshot
+workaround that would hide a kernel fault here) and its AOT executable
+cache.  Dropout masks, kernel seeds and the blocks' snapshot
 permutations come from one ``torch.Generator`` on the training device,
 seeded from ``TrainConfig.seed``; parameters are initialized from a CPU
 generator with the same seed.
@@ -70,7 +70,6 @@ from .loop import (
     FIELDS,
     ReduceLROnPlateau,
     TrainConfig,
-    check_trainable,
     cosine_lr,
     epoch_batches,
     epoch_body,
@@ -118,7 +117,6 @@ class Trainer:
         device: str | torch.device = "cuda",
         progress: bool = False,
     ):
-        check_trainable(model_config)
         self.device = resolve_device(device)
         self.dataset = dataset
         self.model_config = model_config

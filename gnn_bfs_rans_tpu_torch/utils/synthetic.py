@@ -10,19 +10,19 @@ already banded with bandwidth ``nx`` — ``nx < tile`` (default 96) gives
 the 3-tile window; wider grids up to ``nx ≤ 2·tile`` use the 5-tile window
 (see ``graph/band.py``) without reordering, and wider ones get no band.
 
-The JAX module's ``run_partition_shard_benchmark`` waits for the port of
-``parallel/partition.py`` (ROADMAP Queue 1 item 4).
+``run_partition_shard_benchmark`` times one shard of a node-partitioned
+mesh (``parallel/partition.py``) on one card.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import time
 
 import numpy as np
 import torch
 
-from ..graph.band import ALL_COMPONENTS, LAYER_COMPONENTS, build_band
+from ..graph.band import LAYER_COMPONENTS
+from ..graph.build import attach_band
 from ..graph.structs import Graph, build_padded_graph
 
 
@@ -54,24 +54,74 @@ def build_grid_graph(
         senders, receivers, edge_feat, coords,
         node_align=tile, edge_align=tile,
     )
-    if with_band:
-        comps = band_components or ALL_COMPONENTS
-        ne = graph.n_edges
-        band = build_band(
-            graph.senders.numpy()[:ne],
-            graph.receivers.numpy()[:ne],
-            graph.n_pad,
-            graph.node_mask.numpy(),
-            graph.in_degree.numpy(),
-            tile=tile,
-            components=comps,
-            edge_feat=(graph.edge_feat.numpy()[:ne]
-                       if ("edge" in comps or "geo" in comps) else None),
-            node_pos=graph.node_feat.numpy(),
-        )
-        if band is not None:
-            graph = dataclasses.replace(graph, band=band)
-    return graph
+    return attach_band(graph, band_components, tile) if with_band else graph
+
+
+def run_partition_shard_benchmark(
+    global_nodes: int = 1_000_000,
+    n_shards: int = 8,
+    layer_type: str = "GAT",
+    num_layers: int = 4,
+    hidden_dim: int = 128,
+    compute_dtype: str = "bfloat16",
+    nx: int = 96,
+    halo: int = 128,
+    steps: int = 12,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """The banded forward of ONE shard of a partitioned mesh, on one card.
+
+    The per-card throughput of partitioned training at scale: a shard of a
+    ``global_nodes``-cell grid is ``global_nodes / n_shards`` owned rows
+    plus ``2·halo`` halo rows, run by the same partitioned forward
+    (``make_partitioned_forward``, a 1-shard partition carrying its band
+    slices) as every rank runs; the per-layer halo exchange (2·halo rows
+    of H features to each neighbour) is the part not measured.  Time: the
+    chained marginal forward (``utils/bench.py``)."""
+    from ..device import resolve_device
+    from ..models.flow_gnn import FlowGNN, ModelConfig
+    from ..parallel.partition import (build_partition,
+                                      make_partitioned_forward,
+                                      shard_partition)
+    from .bench import chained_marginal_time
+
+    dev = resolve_device(device)
+    n_loc_target = max(global_nodes // n_shards, nx)
+    ny = max(n_loc_target // nx, 1)
+    graph = build_grid_graph(nx, ny, with_band=True,
+                             band_components=LAYER_COMPONENTS[layer_type])
+    if graph.band is None:
+        raise ValueError(f"grid nx={nx} is not band-limited at tile=128")
+    pg = build_partition(graph, 1, halo=halo)
+    if not pg.has_band:
+        raise ValueError("the partition carries no band slices")
+    pg = shard_partition(pg, 0, dev)
+    mcfg = ModelConfig(
+        hidden_dim=hidden_dim, num_layers=num_layers, layer_type=layer_type,
+        backend="pallas", dropout=0.0, compute_dtype=compute_dtype)
+    model = FlowGNN(mcfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    fwd = make_partitioned_forward(model, halo=halo)
+    step_s = chained_marginal_time(fwd, pg, reps=max(steps, 8)).step_s
+    msgs = num_layers * graph.n_edges
+    return {
+        "metric": "edge_messages_per_sec_per_chip",
+        "value": msgs / step_s,
+        "unit": "msgs/s",
+        "mode": "partitioned_shard_forward",
+        "global_nodes": global_nodes,
+        "n_shards": n_shards,
+        "shard_nodes": graph.n_nodes,
+        "n_edges": graph.n_edges,
+        "halo": halo,
+        "layer_type": layer_type,
+        "backend": "pallas",
+        "compute_dtype": compute_dtype,
+        "hidden_dim": hidden_dim,
+        "num_layers": num_layers,
+        "step_median_s": step_s,
+        "platform": "gpu" if dev.type == "cuda" else "cpu",
+        "timing": "chained_marginal",
+    }
 
 
 def run_scale_benchmark(
@@ -92,12 +142,11 @@ def run_scale_benchmark(
     ``mode='train'`` runs the train step (forward + loss + backward + Adam,
     a CUDA graph on the card) on one all-zero snapshot; the parameters
     advance in place from step to step, and a parameter non-finite after
-    the timing raises.  ``remat=True`` raises, as the
-    port's training does (``train/loop.py::check_trainable``).
+    the timing raises.  ``remat=True`` trains with each conv
+    rematerialized (``models/flow_gnn.py``).
     """
     from ..device import resolve_device
     from ..models.flow_gnn import FlowGNN, ModelConfig
-    from ..train.loop import check_trainable
     from .bench import _check_finite, _train_chain, chained_marginal_time
 
     dev = resolve_device(device)
@@ -106,7 +155,6 @@ def run_scale_benchmark(
         backend=backend, dropout=0.0, compute_dtype=compute_dtype,
         remat=remat,
     )
-    check_trainable(mcfg)
     ny = max(n_nodes // nx, 1)
     graph = build_grid_graph(
         nx, ny, with_band=(backend == "pallas"),

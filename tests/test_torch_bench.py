@@ -334,12 +334,6 @@ def test_cli_bench_synthetic(capsys):
     assert res["mode"] == "forward" and res["backend"] == "pallas"
 
 
-def test_cli_bench_dp_is_not_ported(case):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        cli_main(["bench", "--mode", "dp", "--case_path", str(case),
-                  "--device", "cpu"])
-
-
 def test_bench_defaults_to_the_card(case):
     if torch.cuda.is_available():
         pytest.skip("a card is present")

@@ -1873,3 +1873,136 @@ def test_export_writes_cpu_tensors(card, tmp_path):
                for v in raw["model_state_dict"].values())
     RefFlowGNN(hidden_dim=64, num_layers=2, layer_type="GAT").load_state_dict(
         raw["model_state_dict"], strict=True)
+
+
+def _shard_convs():
+    """(label, conv, call, dtype, backward) of the scale-out's banded
+    forms: rows 1, 4 + 5 + 6, 8, 9."""
+    from gnn_bfs_rans_tpu_torch.models.convs import (GATConv, GCNConv,
+                                                     TransformerConv)
+
+    return [
+        ("row 1", GATConv(64, heads=2, backend="pallas"),
+         lambda c, x, g: c(x, g), torch.bfloat16, False),
+        ("rows 4-6", GATConv(64, heads=2, fuse_train=False, backend="pallas"),
+         lambda c, x, g: c(x, g, train=True), torch.bfloat16, True),
+        ("row 8", GCNConv(64, backend="pallas"), lambda c, x, g: c(x, g),
+         torch.float32, True),
+        ("row 9", TransformerConv(64, heads=2, edge_dim=4, backend="pallas"),
+         lambda c, x, g: c(x, g), torch.bfloat16, False),
+    ]
+
+
+def _host(t):
+    return t.detach().float().cpu().clone()
+
+
+def test_sliced_band_kernels(card):
+    """The kernels on a shard's slice of the band (a 32 × 64 grid in 4
+    shards of 512 rows, halo 128; the first and last shard, whose outer
+    halo tiles are all zero but the patched bias_self diagonal): the owned
+    rows against the plain versions (the same conv on the CPU) and against
+    the conv on the whole grid; dx and the weight gradients too where the
+    form trains (the cotangent on the owned rows)."""
+    from gnn_bfs_rans_tpu_torch.parallel.partition import (
+        _local_graph, build_partition, shard_partition)
+    from gnn_bfs_rans_tpu_torch.utils.synthetic import build_grid_graph
+
+    grid = build_grid_graph(32, 64, with_band=True, band_components=(
+        "gcn", "bias_self", "bias_noself", "geo"))
+    pg = build_partition(grid, 4, 128)
+    assert pg.has_band
+    n_loc, halo, n = pg.n_loc, 128, grid.n_pad
+    gen = torch.Generator().manual_seed(0)
+    for label, conv, call, dt, bwd in _shard_convs():
+        conv.reset_parameters(gen)
+        x_full = torch.randn(n, 64, generator=gen).to(dt)
+        for d in (0, 3):
+            rows = torch.arange(d * n_loc - halo, (d + 1) * n_loc + halo)
+            inside = (rows >= 0) & (rows < n)
+            x = torch.where(inside[:, None], x_full[rows.clamp(0, n - 1)],
+                            0).to(dt)
+            g = torch.zeros(x.shape, dtype=dt)
+            g[halo:halo + n_loc] = torch.randn(n_loc, 64, generator=gen)
+            g_full = torch.zeros(n, 64, dtype=dt)
+            g_full[d * n_loc:(d + 1) * n_loc] = g[halo:halo + n_loc]
+            own = slice(halo, halo + n_loc)
+            results = []
+            for dev, graph, xin, cot in (
+                    (card, _local_graph(shard_partition(pg, d, card)), x, g),
+                    ("cpu", _local_graph(shard_partition(pg, d, "cpu")), x,
+                     g),
+                    (card, grid.to(card), x_full, g_full)):
+                conv.to(dev).zero_grad(set_to_none=True)
+                xi = xin.detach().clone().to(dev).requires_grad_(bwd)
+                out = call(conv, xi, graph)
+                if bwd:
+                    out.backward(cot.to(dev))
+                grads = ([xi.grad] + [q.grad for q in conv.parameters()]
+                         if bwd else [])
+                results.append((_host(out), [_host(t) for t in grads]))
+            (k, kg), (p, pgr), (w, wg) = results
+            tol = 1e-2 if dt == torch.bfloat16 else 1e-5
+            whole = w[d * n_loc:(d + 1) * n_loc]
+            for got, want in ((k[own], p[own]), (k[own], whole)):
+                assert (got - want).abs().max() <= tol * want.abs().max(), \
+                    (label, d)
+            if bwd:
+                kg0 = [kg[0][own]] + kg[1:]
+                for a, b in zip(kg, pgr):
+                    assert (a - b).abs().max() <= 2 * tol * b.abs().max(), \
+                        (label, d)
+                for a, b in zip(kg0, [wg[0][d * n_loc:(d + 1) * n_loc]]
+                                + wg[1:]):
+                    assert (a - b).abs().max() <= 2 * tol * b.abs().max(), \
+                        (label, d)
+
+
+@pytest.mark.parametrize("layer", ["GAT", "Transformer"])
+def test_remat_on_the_card(card, layer):
+    """remat: one step equals the step without it bit for bit (dropout 0.1,
+    the same generator state after), and the remat step replayed as a CUDA
+    graph equals eager steps bit for bit."""
+    from gnn_bfs_rans_tpu_torch.train.graphs import Graphed
+    from gnn_bfs_rans_tpu_torch.utils.synthetic import build_grid_graph
+
+    comps = ("bias_self",) if layer == "GAT" else ("bias_noself", "geo")
+    graph = build_grid_graph(32, 32, with_band=True,
+                             band_components=comps).to(card)
+    targets = torch.randn(1, graph.n_pad, 7, device=card,
+                          generator=torch.Generator(card).manual_seed(3))
+    tcfg = TrainConfig(lr=1e-3)
+
+    def fresh(remat):
+        cfg = ModelConfig(hidden_dim=64, num_layers=2, layer_type=layer,
+                          heads=2, backend="pallas", dropout=0.1,
+                          compute_dtype="bfloat16", fuse_train=False,
+                          remat=remat)
+        model = FlowGNN(cfg, torch.Generator().manual_seed(1)).to(card)
+        return (model, make_optimizer(model, tcfg),
+                torch.Generator(card).manual_seed(5))
+
+    runs = []
+    for remat in (False, True):
+        model, opt, gen = fresh(remat)
+        loss = train_step(model, opt, graph, targets, 1e-3, tcfg, gen)
+        runs.append((loss.item(), [p.detach().clone()
+                                   for p in model.parameters()],
+                     gen.get_state()))
+    (l0, p0, s0), (l1, p1, s1) = runs
+    assert l0 == l1 and torch.equal(s0, s1)
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+
+    losses = []
+    for graphed in (True, False):
+        model, opt, gen = fresh(True)
+        fn = lambda: train_step(model, opt, graph, targets, 1e-3,  # noqa
+                                tcfg, gen)
+        step = (Graphed(fn, card, generators=(gen,),
+                        before_capture=lambda: opt.zero_grad(
+                            set_to_none=True)) if graphed else fn)
+        losses.append(([step().item() for _ in range(3)],
+                       [p.detach().clone() for p in model.parameters()]))
+    (lg, pg_), (le, pe) = losses
+    assert lg == le
+    assert all(torch.equal(a, b) for a, b in zip(pg_, pe))

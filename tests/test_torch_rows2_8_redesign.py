@@ -30,7 +30,7 @@ two repaired trainer faults.
   tiles, empty rows and rows denser than one batch and than one chunk;
 * the trainer: ``KeyboardInterrupt`` in epoch 2 leaves ``epoch_1`` with
   ``interrupted: True`` and the history, and ``resume`` finishes the run;
-  ``remat=True`` raises in training and serves.
+  a checkpoint whose meta says ``remat: true`` serves.
 
 The CUDA kernels themselves are held against the plain versions on the card
 by ``test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -509,21 +509,6 @@ def test_interrupt_before_the_first_epoch_saves_epoch_0(tmp_path,
         trainer.train()
     _, meta = load_checkpoint(tmp_path / "run", "epoch_0")
     assert meta["interrupted"] is True and meta["val_loss"] == float("inf")
-
-
-def test_remat_raises_in_training(tmp_path):
-    """remat=True: the Trainer and train_step raise (Queue 1 item 4)."""
-    ds = _dataset(tmp_path)
-    cfg = ModelConfig(**CFG, remat=True)
-    with pytest.raises(NotImplementedError, match="remat"):
-        Trainer(ds, cfg, tl.TrainConfig(epochs=1), output_dir=tmp_path / "r",
-                device="cpu")
-    model = FlowGNN(cfg)
-    graph = ds.graph
-    with pytest.raises(NotImplementedError, match="remat"):
-        tl.train_step(model, tl.make_optimizer(model, tl.TrainConfig()),
-                      graph, torch.from_numpy(ds.targets[:1]), 1e-3,
-                      tl.TrainConfig())
 
 
 def test_remat_serves(tmp_path):

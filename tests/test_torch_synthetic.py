@@ -152,9 +152,20 @@ def test_run_scale_benchmark_on_the_cpu(mode):
 
 
 def test_run_scale_benchmark_refuses_remat():
-    with pytest.raises(NotImplementedError, match="remat"):
-        run_scale_benchmark(n_nodes=288, nx=24, mode="train", remat=True,
-                            device="cpu")
+    """remat=True used to be refused (hence the name, kept); it now
+    trains (each conv rematerialized) and says so in the result."""
+    for attempt in range(4):
+        try:
+            res = run_scale_benchmark(
+                n_nodes=288, layer_type="GAT", num_layers=1, hidden_dim=8,
+                backend="pallas", steps=2, nx=24, mode="train", remat=True,
+                device="cpu")
+            break
+        except RuntimeError as e:
+            if "resolution collapse" not in str(e) or attempt == 3:
+                raise
+    assert set(res) == SCALE_KEYS
+    assert res["remat"] is True and res["step_median_s"] > 0
 
 
 def test_run_scale_benchmark_defaults_to_the_card():
