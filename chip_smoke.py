@@ -186,7 +186,7 @@ Phases (any failure raises and exits non-zero):
     more cards the same on spawned NCCL ranks); the DP step (4 snapshots)
     against ``train_step``, the multi-case step on 4 perturbed boxes and
     its forward's case order, ``train_multicase_streamed`` (2 epochs,
-    ``Prefetcher(depth=2)``), ``bench --mode dp --devices 1``; one
+    ``Prefetcher(depth=2)``; these steps replay their CUDA graphs); one
     125,000-cell shard of a 1M-cell grid (``run_partition_shard_benchmark``,
     hidden 256); and a step with and without ``remat`` (GAT 4×256 unfused
     and Transformer 4×256, bf16, dropout 0.1) from one state and generator,
@@ -194,7 +194,24 @@ Phases (any failure raises and exits non-zero):
     250,080-cell grid; each reading beside the card's name and power
     limit.  ``python3 chip_smoke.py --phase 20`` runs this phase alone
     (no kernel table, no result line);
-21. print the kernel table as one JSON line, then the result line.
+21. the last modules: ``FlowGNNSurrogate`` on the 400×30 box with a
+    boundary embedding, GCN 6×256 f32 (row 8) and GAT 4×256 bf16 under
+    ``exact_bn`` (rows 1, 2), its launches, the kernels against the plain
+    versions and its replayed forward against the eager one, with span,
+    host time and idle; ``train-multitopo`` through the CLI on three boxes
+    in two buckets (12,000 and 12,090 cells share one, 6,000 cells have
+    their own), then one step graph a bucket replayed case by case against
+    eager steps bit for bit (on the cases' GCN bands) and each bucket's
+    replayed step against the eager one in time; in a NCCL group of one
+    rank the DP, multi-case and partitioned steps (GAT 4×256 bf16, dropout
+    0.1) and the partitioned forward replayed against their eager forms bit
+    for bit, with host, device, span and idle both ways, the streamed
+    multi-case loop (8 cases in chunks of 3: the short last chunk on its
+    own graph) against eager steps on the same chunks, and ``bench --mode
+    dp --devices 1`` (``timing: chained_replay``); the native and numpy
+    walks of the 100,000-cell mixed prism case's faces, equal, with their
+    host times.  ``python3 chip_smoke.py --phase 21`` runs this phase alone;
+22. print the kernel table as one JSON line, then the result line.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times per
 call: ten calls captured in one CUDA graph and replayed, so host launch
@@ -215,6 +232,7 @@ scratch files only under the temporary directory.
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import re
@@ -3592,11 +3610,11 @@ def _times(step, label, smi, steps=10):
 def dp_multicase_checks(case, train_case, smi):
     """The DP step (4 snapshots) against train_step on the same batch; the
     multi-case step on 4 perturbed box cases and its forward's case order;
-    train_multicase_streamed for 2 epochs with Prefetcher(depth=2);
-    ``bench --mode dp --devices 1``."""
+    train_multicase_streamed for 2 epochs with Prefetcher(depth=2).  The
+    steps are the graphed ones (phase 21 holds them against their eager
+    forms)."""
     import numpy as np
     import torch
-    from gnn_bfs_rans_tpu_torch.cli.main import main as cli_main
     from gnn_bfs_rans_tpu_torch.foam import FoamCase
     from gnn_bfs_rans_tpu_torch.graph.band import LAYER_COMPONENTS
     from gnn_bfs_rans_tpu_torch.graph.build import attach_band
@@ -3686,17 +3704,6 @@ def dp_multicase_checks(case, train_case, smi):
     if not np.isfinite([h["loss"] for h in hist]).all():
         raise AssertionError(f"streamed training: {hist}")
 
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = cli_main(["bench", "--mode", "dp", "--devices", "1",
-                       "--case_path", str(train_case), "--compute_dtype",
-                       "bfloat16", "--device", "cuda"])
-    line = buf.getvalue().strip().splitlines()[-1]
-    res = json.loads(line)
-    log(f"bench --mode dp --devices 1 ({res['note']}): {line}; {smi}")
-    if rc != 0 or res["value"] != 1.0 or res["step_s_1dev"] <= 0:
-        raise AssertionError(f"bench --mode dp: {line}")
-
 
 def shard_benchmark(smi):
     """One 125,000-cell shard (+ 256 halo rows) of a 1M-cell grid in 8
@@ -3720,11 +3727,13 @@ def shard_benchmark(smi):
     shard = shard_partition(build_partition(grid, 1, SHARD_HALO), 0, "cuda")
     model = FlowGNN(_flagship(), torch.Generator().manual_seed(0)).cuda()
     fwd = make_partitioned_forward(model, SHARD_HALO)
+    fwd(shard)                 # the graph's warm-up and capture, before
+    fwd(shard)                 # the profiler starts
     dev_us, idle = profile_forward(lambda: fwd(shard), "shard forward",
                                    steps=5, with_idle=True, top=6)
     log(f"1M-cell shard (125,000 + 256 rows) GAT 4x256 bf16: span "
         f"{res['step_median_s'] * 1e3:.4f} ms (chained marginal), "
-        f"{res['value']:.4e} edge msgs/s; eager device "
+        f"{res['value']:.4e} edge msgs/s; replayed device "
         f"{(dev_us or 0) / 1e3:.4f} ms, idle {idle}; {smi}")
 
 
@@ -3819,7 +3828,7 @@ def scaleout_phase(case, train_case, gen, smi):
         log(f"phase 20 partitioned (world {world}): {time.time() - t:.1f} s")
         t = time.time()
         dp_multicase_checks(case, train_case, smi)
-        log(f"phase 20 DP / multi-case / streamed / bench dp: "
+        log(f"phase 20 DP / multi-case / streamed: "
             f"{time.time() - t:.1f} s")
     finally:
         torch.distributed.destroy_process_group()
@@ -3830,6 +3839,444 @@ def scaleout_phase(case, train_case, gen, smi):
     remat_checks(case, train_case, smi)
     log(f"phase 20 remat: {time.time() - t:.1f} s; phase 20 in all "
         f"{time.time() - t0:.1f} s")
+
+
+# ------------------------------------------------------------ phase 21
+# the last modules: FlowGNNSurrogate, train-multitopo, CUDA graphs of the
+# scale-out steps over NCCL, the native face tokenizer.  Three boxes in two
+# buckets at node_align 512 / edge_align 2048: 400 × 30 (12,000 cells) and
+# 390 × 31 (12,090) share the (12,288, 49,152, 4) bucket, 200 × 30 (6,000)
+# has its own
+TOPO_BOXES = (("a", 400, 30), ("b", 390, 31), ("c", 200, 30))
+TOPO_EPOCHS = 6
+# the 100,000-cell mixed hex/prism case (triangles and quads in one faces
+# file): 100 × 100 × 7, its odd layers split into prisms
+PRISM = (100, 100, 7)
+
+
+def _enqueue_ms(fn, calls=20):
+    """Host milliseconds a call of ``fn`` takes to return (the card's work
+    queued, not waited for), after a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
+
+
+def _replay_vs_eager(label, replayed, eager, smi, steps=6):
+    """Host-clock quartiles, device time and idle share of one call,
+    eager and replayed, each ending in a synchronize; for the replays also
+    the span of back-to-back replays (device) and the host time a replay
+    takes to be queued."""
+    out = {}
+    for name, fn in (("eager", eager), ("replayed", replayed)):
+        q = host_time_ms(fn, reps=steps, warmup=2)
+        dev_us, idle = profile_forward(fn, f"{label} {name}", steps=3,
+                                       with_idle=True, top=4)
+        out[name] = (q, dev_us, idle)
+    (qe, de, ie), (qr, dr, ir) = out["eager"], out["replayed"]
+    span, queued = event_time_ms(replayed, 10), _enqueue_ms(replayed, 10)
+    log(f"{label}: host ms eager {qe[1]:.4f} ({qe[0]:.4f}, {qe[2]:.4f}) -> "
+        f"replayed {qr[1]:.4f} ({qr[0]:.4f}, {qr[2]:.4f}); device ms "
+        f"{(de or 0) / 1e3:.4f} -> {(dr or 0) / 1e3:.4f}; idle (profiler) "
+        f"{ie:.3f} -> {ir:.3f}; replays back to back: span {span:.4f} ms "
+        f"each, queued in {queued:.4f} ms of host time; {smi}")
+
+
+def surrogate_checks(case, smi):
+    """FlowGNNSurrogate on the 400 × 30 box with a boundary embedding:
+    GCN 6×256 f32 (row 8, 3 layers a stage) and GAT 4×256 bf16 under
+    ``exact_bn`` (rows 1 and 2): the launches of an eager forward, the
+    kernels against the plain versions (SERVE_TOL), the replayed forward
+    equal to the eager one, and its span, host time and idle share."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.infer import load_graph
+    from gnn_bfs_rans_tpu_torch.kernels import _build
+    from gnn_bfs_rans_tpu_torch.models import FlowGNNSurrogate
+    from gnn_bfs_rans_tpu_torch.models.flow_gnn import ModelConfig
+    from gnn_bfs_rans_tpu_torch.train.graphs import Graphed
+
+    dev = torch.device("cuda")
+    for layer, layers, dt, exact in (("GCN", GCN_LAYERS, "float32", False),
+                                     ("GAT", LAYERS, "bfloat16", True)):
+        label = (f"surrogate {layer.lower()}{layers}x{HIDDEN}-{dt}"
+                 f"{' exact_bn' if exact else ''}")
+        graph = load_graph(case, layer).to(dev)
+        cfg = ModelConfig(hidden_dim=HIDDEN, num_layers=layers,
+                          layer_type=layer, heads=HEADS, backend="pallas",
+                          compute_dtype=dt, dropout=0.0)
+        model = FlowGNNSurrogate(cfg, torch.Generator().manual_seed(0))
+        model = model.to(dev).eval()
+        bc = 0.1 * torch.randn(graph.n_pad, HIDDEN, device=dev,
+                               generator=torch.Generator(dev).manual_seed(1))
+
+        def forward():
+            return model(graph, bc, exact_bn=exact)
+
+        want = {CONV_KERNEL[layer]: layers}
+        if exact:
+            want["fused_epilogue_fwd"] = 2 * layers
+        _build.reset_launches()
+        with torch.inference_mode():
+            eager = forward()
+            torch.cuda.synchronize()
+            moved = {k: v for k, v in _build.LAUNCHES.items() if v}
+            with plain_versions():
+                plain = forward()
+            fwd = Graphed(forward, dev)
+            fwd()
+            replayed = fwd().clone()
+            rows = slice(0, graph.n_nodes)
+            err, scale = _rel_err(eager[rows], plain[rows])
+            log(f"{label}: launches {moved} (expected {want}); kernels vs "
+                f"plain versions max abs {err:.3e} (tol "
+                f"{SERVE_TOL * scale:.3e}); replay equal to eager "
+                f"{torch.equal(replayed, eager)}")
+            if (moved != want or err > SERVE_TOL * scale
+                    or not torch.isfinite(eager).all()
+                    or not torch.equal(replayed, eager)):
+                raise AssertionError(f"{label}: outside the stated bounds")
+            host_e, host_r = host_time_ms(forward), host_time_ms(fwd)
+            span = event_time_ms(fwd)
+        log(f"{label}: host ms eager {host_e[1]:.4f} ({host_e[0]:.4f}, "
+            f"{host_e[2]:.4f}) -> replayed {host_r[1]:.4f} ({host_r[0]:.4f}, "
+            f"{host_r[2]:.4f}); 20 replays span {span:.4f} ms each, idle "
+            f"{1 - span / host_r[1]:.3f}; {smi}")
+
+
+def _banded_cases(ds):
+    """The dataset's cases with their GCN band (row 8 sums in a fixed
+    order, the dense branch's backward with atomics: bit-for-bit
+    comparisons need the band), built on the true counts."""
+    from gnn_bfs_rans_tpu_torch.graph.build import attach_band
+
+    out = []
+    for c in ds.cases:
+        true = dataclasses.replace(c.graph, n_nodes=c.n_nodes,
+                                   n_edges=c.n_edges)
+        g = attach_band(true, ("gcn",))
+        out.append(dataclasses.replace(c, graph=dataclasses.replace(
+            g, n_nodes=c.graph.n_nodes, n_edges=c.graph.n_edges)))
+    return out
+
+
+def multitopo_checks(tmp, smi):
+    """``train-multitopo`` through the CLI on three boxes in two buckets
+    (the JAX CLI's defaults: GCN 3×64, LayerNorm, ``dense``): its buckets,
+    epoch times and losses, ``best`` served; then one step graph a bucket
+    replayed case by case (the shared bucket's second case included)
+    against eager steps bit for bit (on the cases' GCN bands, ``pallas``),
+    and each bucket's replayed step against the eager one in time."""
+    import numpy as np
+    import torch
+    from gnn_bfs_rans_tpu_torch.cli.main import main as cli_main
+    from gnn_bfs_rans_tpu_torch.foam import generate_box_case
+    from gnn_bfs_rans_tpu_torch.infer import Predictor
+    from gnn_bfs_rans_tpu_torch.models.flow_gnn import ModelConfig
+    from gnn_bfs_rans_tpu_torch.train.graphs import signature
+    from gnn_bfs_rans_tpu_torch.train.loop import TrainConfig, train_step
+    from gnn_bfs_rans_tpu_torch.train.multitopo import (
+        MultiTopoDataset, MultiTopoTrainer, load_multitopo_dataset)
+
+    paths = []
+    for name, nx, ny in TOPO_BOXES:
+        generate_box_case(tmp / f"topo_{name}", nx, ny, 1,
+                          time_dirs=("282",))
+        paths.append(str(tmp / f"topo_{name}"))
+    out = tmp / "multitopo_out"
+    buf = io.StringIO()
+    t = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["train-multitopo", "--case_paths", *paths,
+                       "--output_dir", str(out), "--epochs",
+                       str(TOPO_EPOCHS), "--device", "cuda"])
+    wall = time.time() - t
+    text = buf.getvalue()
+    hist = json.loads((out / "training_history.json").read_text())
+    epochs = [ln for ln in text.splitlines() if ln.startswith("Epoch ")]
+    log(f"train-multitopo (3 boxes, GCN 3x64 dense, {TOPO_EPOCHS} epochs) "
+        f"in {wall:.1f} s: " + "; ".join(
+            ln for ln in text.splitlines() if "bucket" in ln)
+        + "; epochs: " + " | ".join(ln.split(": ", 1)[1] for ln in epochs)
+        + f"; {smi}")
+    if (rc != 0 or "3 cases in 2 bucket(s)" not in text
+            or not np.isfinite(hist["train_loss"]).all()
+            or hist["train_loss"][-1] >= hist["train_loss"][0]):
+        raise AssertionError(f"train-multitopo: rc {rc}, {hist}")
+    dense = load_multitopo_dataset(paths, node_align=512, edge_align=2048)
+    fields = Predictor.from_checkpoint(out, "best").predict_fields(
+        dense.cases[2].graph)
+    if not all(np.isfinite(v).all() for v in fields.values()):
+        raise AssertionError("train-multitopo: best serves non-finite fields")
+
+    ds = MultiTopoDataset(_banded_cases(dense), dense.normalizer)
+    a, b, c = range(3)
+    if (ds.cases[a].bucket != ds.cases[b].bucket or len(ds.buckets) != 2
+            or signature(ds.cases[a].graph) != signature(ds.cases[b].graph)):
+        raise AssertionError(f"multitopo buckets {ds.buckets}")
+    cfg = ModelConfig(hidden_dim=64, num_layers=3, layer_type="GCN",
+                      dropout=0.0, norm_type="layer", backend="pallas")
+    tcfg = TrainConfig(lr=3e-3)
+    trs = [MultiTopoTrainer(ds, cfg, tcfg, tmp / f"topo_{n}",
+                            log_fn=lambda *_: None, device="cuda")
+           for n in ("graphed", "eager")]
+    graphed, eager = trs
+    gaps = []
+    for ci in (a, a, c, c, b, c, b):
+        got = graphed._step(ds.cases[ci].bucket)(
+            graphed.graphs[ci], graphed.targets[ci], 3e-3).item()
+        want = train_step(eager.model, eager.optimizer, eager.graphs[ci],
+                          eager.targets[ci], 3e-3, tcfg,
+                          eager.generator).item()
+        same = got == want and all(
+            torch.equal(p, q) for p, q in zip(graphed.model.parameters(),
+                                              eager.model.parameters()))
+        gaps.append((ci, got, want, same))
+    log(f"multitopo step graphs ({sum(k[0] == 'step' for k in graphed._graphs)}"
+        f" for {len(ds.buckets)} buckets), case, replayed vs eager loss, "
+        f"parameters equal: {gaps}")
+    if not all(g[3] for g in gaps) or len(graphed._graphs) != 2:
+        raise AssertionError("multitopo: replays differ from eager steps")
+
+    # the CLI's model (dense): each bucket's replayed step against eager
+    tr = MultiTopoTrainer(dense,
+                          ModelConfig(hidden_dim=64, num_layers=3,
+                                      layer_type="GCN", dropout=0.0,
+                                      norm_type="layer", backend="dense"),
+                          tcfg, tmp / "topo_dense", log_fn=lambda *_: None,
+                          device="cuda")
+    for ci in (a, c):
+        bucket = tr.dataset.cases[ci].bucket
+        step = tr._step(bucket)
+        g, tg = tr.graphs[ci], tr.targets[ci]
+        _replay_vs_eager(
+            f"multitopo step GCN 3x64 dense, bucket {bucket}",
+            lambda: step(g, tg, 3e-3),
+            lambda: train_step(tr.model, tr.optimizer, g, tg, 3e-3, tcfg,
+                               tr.generator), smi)
+
+
+def graphed_scaleout_checks(case, train_case, smi):
+    """In a NCCL group of one rank: the DP step (4 snapshots), the
+    multi-case step (4 cases), the streamed multi-case loop (8 cases in
+    chunks of 3, 3, 2: two graphs) and the partitioned step and forward,
+    GAT 4×256 bf16 dropout 0.1 (the partitioned model unfused), each
+    replayed against its eager form from one state and generator bit for
+    bit, with host time, device time and idle share eager and replayed;
+    then ``bench --mode dp --devices 1`` (chained replays)."""
+    import numpy as np
+    import torch
+    from gnn_bfs_rans_tpu_torch.cli.main import main as cli_main
+    from gnn_bfs_rans_tpu_torch.foam import FoamCase
+    from gnn_bfs_rans_tpu_torch.graph.band import LAYER_COMPONENTS
+    from gnn_bfs_rans_tpu_torch.graph.build import attach_band
+    from gnn_bfs_rans_tpu_torch.infer import load_graph
+    from gnn_bfs_rans_tpu_torch.models.flow_gnn import FlowGNN
+    from gnn_bfs_rans_tpu_torch.models.partitioned import PartitionedFlowGNN
+    from gnn_bfs_rans_tpu_torch.parallel import (
+        build_partition, make_dp_train_step, make_multicase_train_step,
+        make_partitioned_forward, make_partitioned_train_step,
+        make_perturbed_cases, shard_cases, shard_partition,
+        shard_partitioned_targets, shard_targets)
+    from gnn_bfs_rans_tpu_torch.parallel.generalization import (
+        analytic_targets, train_multicase_streamed)
+    from gnn_bfs_rans_tpu_torch.train.data import load_dataset
+    from gnn_bfs_rans_tpu_torch.train.loop import TrainConfig, make_optimizer
+    from gnn_bfs_rans_tpu_torch.train.streaming import perturbed_case_source
+
+    dev = torch.device("cuda")
+    tcfg = TrainConfig(lr=1e-3)
+    ds = load_dataset(train_case, TRAIN_TIMES, with_band=True,
+                      band_components=LAYER_COMPONENTS["GAT"])
+    gd = ds.graph.to(dev)
+    snaps = ds.targets[np.arange(4) % ds.n_snapshots]
+    mesh = FoamCase(case).load_mesh()
+    base, cases = make_perturbed_cases(mesh, 4, amplitude=0.05, seed=0)
+    base = attach_band(base, LAYER_COMPONENTS["GAT"])
+    cases = dataclasses.replace(cases, targets=np.stack(
+        [analytic_targets(c, cases.node_feats[c]) for c in range(4)]))
+    bd = base.to(dev)
+    graph = load_graph(case, "GAT")
+    pg = build_partition(graph, 1, SHARD_HALO)
+    ptargets = np.random.default_rng(9).normal(
+        size=(2, graph.n_pad, 7)).astype(np.float32)
+
+    def setup(kind):
+        """(step, its arguments, the model) from seed 1."""
+        if kind == "partitioned":
+            model = PartitionedFlowGNN(_flagship(dropout=DROPOUT),
+                                       torch.Generator().manual_seed(1))
+            model = model.to(dev)
+            step = make_partitioned_train_step(
+                model, make_optimizer(model, tcfg), tcfg, SHARD_HALO)
+            return step, (shard_partition(pg, 0, dev),
+                          shard_partitioned_targets(ptargets, pg, 0, dev)), \
+                model
+        model = FlowGNN(_flagship(dropout=DROPOUT),
+                        torch.Generator().manual_seed(1)).to(dev)
+        opt = make_optimizer(model, tcfg)
+        if kind == "dp":
+            return make_dp_train_step(model, opt, tcfg), (
+                gd, *shard_targets(snaps, device=dev)), model
+        return make_multicase_train_step(model, opt, tcfg), (
+            bd, shard_cases(cases, device=dev)), model
+
+    labels = {"dp": "DP step GAT 4x256 bf16, 4 snapshots",
+              "multicase": "multi-case step GAT 4x256 bf16, 4 cases",
+              "partitioned": "partitioned step GAT 4x256 bf16 unfused"}
+    for kind, label in labels.items():
+        runs = []
+        for graphed in (True, False):
+            step, args, model = setup(kind)
+            if not step.capture:
+                raise AssertionError(f"{label}: not captured in a NCCL "
+                                     "group")
+            fn = step if graphed else step.eager
+            gen = torch.Generator(dev).manual_seed(5)
+            losses = [fn(*args, 1e-3, gen).item() for _ in range(4)]
+            runs.append((losses, [p.detach().clone()
+                                  for p in model.parameters()]))
+            if graphed:
+                replayed = functools.partial(step, *args, 1e-3, gen)
+            else:
+                eager = functools.partial(step.eager, *args, 1e-3, gen)
+        (lg, pg_), (le, pe) = runs
+        same = lg == le and all(torch.equal(x, y) for x, y in zip(pg_, pe))
+        log(f"{label} (world 1, NCCL): 4 calls graphed (warm-up, capture, "
+            f"2 replays) vs eager: losses {lg} vs {le}, parameters equal "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"{label}: replays differ from eager steps")
+        _replay_vs_eager(f"{label} (world 1, NCCL)", replayed, eager, smi)
+
+    model = PartitionedFlowGNN(_flagship(), torch.Generator().manual_seed(1))
+    fwd = make_partitioned_forward(model.to(dev), SHARD_HALO)
+    shard = shard_partition(pg, 0, dev)
+    outs = [fwd(shard) for _ in range(3)]
+    want = fwd.eager(shard)
+    log(f"partitioned forward GAT 4x256 bf16 (world 1, NCCL): replays equal "
+        f"to eager {[torch.equal(o, want) for o in outs]}")
+    if not all(torch.equal(o, want) for o in outs):
+        raise AssertionError("partitioned forward: replays differ")
+    _replay_vs_eager("partitioned forward GAT 4x256 bf16 (world 1, NCCL)",
+                     lambda: fwd(shard), lambda: fwd.eager(shard), smi)
+
+    def source():
+        return perturbed_case_source(base, STREAM_CASES, chunk=3,
+                                     amplitude=0.05, seed=0,
+                                     targets_for=analytic_targets)
+
+    cfg = _flagship(dropout=DROPOUT)
+    timings = []
+    model = FlowGNN(cfg, torch.Generator().manual_seed(1)).to(dev)
+    _, hist = train_multicase_streamed(model, tcfg, base, source, epochs=2,
+                                       lr=1e-3, prefetch_depth=2,
+                                       timings=timings)
+    twin = FlowGNN(cfg, torch.Generator().manual_seed(1)).to(dev)
+    step = make_multicase_train_step(twin, make_optimizer(twin, tcfg), tcfg)
+    gen = torch.Generator(dev).manual_seed(tcfg.seed)
+    eager_losses = [[step.eager(bd, shard_cases(batch, device=dev), 1e-3,
+                                gen).item() for batch in source()]
+                    for _ in range(2)]
+    same = all(torch.equal(p, q) for p, q in zip(model.parameters(),
+                                                 twin.parameters()))
+    same &= [h["loss"] for h in hist] == [float(np.mean(v))
+                                          for v in eager_losses]
+    for h, t in zip(hist, timings):
+        log(f"streamed (graphed) epoch {h['epoch']}: loss {h['loss']:.6f}, "
+            f"{h['seconds'] / t['chunks'] * 1e3:.3f} ms a chunk "
+            f"({t['chunks']} chunks of 3, 3, 2 cases); step "
+            f"{t['step_s'] * 1e3:.3f} ms in all, consumer's wait on the "
+            f"prefetch queue {t['prefetch_wait_s'] * 1e3:.3f} ms; {smi}")
+    log(f"streamed 2 epochs, 8 cases in chunks of 3 (the short last "
+        f"chunk on a graph of its own): replays equal to eager steps on the "
+        f"same chunks {same}")
+    if not same:
+        raise AssertionError("streamed multi-case: replays differ from "
+                             "eager steps")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["bench", "--mode", "dp", "--devices", "1",
+                       "--case_path", str(train_case), "--compute_dtype",
+                       "bfloat16", "--device", "cuda"])
+    line = buf.getvalue().strip().splitlines()[-1]
+    res = json.loads(line)
+    log(f"bench --mode dp --devices 1 ({res['note']}): {line}; {smi}")
+    if (rc != 0 or res["value"] != 1.0 or res["step_s_1dev"] <= 0
+            or res["timing"] != "chained_replay"):
+        raise AssertionError(f"bench --mode dp: {line}")
+
+
+def native_checks(tmp, smi):
+    """The native and numpy walks of the faces file of the 100,000-cell
+    mixed hex/prism case: equal outputs, their host times, and
+    ``load_mesh``'s (native) host time."""
+    import numpy as np
+    from gnn_bfs_rans_tpu_torch import native
+    from gnn_bfs_rans_tpu_torch.foam import FoamCase, tokenizer
+    from gnn_bfs_rans_tpu_torch.foam.casegen import generate_mixed_prism_case
+
+    path = tmp / "prism100k"
+    t = time.time()
+    generate_mixed_prism_case(path, *PRISM)
+    made = time.time() - t
+    if not native.available():
+        raise AssertionError("the native tokenizer did not build")
+    body = tokenizer.strip_header(
+        (path / "constant" / "polyMesh" / "faces").read_text())
+    times = {}
+    for name, fn in (("native", tokenizer.parse_face_list_fast),
+                     ("numpy", tokenizer.parse_face_list)):
+        best = float("inf")
+        for _ in range(2):
+            t = time.perf_counter()
+            got = fn(body)
+            best = min(best, time.perf_counter() - t)
+        times[name] = (best * 1e3, got)
+    (tn, (on, pn)), (tw, (ow, pw)) = times["native"], times["numpy"]
+    same = np.array_equal(on, ow) and np.array_equal(pn, pw)
+    t = time.perf_counter()
+    mesh = FoamCase(path).load_mesh()
+    load_ms = (time.perf_counter() - t) * 1e3
+    log(f"faces of the {mesh.n_cells}-cell mixed prism case ({len(on) - 1} "
+        f"faces, sizes {sorted(set(np.diff(on).tolist()))}; made in "
+        f"{made:.1f} s): native walk {tn:.1f} ms, numpy walk {tw:.1f} ms "
+        f"(best of 2, host), equal {same}; load_mesh {load_ms:.1f} ms; "
+        f"{smi}")
+    if not same or mesh.n_cells != 100_000:
+        raise AssertionError("native tokenizer: walks differ")
+
+
+def last_modules_phase(case, train_case, smi):
+    """Phase 21: the surrogate, train-multitopo, the graphed scale-out
+    steps over NCCL, the native tokenizer."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.parallel.distributed import init_distributed
+
+    t0 = time.time()
+    surrogate_checks(case, smi)
+    log(f"phase 21 surrogate: {time.time() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.time()
+        multitopo_checks(Path(tmp), smi)
+        log(f"phase 21 multitopo: {time.time() - t:.1f} s")
+        t = time.time()
+        native_checks(Path(tmp), smi)
+        log(f"phase 21 native: {time.time() - t:.1f} s")
+    init_distributed(world_size=1, device="cuda")
+    try:
+        t = time.time()
+        graphed_scaleout_checks(case, train_case, smi)
+        log(f"phase 21 graphed scale-out: {time.time() - t:.1f} s")
+    finally:
+        torch.distributed.destroy_process_group()
+    log(f"phase 21 in all {time.time() - t0:.1f} s")
 
 
 def main() -> int:
@@ -3871,17 +4318,20 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     log(f"card: {smi}")
 
-    if sys.argv[1:] == ["--phase", "20"]:
-        # phase 20 alone (a quicker call while working on it): no kernel
-        # table and no result line
+    if sys.argv[1:] in (["--phase", "20"], ["--phase", "21"]):
+        # phase 20 or 21 alone (a quicker call while working on it): no
+        # kernel table and no result line
         with tempfile.TemporaryDirectory() as tmp:
             case, train_case = Path(tmp) / "case", Path(tmp) / "train_case"
             generate_box_case(case, 400, 30, 1)
             generate_box_case(train_case, 400, 30, 1, time_dirs=TRAIN_TIMES,
                               time_field_fn=drifting_box_fields)
-            scaleout_phase(case, train_case, torch.Generator().manual_seed(0),
-                           smi)
-        log("phase 20 alone: passed")
+            if sys.argv[2] == "20":
+                scaleout_phase(case, train_case,
+                               torch.Generator().manual_seed(0), smi)
+            else:
+                last_modules_phase(case, train_case, smi)
+        log(f"phase {sys.argv[2]} alone: passed")
         return 0
 
     gen = torch.Generator().manual_seed(0)
@@ -4043,11 +4493,18 @@ def main() -> int:
         log(f"phase 19 (reference checkpoints): {time.time() - t1:.1f} s")
 
         # scale-out: sliced bands, the partitioned forward and step (NCCL),
-        # DP, multi-case and streamed steps, bench --mode dp, remat
+        # DP, multi-case and streamed steps, remat
         t1 = time.time()
         scaleout_phase(case, train_case, gen, smi)
         log(f"phase 20 (scale-out): {time.time() - t1:.1f} s")
 
+        # the surrogate, train-multitopo, the graphed scale-out steps over
+        # NCCL and bench --mode dp, the native tokenizer
+        t1 = time.time()
+        last_modules_phase(case, train_case, smi)
+        log(f"phase 21 (the last modules): {time.time() - t1:.1f} s")
+
+    # phase 22: the kernel table and the result line
     gat = {k: v for k, v in rows[("gat_train", 400, "bfloat16")].items()}
     kernels = [
         dict(name="banded_gat_mean_fused", route="cuda",

@@ -1,11 +1,11 @@
 """Command-line interface of the port: train / infer / export-torch /
 visualize / plot-lines / plot-training / check-data / check-coordinates /
-bench.
+train-multicase / train-multitopo / bench.
 
 ``python -m gnn_bfs_rans_tpu_torch <subcommand> [flags]`` take the flags
 of the JAX package's subcommands (``gnn_bfs_rans_tpu/cli/main.py``), and
-those that run a model (``train``, ``infer``, ``visualize``,
-``plot-lines``, ``bench``) also ``--device`` (``cuda`` by default; ``cpu``
+those that run a model (``train``, ``train-multicase``, ``train-multitopo``,
+``infer``, ``visualize``, ``plot-lines``, ``bench``) also ``--device`` (``cuda`` by default; ``cpu``
 runs the kernels' plain versions).  ``train`` defaults to the JAX CLI's model
 (``--layer_type GCN``, 6 layers, hidden 256) and trains every layer type
 on every backend: ``--backend pallas`` (the port's default, where the JAX
@@ -27,13 +27,16 @@ cpu``): real OpenFOAM cases (``--case_paths``) or a perturbed-geometry
 family of ``--case_path`` with analytic targets and the
 geometry-generalization report, writing ``normalizer.json``,
 ``history.json`` and ``generalization.json`` as the JAX CLI does.
+``train-multitopo`` (the JAX subcommand's flags and defaults: ``--backend
+dense``, GCN 3×64, LayerNorm, 30 epochs) trains one model over cases of
+different meshes, one CUDA graph of the step a padding bucket
+(``train/multitopo.py``).
 ``export-torch`` writes a checkpoint in the reference's ``.pt`` format
 (``compat/torch_port.py``).  ``visualize`` and ``plot-lines`` serve the
 checkpoint on the case (``infer.predict_case``) and plot it against a
 reference time; they and ``plot-training`` need matplotlib.
 ``check-data`` and ``check-coordinates`` run on the host alone.  Not
-ported: the JAX trainer's ``--no_aot`` (its compile cache), and
-``train-multitopo`` (a later slice).
+ported: the JAX trainer's ``--no_aot`` (its compile cache).
 """
 
 from __future__ import annotations
@@ -312,6 +315,29 @@ def cmd_train_multicase(args) -> int:
     return 0
 
 
+def cmd_train_multitopo(args) -> int:
+    """Training over cases with different mesh topologies, one graph of
+    the step a padding bucket (the JAX ``cmd_train_multitopo``)."""
+    from ..models.flow_gnn import ModelConfig
+    from ..train.loop import TrainConfig
+    from ..train.multitopo import MultiTopoTrainer, load_multitopo_dataset
+
+    dataset = load_multitopo_dataset(
+        args.case_paths, time_dir=args.time_dir,
+        node_align=args.node_align, edge_align=args.edge_align)
+    mcfg = ModelConfig(
+        hidden_dim=args.hidden_dim, num_layers=args.num_layers,
+        layer_type=args.layer_type, dropout=args.dropout,
+        norm_type=args.norm_type, backend=args.backend)
+    tcfg = TrainConfig(lr=args.lr, epochs=args.epochs, seed=args.seed)
+    trainer = MultiTopoTrainer(dataset, mcfg, tcfg,
+                               output_dir=args.output_dir,
+                               device=args.device)
+    trainer.train()
+    print("Multi-topology training completed!")
+    return 0
+
+
 def cmd_bench(args) -> int:
     if args.mode == "dp":
         from ..utils.dp_bench import run_dp_scaling_benchmark
@@ -535,6 +561,36 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (one rank a card, NCCL) or cpu (gloo ranks)")
     p.set_defaults(func=cmd_train_multicase)
+
+    p = sub.add_parser(
+        "train-multitopo",
+        help="Bucketed training over cases with different mesh topologies",
+    )
+    p.add_argument("--case_paths", type=str, nargs="+", required=True,
+                   help="OpenFOAM case dirs; meshes may differ arbitrarily "
+                        "(similar sizes share a padding bucket and its "
+                        "CUDA graphs)")
+    p.add_argument("--time_dir", type=str, default="282")
+    p.add_argument("--output_dir", type=str, default="multitopo_out")
+    p.add_argument("--node_align", type=int, default=512,
+                   help="Node-padding bucket granularity")
+    p.add_argument("--edge_align", type=int, default=2048,
+                   help="Edge-padding bucket granularity")
+    p.add_argument("--epochs", type=int, default=30)
+    p.add_argument("--hidden_dim", type=int, default=64)
+    p.add_argument("--num_layers", type=int, default=3)
+    p.add_argument("--layer_type", type=str, default="GCN",
+                   choices=["GCN", "GAT", "GIN", "Transformer"])
+    p.add_argument("--dropout", type=float, default=0.0)
+    p.add_argument("--norm_type", type=str, default="layer",
+                   choices=["batch", "layer", "none"])
+    p.add_argument("--backend", type=str, default="dense",
+                   choices=["segment", "dense", "pallas"])
+    p.add_argument("--lr", type=float, default=3e-3)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (CUDA graphs of the steps) or cpu")
+    p.set_defaults(func=cmd_train_multitopo)
 
     p = sub.add_parser("bench", help="Performance benchmark")
     p.add_argument("--case_path", type=str, default="OpenFOAM-data",

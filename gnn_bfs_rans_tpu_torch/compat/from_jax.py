@@ -27,6 +27,11 @@ Layouts:
   ``var`` → ``norms.i.weight`` / ``bias`` / ``running_mean`` /
   ``running_var``; LayerNorm (``norm_type='layer'``) ``bn_i`` ``scale`` /
   ``bias`` → ``norms.i.scale`` / ``bias``.
+
+``surrogate_state_dict_from_flax`` and ``surrogate_flax_from_state_dict``
+do the same for a ``FlowGNNSurrogate``, whose trees hold one FlowGNN tree
+under ``encoder`` and one under ``decoder`` (``encoder.`` / ``decoder.``
+state-dict prefixes, each stage on its own config).
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.flow_gnn import ModelConfig
+from ..models.flow_gnn import ModelConfig, surrogate_configs
 
 
 PORTED = ("GCN", "GAT", "GIN", "Transformer")
@@ -177,4 +182,34 @@ def flax_tree_from_state_dict(sd: dict, config: ModelConfig
                                  "bias": _a(sd, f"norms.{i}.bias")}
     for k in range(4):
         params[f"out_{k}"] = linear(f"out_{k}")
+    return params, stats
+
+
+SURROGATE_STAGES = ("encoder", "decoder")
+
+
+def surrogate_state_dict_from_flax(params: dict, batch_stats: dict,
+                                   config: ModelConfig
+                                   ) -> dict[str, torch.Tensor]:
+    """A ``FlowGNNSurrogate``'s flax trees → its state dict."""
+    sd: dict[str, torch.Tensor] = {}
+    for stage, cfg in zip(SURROGATE_STAGES, surrogate_configs(config)):
+        sd.update({f"{stage}.{k}": v for k, v in state_dict_from_flax(
+            params[stage], batch_stats.get(stage, {}), cfg).items()})
+    return sd
+
+
+def surrogate_flax_from_state_dict(sd: dict, config: ModelConfig
+                                   ) -> tuple[dict, dict]:
+    """Inverse of :func:`surrogate_state_dict_from_flax`: (params,
+    batch_stats) numpy trees (a stage without statistics has none)."""
+    params, stats = {}, {}
+    for stage, cfg in zip(SURROGATE_STAGES, surrogate_configs(config)):
+        prefix = f"{stage}."
+        p, b = flax_tree_from_state_dict(
+            {k[len(prefix):]: v for k, v in sd.items()
+             if k.startswith(prefix)}, cfg)
+        params[stage] = p
+        if b:
+            stats[stage] = b
     return params, stats

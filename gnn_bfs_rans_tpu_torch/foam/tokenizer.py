@@ -8,8 +8,10 @@ it correctly: the banner comment, ``//`` line comments and the
 ``FoamFile { ... }`` dictionary are stripped *before* any numeric
 tokenization, so list data always starts at the real ``<count> ( ... )`` body.
 
-Everything here is host-side numpy; it runs once per case and the result is
-devices-put a single time (the graph is static across training steps).
+Everything here is host-side numpy, but for faceLists of mixed face sizes,
+which go through the native C++ walk (``native/``) when it builds; it runs
+once per case and the result is moved to the device a single time (the graph
+is static across training steps).
 """
 
 from __future__ import annotations
@@ -137,6 +139,11 @@ def parse_face_list_fast(body: str) -> tuple[np.ndarray, np.ndarray]:
         if np.all(block[:, 0] == k0):
             offsets = np.arange(n_faces + 1, dtype=np.int32) * k0
             return offsets, block[:, 1:].reshape(-1).astype(np.int32)
-    # Mixed-size faces: the cursor walk (the JAX package adds an optional
-    # C++ walk here; the port keeps only the pure-numpy one).
+    # Mixed-size faces: the native C++ walk, else the numpy cursor walk
+    from .. import native
+
+    max_points = int(flat.size)  # tokens bound the point count
+    result = native.parse_faces(body[start:], n_faces, max_points)
+    if result is not None:
+        return result
     return parse_face_list(body)

@@ -494,3 +494,12 @@ class TransformerConv(nn.Module):
                 attn = _dropped(attn, rate, generator)
             out = dops.contract("ndh,ndhc->nhc", attn, v_n)
         return out.reshape(-1, H * C) if self.concat else out.mean(dim=1)
+
+
+# the conv class of each layer type (JAX ``convs.py:621-626``)
+CONV_REGISTRY = {
+    "GCN": GCNConv,
+    "GAT": GATConv,
+    "GIN": GINConv,
+    "Transformer": TransformerConv,
+}

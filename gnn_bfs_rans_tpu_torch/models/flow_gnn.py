@@ -66,6 +66,7 @@ from .norm import LayerNorm, MaskedBatchNorm
 # the edge features every graph of the system carries: [unit dir xyz, dist]
 EDGE_DIM = 4
 FIELD_SLICES = {"U": (0, 3), "p": (3, 4), "k": (4, 5), "epsilon": (5, 6), "nut": (6, 7)}
+FIELD_NAMES = tuple(FIELD_SLICES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -259,6 +260,55 @@ def _remat(conv: nn.Module, x: torch.Tensor, graph: Graph,
         return conv(x, graph, **{**kw, "generator": tape})
 
     return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
+def surrogate_configs(config: ModelConfig
+                      ) -> tuple[ModelConfig, ModelConfig]:
+    """The encoder's and the decoder's configs of a
+    :class:`FlowGNNSurrogate` (JAX ``flow_gnn.py:228-235``): ``num_layers
+    // 2`` blocks each (at least one); the encoder emits ``hidden_dim``
+    features, the decoder takes them."""
+    half = max(config.num_layers // 2, 1)
+    return (dataclasses.replace(config, output_dim=config.hidden_dim,
+                                num_layers=half),
+            dataclasses.replace(config, input_dim=config.hidden_dim,
+                                num_layers=half))
+
+
+class FlowGNNSurrogate(nn.Module):
+    """Encoder-decoder surrogate with an optional additive boundary
+    embedding: the counterpart of ``flow_gnn.py:213-243``
+    (``FlowGNNSurrogate``, the reference's ``gnn_model.py:223-291``).
+
+    Two :class:`FlowGNN` stages of :func:`surrogate_configs`;
+    ``boundary_conditions`` [N_pad, hidden_dim] is added to the encoder's
+    output, and the decoder runs on the same graph with that output as its
+    node features (band planes and all: the Transformer's geo planes come
+    from the mesh).  The encoder's head emits f32, so in bf16 and
+    ``mixed`` the decoder's input projection takes an f32 input.
+    ``exact_bn``, ``train`` and ``generator`` are :meth:`FlowGNN.forward`'s,
+    passed to both stages; both are initialized from ``generator`` (a
+    fixed seed when None), the encoder first."""
+
+    def __init__(self, config: ModelConfig,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.config = config
+        gen = generator or torch.Generator().manual_seed(0)
+        enc, dec = surrogate_configs(config)
+        self.encoder = FlowGNN(enc, gen)
+        self.decoder = FlowGNN(dec, gen)
+
+    def forward(self, graph: Graph,
+                boundary_conditions: torch.Tensor | None = None,
+                exact_bn: bool = False, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        kw = dict(exact_bn=exact_bn, train=train, generator=generator)
+        encoded = self.encoder(graph, **kw)
+        if boundary_conditions is not None:
+            encoded = encoded + boundary_conditions
+        return self.decoder(dataclasses.replace(graph, node_feat=encoded),
+                            **kw)
 
 
 def split_fields(output):

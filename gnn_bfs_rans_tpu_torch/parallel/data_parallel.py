@@ -23,6 +23,15 @@ The reduction is one ``all_reduce`` of a flat buffer
 (``distributed.all_reduce_grads``), not ``DistributedDataParallel``,
 whose bucketed hooks average by default and would sit inside the step's
 backward.
+
+On the card the step and the forward replay CUDA graphs, the port's
+``jax.jit`` of the JAX functions (``train/graphs.py::GraphCache``: one
+graph a ``freeze_pressure``, generator and argument shape; the first call
+runs eagerly, which also creates the NCCL communicator, the second
+captures the step with its all-reduces).  In a gloo group, or on the CPU,
+they run eagerly.  ``make_dp_train_step(jit=False)`` returns the eager
+step, as the JAX function does the traced body; each graphed function's
+``eager`` attribute is its eager form too.
 """
 
 from __future__ import annotations
@@ -34,10 +43,11 @@ import torch
 
 from ..graph.structs import Graph
 from ..models.flow_gnn import FlowGNN
+from ..train.graphs import GraphCache
 from ..train.loop import TrainConfig, apply_update
 from ..train.normalization import weighted_fieldwise_mse
 from .distributed import (all_reduce_, all_reduce_grads, broadcast_,
-                          rank_of, world_size)
+                          capturable, rank_of, world_size)
 
 
 def shard_targets(targets: np.ndarray, world: int | None = None,
@@ -69,11 +79,14 @@ def replicate(model: torch.nn.Module, group=None) -> torch.nn.Module:
 
 
 def make_dp_train_step(model: FlowGNN, optimizer: torch.optim.Optimizer,
-                       cfg: TrainConfig, group=None) -> Callable:
+                       cfg: TrainConfig, group=None,
+                       jit: bool = True) -> Callable:
     """``step(graph, targets, weights, lr, generator=None,
     freeze_pressure=False) -> loss``: one data-parallel train step on this
     rank's ``targets`` and ``weights`` (from :func:`shard_targets`); the
-    loss returned is the global one, on every rank."""
+    loss returned is the global one, on every rank.  ``jit``: replayed as
+    a CUDA graph where :func:`~.distributed.capturable` (see the module
+    doc); False: always eager."""
 
     def step(graph: Graph, targets: torch.Tensor, weights: torch.Tensor,
              lr, generator: torch.Generator | None = None,
@@ -93,19 +106,27 @@ def make_dp_train_step(model: FlowGNN, optimizer: torch.optim.Optimizer,
         apply_update(model, optimizer, lr, cfg, freeze_pressure)
         return loss
 
-    return step
+    if not jit:
+        return step
+    dev = next(model.parameters()).device
+    return GraphCache(step, dev, ("graph", "targets", "weights", "lr"),
+                      capture=capturable(dev, group),
+                      before_capture=lambda: optimizer.zero_grad(
+                          set_to_none=True))
 
 
 def make_dp_forward(model: FlowGNN) -> Callable:
     """``forward(graph) -> [N_pad, out]``: the eval forward of the whole
-    graph on this rank (the node-sharded forward is ``partition``'s)."""
+    graph on this rank (the node-sharded forward is ``partition``'s),
+    replayed as a CUDA graph on the card."""
 
     @torch.no_grad()
     def forward(graph: Graph) -> torch.Tensor:
         model.eval()
         return model(graph)
 
-    return forward
+    dev = next(model.parameters()).device
+    return GraphCache(forward, dev, ("graph",), capture=True)
 
 
 def gather_predictions(out: torch.Tensor, graph: Graph) -> np.ndarray:

@@ -24,6 +24,11 @@ in-place sum of a tensor that needs no gradient, and
 :func:`all_reduce_grads` one flat SUM all-reduce of every gradient.
 Without an initialized group each is the identity (a world of 1 with no
 collective), so the same model code runs alone.
+
+:func:`capturable` says where the scale-out steps run as CUDA graphs
+(``train/graphs.py``): on the card, alone or in a NCCL group, whose
+collectives (and ``psum``'s backward) are captured with the step; a gloo
+group's are not capturable, so its steps run eagerly.
 """
 
 from __future__ import annotations
@@ -52,6 +57,15 @@ def active(group=None) -> bool:
 
 def world_size(group=None) -> int:
     return dist.get_world_size(group) if active(group) else 1
+
+
+def capturable(device: torch.device, group=None) -> bool:
+    """Whether a step on ``device`` whose collectives run in ``group`` can
+    be captured into a CUDA graph: on the card, with no group or a NCCL
+    one."""
+    if torch.device(device).type != "cuda":
+        return False
+    return not active(group) or dist.get_backend(group) == "nccl"
 
 
 def rank_of(group=None) -> int:

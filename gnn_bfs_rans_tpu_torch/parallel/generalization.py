@@ -62,7 +62,11 @@ def train_multicase_streamed(model: FlowGNN, tcfg: TrainConfig,
     ``source_factory()`` returns a fresh iterator of CaseBatch chunks (each
     chunk's case count divisible by the world size), once an epoch; each
     chunk is one step.  A :class:`Prefetcher` stages this rank's block of
-    the next chunks on a side stream while the step runs.  Dropout draws
+    the next chunks on a side stream while the step runs; on the card the
+    step is a replay of the multi-case step's CUDA graph (one a chunk
+    size: a short last chunk has its own), whose copy of the chunk into
+    the capture runs on the consumer's stream after it has waited on the
+    chunk's staging event.  Dropout draws
     from a generator seeded with ``tcfg.seed``.  ``timings``: a list that
     gets one entry an epoch: chunks, the steps' seconds (ending in a
     synchronize) and the consumer's wait on the prefetch queue."""

@@ -18,6 +18,13 @@ edge features) and targets:
 * :func:`make_multicase_forward` and :func:`gather_case_predictions` (case
   order, then each case's rows in original cell order through
   ``graph.perm``).
+
+On the card the step and the forward replay CUDA graphs (the JAX
+functions are jitted; see ``data_parallel.py``), one a case count of the
+chunk, ``freeze_pressure`` and generator: the shared graph and the
+chunk's ``CaseBatch`` are copied into the capture before each replay.  In
+a gloo group, or on the CPU, they run eagerly; ``eager`` is each one's
+eager form.
 """
 
 from __future__ import annotations
@@ -33,10 +40,11 @@ from ..graph.build import build_graph, compute_edge_features
 from ..graph.structs import Graph
 from ..models.flow_gnn import FlowGNN
 from ..models.norm import MaskedBatchNorm
+from ..train.graphs import GraphCache
 from ..train.loop import TrainConfig, apply_update
 from ..train.normalization import weighted_fieldwise_mse
 from .distributed import (all_gather_rows, all_reduce_, all_reduce_grads,
-                          rank_of, world_size)
+                          capturable, rank_of, world_size)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,12 +175,16 @@ def make_multicase_train_step(model: FlowGNN,
         apply_update(model, optimizer, lr, cfg, freeze_pressure)
         return loss
 
-    return step
+    dev = next(model.parameters()).device
+    return GraphCache(step, dev, ("graph", "batch", "lr"),
+                      capture=capturable(dev, group),
+                      before_capture=lambda: optimizer.zero_grad(
+                          set_to_none=True))
 
 
 def make_multicase_forward(model: FlowGNN) -> Callable:
     """``forward(graph, batch) -> [C_local, N_pad, out]``: the eval forward
-    of this rank's cases."""
+    of this rank's cases, replayed as a CUDA graph on the card."""
 
     @torch.no_grad()
     def forward(graph: Graph, batch: CaseBatch) -> torch.Tensor:
@@ -182,7 +194,8 @@ def make_multicase_forward(model: FlowGNN) -> Callable:
                               batch.edge_feats[c]))
             for c in range(batch.n_cases)])
 
-    return forward
+    dev = next(model.parameters()).device
+    return GraphCache(forward, dev, ("graph", "batch"), capture=True)
 
 
 def gather_case_predictions(out: torch.Tensor, graph: Graph,

@@ -24,6 +24,13 @@ shard runs the same banded kernels as the whole graph.  Misaligned
 boundaries (or a halo narrower than the band's reach) route the shard to
 the dense branches: the JAX package's own rule, a routing rule of the
 layout, not a fallback from a failure.
+
+On the card the partitioned forward and step replay CUDA graphs (the JAX
+functions are jitted; see ``data_parallel.py``), the shard's
+``PartitionedGraph`` copied into the capture before each replay, the
+halo exchange and the all-reduces captured with them; in a gloo group, or
+on the CPU, they run eagerly (``eager``: each one's eager form).  At one
+rank the exchange does not run (a shard has no peers).
 """
 
 from __future__ import annotations
@@ -36,10 +43,11 @@ import torch
 
 from ..graph.band import Band
 from ..graph.structs import Graph
+from ..train.graphs import GraphCache
 from ..train.loop import TrainConfig, apply_update
 from ..train.normalization import weighted_fieldwise_mse
 from .distributed import (all_gather_rows, all_reduce_, all_reduce_grads,
-                          psum, rank_of, world_size)
+                          capturable, psum, rank_of, world_size)
 
 # the band planes a partition slices, in the JAX field order
 BAND_PLANES = ("adj", "gcn", "bias_self", "bias_noself", "edge", "geo")
@@ -268,7 +276,8 @@ def make_partitioned_forward(model, halo: int = 128, group=None
         out = part(_local_graph(pg), pg.owned_mask[0], halo, group=group)
         return out[halo:halo + pg.n_loc]
 
-    return forward
+    dev = next(part.parameters()).device
+    return GraphCache(forward, dev, ("pg",), capture=capturable(dev, group))
 
 
 def gather_partitioned(out: torch.Tensor, pgraph: PartitionedGraph,
@@ -337,4 +346,8 @@ def make_partitioned_train_step(model, optimizer,
         apply_update(model, optimizer, lr, train_cfg, freeze_pressure)
         return loss
 
-    return step
+    dev = next(model.parameters()).device
+    return GraphCache(step, dev, ("pg", "targets", "lr"),
+                      capture=capturable(dev, group),
+                      before_capture=lambda: optimizer.zero_grad(
+                          set_to_none=True))

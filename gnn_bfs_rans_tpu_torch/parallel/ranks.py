@@ -6,7 +6,8 @@ runs, as module-level functions that spawned ranks can unpickle.
   gathers): ``halo`` (:func:`models.partitioned.halo_exchange` forward and
   backward), ``partitioned_forward``, ``partitioned_step``, ``dp_step``
   and ``multicase_step`` (one step of each scale-out path from the given
-  weights; the multi-case forward's gathered predictions before it).  The CPU
+  weights, and whether it ran as a CUDA graph; the multi-case forward's
+  gathered predictions before it).  The CPU
   tests and ``chip_smoke.py`` hold these against the JAX package and the
   single-rank paths.
 * :func:`train_multicase_rank`: one rank of CLI ``train-multicase``.
@@ -38,12 +39,14 @@ def _state(model) -> dict:
             for k, v in model.state_dict().items()}
 
 
-def _stepped(model, loss) -> dict:
-    """A step's loss, the state after it and the gradients it applied
-    (after the clip)."""
+def _stepped(model, step, *args) -> dict:
+    """One call of ``step``: its loss, the state after it, the gradients
+    it applied (after the clip) and whether it runs as a CUDA graph."""
+    loss = step(*args)
     return {"loss": float(loss), "state": _state(model),
             "grads": {k: p.grad.float().cpu().numpy()
-                      for k, p in model.named_parameters()}}
+                      for k, p in model.named_parameters()},
+            "captured": step.capture}
 
 
 def _halo(rank, world, device, p):
@@ -77,7 +80,7 @@ def _partitioned_step(rank, world, device, p):
     tcfg = TrainConfig.from_dict(p["train"])
     step = make_partitioned_train_step(model, make_optimizer(model, tcfg),
                                        tcfg, p["halo"])
-    return _stepped(model, step(pg, targets, p["lr"]))
+    return _stepped(model, step, pg, targets, p["lr"])
 
 
 def _dp_step(rank, world, device, p):
@@ -87,8 +90,8 @@ def _dp_step(rank, world, device, p):
     tcfg = TrainConfig.from_dict(p["train"])
     targets, weights = shard_targets(p["targets"], world, rank, device)
     step = make_dp_train_step(model, make_optimizer(model, tcfg), tcfg)
-    return _stepped(model, step(p["graph"].to(device), targets, weights,
-                                p["lr"]))
+    return _stepped(model, step, p["graph"].to(device), targets, weights,
+                    p["lr"])
 
 
 def _multicase_step(rank, world, device, p):
@@ -102,7 +105,7 @@ def _multicase_step(rank, world, device, p):
     pred = gather_case_predictions(make_multicase_forward(model)(graph, batch),
                                    graph)
     step = make_multicase_train_step(model, make_optimizer(model, tcfg), tcfg)
-    return {**_stepped(model, step(graph, batch, p["lr"])), "pred": pred}
+    return {**_stepped(model, step, graph, batch, p["lr"]), "pred": pred}
 
 
 JOBS = {"halo": _halo, "partitioned_forward": _partitioned_forward,

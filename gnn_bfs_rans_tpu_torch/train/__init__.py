@@ -3,7 +3,8 @@
 The public names of ``gnn_bfs_rans_tpu/train/__init__.py`` that the port
 has; the JAX package's jitted-step factories (``make_train_step``,
 ``make_eval_step``, ``make_forward``, ``init_state``, ``TrainState``) are
-the port's ``train_step``, ``eval_step`` and ``FlowGNN`` itself.
+the port's ``train_step``, ``eval_step`` and ``FlowGNN`` itself.  The
+multi-topology trainer (``train/multitopo.py``) is exported here too.
 """
 
 from .checkpoint import (
@@ -14,6 +15,12 @@ from .checkpoint import (
 )
 from .data import FlowDataset, load_dataset
 from .loop import ReduceLROnPlateau, TrainConfig, eval_step, train_step
+from .multitopo import (
+    MultiTopoDataset,
+    MultiTopoTrainer,
+    TopoCase,
+    load_multitopo_dataset,
+)
 from .metrics import (
     compare_with_reference,
     compute_field_errors,
@@ -54,4 +61,8 @@ __all__ = [
     "Prefetcher",
     "perturbed_case_source",
     "foam_case_source",
+    "TopoCase",
+    "MultiTopoDataset",
+    "MultiTopoTrainer",
+    "load_multitopo_dataset",
 ]

@@ -20,6 +20,18 @@ floats among the arguments become 0-d f32 tensors on the device when the
 graph is captured, so the captured function must accept either.  A
 capture that fails raises; nothing runs eagerly in its place.
 
+Arguments may be dataclasses of tensors (a ``Graph`` with its ``Band``, a
+multi-case ``CaseBatch``, a ``PartitionedGraph``): the static copy clones
+every tensor field, at any depth (and the transposed band planes a
+``Band`` keeps), and each replay copies the call's fields into it, so a
+graph captured on one mesh replays on another of the same shapes.  What is
+no tensor (an int such as ``n_nodes``, a flag, None) is part of the
+capture: a call whose non-tensor fields, tensor shapes or dtypes differ
+from the captured ones raises.  :func:`signature` is that specialization
+as a key, for callers that keep one graph per key (``jax.jit``'s cache):
+:class:`GraphCache` keeps one :class:`Graphed` a key for a function
+whose other arguments (a generator, a flag) are static.
+
 The generators given are registered with the graph, so every replay draws
 fresh numbers from them, continuing their streams as eager calls would.
 Graphs that share a memory pool (``pool``) must read each other's outputs
@@ -37,6 +49,8 @@ card.
 from __future__ import annotations
 
 import collections
+import dataclasses
+import inspect
 from typing import Callable, Iterable
 
 import torch
@@ -97,19 +111,16 @@ class Graphed:
         return out
 
     def _load(self, args) -> None:
-        for buf, arg in zip(self.static, args):
-            if isinstance(buf, torch.Tensor) and buf is not arg:
-                if isinstance(arg, torch.Tensor):
-                    buf.copy_(arg)
-                else:
-                    buf.fill_(arg)
+        if len(args) != len(self.static):
+            raise ValueError(f"captured with {len(self.static)} arguments, "
+                             f"called with {len(args)}")
+        for i, (buf, arg) in enumerate(zip(self.static, args)):
+            _load_into(buf, arg, f"argument {i}")
 
     def _capture(self, args) -> None:
         self.static = tuple(
-            a.clone() if isinstance(a, torch.Tensor)
-            else torch.full((), a, dtype=torch.float32, device=self.device)
-            if isinstance(a, float) else a
-            for a in args)
+            torch.full((), a, dtype=torch.float32, device=self.device)
+            if isinstance(a, float) else _static_copy(a) for a in args)
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)
@@ -124,3 +135,138 @@ class Graphed:
         _build.LAUNCHES.clear()
         _build.LAUNCHES.update(counts)
         self.graph = graph
+
+
+def _fields(obj) -> list[str]:
+    return [f.name for f in dataclasses.fields(obj)]
+
+
+def _is_struct(obj) -> bool:
+    return dataclasses.is_dataclass(obj) and not isinstance(obj, type)
+
+
+def _static_copy(obj):
+    """A capture's own copy of an argument: tensors cloned, a dataclass
+    rebuilt from copies of its fields (a ``Band`` with clones of the
+    transposed planes it keeps), anything else kept as it is."""
+    if isinstance(obj, torch.Tensor):
+        return obj.clone()
+    if not _is_struct(obj):
+        return obj
+    copy = dataclasses.replace(obj, **{
+        name: _static_copy(getattr(obj, name)) for name in _fields(obj)})
+    kept = obj.__dict__.get("_transposed")
+    if kept:
+        copy.__dict__["_transposed"] = {k: v.clone() for k, v in kept.items()}
+    return copy
+
+
+def _load_into(static, arg, where: str) -> None:
+    """Copy ``arg``'s tensors into the static copy ``static``; raise where
+    the two differ in anything that is not a tensor's values."""
+    if isinstance(static, torch.Tensor):
+        if static is arg:
+            return
+        if not isinstance(arg, torch.Tensor):
+            if static.dim() == 0 and isinstance(arg, (int, float)):
+                static.fill_(arg)
+                return
+            raise ValueError(f"{where}: captured a tensor, got {type(arg)}")
+        if arg.shape != static.shape or arg.dtype != static.dtype:
+            raise ValueError(f"{where}: captured {tuple(static.shape)} "
+                             f"{static.dtype}, got {tuple(arg.shape)} "
+                             f"{arg.dtype}")
+        static.copy_(arg)
+        return
+    if _is_struct(static):
+        if type(arg) is not type(static):
+            raise ValueError(f"{where}: captured a {type(static).__name__}, "
+                             f"got {type(arg).__name__}")
+        for name in _fields(static):
+            _load_into(getattr(static, name), getattr(arg, name),
+                       f"{where}.{name}")
+        for name, buf in static.__dict__.get("_transposed", {}).items():
+            _load_into(buf, arg.transposed(name), f"{where}.transposed")
+        return
+    if static is not arg and static != arg:
+        raise ValueError(f"{where}: captured {static!r}, got {arg!r}")
+
+
+def signature(*args) -> tuple:
+    """What a capture of ``args`` is specialized on: each tensor's shape
+    and dtype, at any depth of a dataclass, and every other value but a
+    float, which a capture takes as a 0-d tensor (as ``jax.jit`` keys its
+    cache on shapes and static arguments)."""
+    out = []
+
+    def walk(obj):
+        if isinstance(obj, torch.Tensor):
+            out.append((tuple(obj.shape), obj.dtype))
+        elif isinstance(obj, float):
+            out.append(float)
+        elif _is_struct(obj):
+            out.append(type(obj).__name__)
+            for name in _fields(obj):
+                walk(getattr(obj, name))
+        else:
+            out.append(obj)
+
+    for a in args:
+        walk(a)
+    return tuple(out)
+
+
+class GraphCache:
+    """``fn`` replayed as one CUDA graph a key: the :func:`signature` of
+    its ``dynamic`` arguments (named; copied into the capture before each
+    replay) and the values of all its other arguments, which the capture
+    keeps (a ``torch.Generator`` among them is registered with the graph,
+    a flag such as ``freeze_pressure`` selects the graph).  What a call
+    returns is copied out of the graph's static output, so it is a fresh
+    tensor as an eager call's is.  With ``capture`` False (the CPU, or a
+    process group whose collectives cannot be captured) every call runs
+    ``fn`` eagerly; ``eager`` is ``fn`` itself."""
+
+    def __init__(self, fn: Callable, device: torch.device,
+                 dynamic: tuple[str, ...], *, capture: bool,
+                 before_capture: Callable[[], None] | None = None):
+        self.eager = fn
+        self.device = torch.device(device)
+        self.dynamic = dynamic
+        self.capture = capture and self.device.type == "cuda"
+        self.before_capture = before_capture
+        self.pool = (torch.cuda.graph_pool_handle() if self.capture
+                     else None)
+        self.graphs: dict = {}
+        self._sig = inspect.signature(fn)
+
+    def __call__(self, *args, **kwargs):
+        if not self.capture:
+            return self.eager(*args, **kwargs)
+        bound = self._sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        dyn = [bound.arguments[name] for name in self.dynamic]
+        static = {k: v for k, v in bound.arguments.items()
+                  if k not in self.dynamic}
+        key = (signature(*dyn), tuple(static.items()))
+        graph = self.graphs.get(key)
+        if graph is None:
+            names = self.dynamic
+
+            def run(*values):
+                return self.eager(**dict(zip(names, values)), **static)
+
+            graph = self.graphs[key] = Graphed(
+                run, self.device, pool=self.pool,
+                generators=[v for v in static.values()
+                            if isinstance(v, torch.Generator)],
+                before_capture=self.before_capture)
+        return _copy_out(graph(*dyn))
+
+
+def _copy_out(out):
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, (tuple, list)):
+        return type(out)(_copy_out(o) for o in out)
+    return out

@@ -12,13 +12,16 @@ One rank a card over NCCL (``parallel/distributed.py``); with
 than an interconnect measurement.  At one rank the efficiency is 1 by
 construction.
 
-Timing: the marginal step time from K eager steps ending in one fence
-(``utils/bench.py::_marginal_time``'s form, ``timing: marginal_eager``):
-``(T(K) − T(base)) / (K − base)``, best of ``trials``; the DP step is not
-captured in a CUDA graph.  Every rank runs the same steps (they meet in
-the all-reduces); rank 0's times are reported, and a collapsed delta is
-retried once at 4× the steps on every rank before it raises, as the JAX
-harness does.
+Timing: the marginal step time from K chained steps ending in one fence
+(``utils/bench.py::_marginal_time``'s form): ``(T(K) − T(base)) / (K −
+base)``, best of ``trials``.  Each step updates the parameters the next
+one reads, and on the card each is a replay of the DP step's CUDA graph
+(``parallel/data_parallel.py``, over NCCL; ``timing: chained_replay``),
+as the JAX harness times a jitted chain of steps; gloo ranks on the CPU
+run eager steps (``timing: marginal_eager``).  Every rank runs the same
+steps (they meet in the all-reduces); rank 0's times are reported, and a
+collapsed delta is retried once at 4× the steps on every rank before it
+raises, as the JAX harness does.
 """
 
 from __future__ import annotations
@@ -36,8 +39,8 @@ def time_dp_step(rank: int, world: int, case_path: str, model_cfg: dict,
                  snapshots_per_device: int, steps: int, device: str,
                  base: int = 2, trials: int = 3) -> dict:
     """Marginal seconds a DP step on this rank of a ``world``-rank group
-    (inside ``distributed.launch``); returns the seconds and the graph's
-    edge count."""
+    (inside ``distributed.launch``); returns the seconds, the graph's
+    edge count and the timing's name."""
     from ..graph.band import LAYER_COMPONENTS
     from ..models.flow_gnn import FlowGNN, ModelConfig
     from ..parallel.data_parallel import (make_dp_train_step, replicate,
@@ -59,6 +62,7 @@ def time_dp_step(rank: int, world: int, case_path: str, model_cfg: dict,
     targets, weights = shard_targets(base_targets[idx.numpy()], world, rank,
                                      dev)
     step = make_dp_train_step(model, make_optimizer(model, tcfg), tcfg)
+    timing = "chained_replay" if step.capture else "marginal_eager"
     lr = 1e-3
 
     def best_time(k: int) -> float:
@@ -79,7 +83,7 @@ def time_dp_step(rank: int, world: int, case_path: str, model_cfg: dict,
         collapsed = all_reduce_(torch.tensor([float(delta <= 0)]).to(dev))
         if collapsed.item() == 0:
             return {"step_s": float(delta) / (widen * reps - base),
-                    "n_edges": dataset.graph.n_edges}
+                    "n_edges": dataset.graph.n_edges, "timing": timing}
     raise RuntimeError(
         "DP bench resolution collapse: T(full) <= T(base) even at 4x reps "
         f"(base={base}, reps={reps})")
@@ -153,5 +157,5 @@ def run_dp_scaling_benchmark(
         "device": (torch.cuda.get_device_name(0) if dev.type == "cuda"
                    else "cpu"),
         "note": note,
-        "timing": "marginal_eager",
+        "timing": one["timing"],
     }

@@ -100,7 +100,8 @@ def run_partition_shard_benchmark(
         hidden_dim=hidden_dim, num_layers=num_layers, layer_type=layer_type,
         backend="pallas", dropout=0.0, compute_dtype=compute_dtype)
     model = FlowGNN(mcfg, generator=torch.Generator().manual_seed(0)).to(dev)
-    fwd = make_partitioned_forward(model, halo=halo)
+    # the chain captures the forward itself: its eager form
+    fwd = make_partitioned_forward(model, halo=halo).eager
     step_s = chained_marginal_time(fwd, pg, reps=max(steps, 8)).step_s
     msgs = num_layers * graph.n_edges
     return {

@@ -2006,3 +2006,210 @@ def test_remat_on_the_card(card, layer):
     (lg, pg_), (le, pe) = losses
     assert lg == le
     assert all(torch.equal(a, b) for a, b in zip(pg_, pe))
+
+
+# ------------------------------------------------ multi-topology, scale-out
+SERVE_TOL = 5e-2    # × max |plain output| (chip_smoke.py's serving limit)
+
+
+def _topo_boxes(root):
+    """The three boxes of ``tests/test_multitopo.py``: 48 and 60 cells
+    share the 128-row bucket, 192 cells have their own."""
+    paths = []
+    for name, dims in (("small", (4, 4, 3)), ("big", (8, 6, 4)),
+                       ("small2", (5, 4, 3))):
+        generate_box_case(root / name, *dims, time_dirs=("282",))
+        paths.append(root / name)
+    return paths
+
+
+def _params(model):
+    return {k: p.detach().clone() for k, p in model.named_parameters()}
+
+
+def test_multitopo_bucket_replays_equal_eager_steps(card, tmp_path):
+    """One step graph a bucket: captured on the first case of the shared
+    bucket, its replay on the second case (small2) equals an eager step on
+    small2 from the same state bit for bit (and the loss of small from
+    that state differs: the replay did not train on the captured case);
+    the big bucket has its own graph; three cases make two graphs."""
+    from gnn_bfs_rans_tpu_torch.graph.build import attach_band
+    from gnn_bfs_rans_tpu_torch.train.loop import batch_loss, eval_step
+    from gnn_bfs_rans_tpu_torch.train.multitopo import (
+        MultiTopoTrainer, load_multitopo_dataset)
+
+    ds = load_multitopo_dataset(_topo_boxes(tmp_path), node_align=128,
+                                edge_align=512)
+
+    def banded(c):
+        # the dense branch's backward sums neighbour rows with atomics (its
+        # order varies from run to run); row 8 sums in a fixed order, so
+        # the steps can be compared bit for bit.  Built on the true counts
+        true = dataclasses.replace(c.graph, n_nodes=c.n_nodes,
+                                   n_edges=c.n_edges)
+        g = attach_band(true, ("gcn",))
+        return dataclasses.replace(g, n_nodes=c.graph.n_nodes,
+                                   n_edges=c.graph.n_edges)
+
+    ds.cases = [dataclasses.replace(c, graph=banded(c)) for c in ds.cases]
+    # dropout 0: a step's loss is the training forward's loss of its case
+    cfg = ModelConfig(hidden_dim=32, num_layers=2, layer_type="GCN",
+                      dropout=0.0, norm_type="layer", backend="pallas")
+    tcfg = TrainConfig(lr=1e-3)
+    graphed, eager = (MultiTopoTrainer(ds, cfg, tcfg, tmp_path / n,
+                                       log_fn=lambda *_: None, device=card)
+                      for n in ("graphed", "eager"))
+    small, big, small2 = 0, 1, 2
+    assert ds.cases[small].bucket == ds.cases[small2].bucket
+    for ci in (small, small, big, big, small2, big, small2):
+        c = ds.cases[ci]
+        with torch.no_grad():
+            other = batch_loss(eager.model(eager.graphs[small], train=True),
+                               eager.targets[small], eager.graphs[small],
+                               tcfg).item()
+        got = graphed._step(c.bucket)(graphed.graphs[ci],
+                                      graphed.targets[ci], 1e-3).item()
+        want = train_step(eager.model, eager.optimizer, eager.graphs[ci],
+                          eager.targets[ci], 1e-3, tcfg,
+                          eager.generator).item()
+        assert got == want, (ci, got, want)
+        if ci == small2:
+            assert got != other
+        p_g, p_e = _params(graphed.model), _params(eager.model)
+        assert all(torch.equal(p_g[k], p_e[k]) for k in p_e), ci
+    assert sum(k[0] == "step" for k in graphed._graphs) == 2
+    # the eval graph of the shared bucket on its second case
+    for ci in (small, small2, small2):
+        out = graphed._eval(ds.cases[ci].bucket)(graphed.graphs[ci],
+                                                 graphed.targets[ci])[1]
+        _, _, want = eval_step(eager.model, eager.graphs[ci],
+                               eager.targets[ci], tcfg)
+        assert torch.equal(out, want), ci
+
+
+@pytest.fixture
+def nccl_one(card):
+    """A NCCL group of one rank on the card."""
+    import torch.distributed as dist
+
+    from gnn_bfs_rans_tpu_torch.parallel.distributed import init_distributed
+
+    init_distributed(world_size=1, device="cuda")
+    assert dist.get_backend() == "nccl"
+    yield
+    dist.destroy_process_group()
+
+
+def _scaleout_model(card, seed=1, **kw):
+    cfg = ModelConfig(hidden_dim=64, num_layers=2, layer_type="GAT", heads=2,
+                      backend="pallas", dropout=0.1,
+                      compute_dtype="bfloat16", **kw)
+    model = FlowGNN(cfg, torch.Generator().manual_seed(seed)).to(card)
+    return model, make_optimizer(model, TrainConfig(lr=1e-3))
+
+
+@pytest.mark.parametrize("kind", ["dp", "multicase", "partitioned"])
+def test_scaleout_steps_replay_equal_eager_steps(card, nccl_one, tmp_path,
+                                                 kind):
+    """The graphed DP, multi-case and partitioned steps (world 1, NCCL:
+    the all-reduces and psum's backward inside the capture) from one
+    state and generator equal their eager steps bit for bit over four
+    calls (warm-up, capture, two replays), the multi-case and DP steps on
+    data copied in anew for the last call; the partitioned forward
+    replays equal its eager forward."""
+    import numpy as np
+
+    from gnn_bfs_rans_tpu_torch.foam import FoamCase
+    from gnn_bfs_rans_tpu_torch.graph.build import attach_band, build_graph
+    from gnn_bfs_rans_tpu_torch.models.partitioned import PartitionedFlowGNN
+    from gnn_bfs_rans_tpu_torch.parallel import (
+        build_partition, make_dp_train_step, make_multicase_train_step,
+        make_partitioned_forward, make_partitioned_train_step,
+        make_perturbed_cases, shard_cases, shard_partition,
+        shard_partitioned_targets, shard_targets)
+
+    generate_box_case(tmp_path / "box", 40, 30, 1)
+    mesh = FoamCase(tmp_path / "box").load_mesh()
+    graph0 = build_graph(mesh, with_band=True, band_components=("bias_self",))
+    tcfg = TrainConfig(lr=1e-3)
+    tg = np.random.default_rng(0).normal(
+        size=(2, 4, graph0.n_pad, 7)).astype(np.float32)
+    runs = []
+    for graphed in (True, False):
+        gen = torch.Generator(card).manual_seed(5)
+        if kind == "partitioned":
+            model, opt = _scaleout_model(card, fuse_train=False,
+                                         fuse_epilogue=False)
+            model = PartitionedFlowGNN.from_model(model)
+            opt = make_optimizer(model, tcfg)
+            pg = build_partition(graph0, 1, 128)
+            targets = shard_partitioned_targets(tg[0, :2], pg, 0, card)
+            shard = shard_partition(pg, 0, card)
+            step = make_partitioned_train_step(model, opt, tcfg, 128)
+            calls = [(shard, targets)] * 4
+            fwd = make_partitioned_forward(model, 128)
+        else:
+            model, opt = _scaleout_model(card)
+            if kind == "dp":
+                graph = graph0.to(card)
+                step = make_dp_train_step(model, opt, tcfg)
+                calls = [(graph, *shard_targets(tg[i // 3], device=card))
+                         for i in range(4)]
+            else:
+                base, cases = make_perturbed_cases(mesh, 4, amplitude=0.05,
+                                                   seed=0, targets=tg[0])
+                graph = attach_band(base, ("bias_self",)).to(card)
+                step = make_multicase_train_step(model, opt, tcfg)
+                first = shard_cases(cases, device=card)
+                later = shard_cases(dataclasses.replace(
+                    cases, node_feats=cases.node_feats[::-1].copy()),
+                    device=card)
+                calls = [(graph, first)] * 3 + [(graph, later)]
+        if not graphed:
+            step = step.eager
+        losses = [step(*args, 1e-3, gen).item() for args in calls]
+        out = None
+        if kind == "partitioned":
+            out = [(fwd if graphed else fwd.eager)(shard) for _ in range(3)]
+        torch.cuda.synchronize()
+        runs.append((losses, _params(model), out))
+    (l_g, p_g, o_g), (l_e, p_e, o_e) = runs
+    assert l_g == l_e, (l_g, l_e)
+    assert len(set(l_g)) == 4
+    for k in p_e:
+        assert torch.equal(p_g[k], p_e[k]), k
+    if kind == "partitioned":
+        for a, b in zip(o_g, o_e):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["gcn-f32", "gat-bf16-exact"])
+def test_surrogate_kernels_match_plain(card, tmp_path, name):
+    """The encoder-decoder surrogate on the banded box through the kernels
+    (row 8; rows 1 and 2) within SERVE_TOL of its plain versions (the same
+    weights on the CPU)."""
+    from gnn_bfs_rans_tpu_torch.infer import load_graph
+    from gnn_bfs_rans_tpu_torch.models.flow_gnn import FlowGNNSurrogate
+
+    layer, dt, exact = {"gcn-f32": ("GCN", "float32", False),
+                        "gat-bf16-exact": ("GAT", "bfloat16", True)}[name]
+    generate_box_case(tmp_path / "box", 60, 30, 1)
+    graph = load_graph(tmp_path / "box", layer)
+    cfg = ModelConfig(hidden_dim=64, num_layers=4, layer_type=layer, heads=2,
+                      backend="pallas", compute_dtype=dt, dropout=0.0)
+    model = FlowGNNSurrogate(cfg, torch.Generator().manual_seed(0)).eval()
+    bc = 0.1 * torch.randn(graph.n_pad, 64,
+                           generator=torch.Generator().manual_seed(1))
+    _build.reset_launches()
+    with torch.no_grad():
+        got = model.to(card)(graph.to(card), bc.to(card),
+                             exact_bn=exact).cpu()
+        kernel = "banded_spmm" if layer == "GCN" else "banded_gat_mean_fused"
+        assert _build.LAUNCHES[kernel] == 4
+        if exact:
+            assert _build.LAUNCHES["fused_epilogue_fwd"] > 0
+        want = model.cpu()(graph, bc, exact_bn=exact)
+    rows = slice(0, graph.n_nodes)
+    assert torch.isfinite(got).all()
+    assert (got[rows] - want[rows]).abs().max() <= \
+        SERVE_TOL * want[rows].abs().max()

@@ -611,3 +611,79 @@ def test_multicase_step_matches_jax(setups, ranks):
         fwd(m["params"], m["stats"], m["jbase"], sharded), m["jbase"])
     assert res["pred"].shape == want.shape == (4, 384, 7)
     assert np.abs(res["pred"] - want).max() <= STEP_TOL * np.abs(want).max()
+
+
+# ------------------------------------------------ the steps' CUDA graphs
+def _tensors(obj, path="arg"):
+    """(path, tensor) of every tensor field of a dataclass, at any depth."""
+    if isinstance(obj, torch.Tensor):
+        return [(path, obj)]
+    if dataclasses.is_dataclass(obj):
+        return [leaf for f in dataclasses.fields(obj)
+                for leaf in _tensors(getattr(obj, f.name),
+                                     f"{path}.{f.name}")]
+    return []
+
+
+def _capture_args(setups, kind):
+    """Three arguments of one kind: a and b of one shape, c of another
+    (or other counts)."""
+    from gnn_bfs_rans_tpu_torch.parallel import shard_cases, shard_partition
+
+    if kind == "graph":
+        a = _port_grid("GAT")
+        a.band.transposed("bias_self")       # a plane the Band keeps
+        b = dataclasses.replace(a, node_feat=a.node_feat + 1,
+                                edge_feat=-a.edge_feat)
+        return a, b, dataclasses.replace(a, n_nodes=a.n_nodes - 1)
+    if kind == "case_batch":
+        batch = setups["multicase"]["batch"]
+        return (shard_cases(batch, 2, 0, "cpu"),
+                shard_cases(batch, 2, 1, "cpu"),
+                shard_cases(batch, 4, 0, "cpu"))     # a shorter chunk
+    grid = _port_grid("GAT")
+    pg = build_partition(grid, 2, HALO)
+    return (shard_partition(pg, 0, "cpu"), shard_partition(pg, 1, "cpu"),
+            shard_partition(build_partition(grid, 4, HALO), 0, "cpu"))
+
+
+@pytest.mark.parametrize("kind", ["graph", "case_batch", "partition"])
+def test_capture_copies_dataclass_arguments(setups, kind):
+    """What a CUDA graph of a scale-out step keeps of a dataclass argument
+    (``train/graphs.py``, device-independent): a static copy whose every
+    tensor (the Band's kept transposed plane too) is a clone; a call's
+    tensors copied into it, the caller's left as they were; the
+    signature, the graph's key, equal for equal shapes and counts and
+    different otherwise; a call that differs in more than tensor values
+    raises rather than replaying on the captured ones."""
+    from gnn_bfs_rans_tpu_torch.train.graphs import (_load_into,
+                                                     _static_copy, signature)
+
+    a, b, c = _capture_args(setups, kind)
+    static = _static_copy(a)
+    before = [t.clone() for _, t in _tensors(a)]
+    for (name, s), (_, t) in zip(_tensors(static), _tensors(a)):
+        assert s is not t and torch.equal(s, t), name
+    _load_into(static, b, "arg")
+    for (name, s), (_, t) in zip(_tensors(static), _tensors(b)):
+        assert torch.equal(s, t), name
+    assert all(torch.equal(x, t) for x, (_, t) in zip(before, _tensors(a)))
+    if kind == "graph":
+        kept = static.band.__dict__["_transposed"]["bias_self"]
+        assert torch.equal(kept, b.band.transposed("bias_self"))
+    assert signature(a, 1e-3) == signature(b, 3e-4)
+    assert signature(a) != signature(c)
+    with pytest.raises(ValueError):
+        _load_into(static, c, "arg")
+
+
+@pytest.mark.parametrize("world,job", [(2, "partitioned_step"),
+                                       (4, "partitioned_step"),
+                                       (2, "dp_step"),
+                                       (2, "multicase_step")])
+def test_steps_stay_eager_in_a_gloo_group(ranks, world, job):
+    """A gloo group's collectives cannot be captured: on every rank the
+    graphed step ran eagerly."""
+    for rank in range(world):
+        _, res = _job(ranks, world, job, rank=rank)
+        assert res["captured"] is False
