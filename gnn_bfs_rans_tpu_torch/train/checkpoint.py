@@ -7,7 +7,9 @@ model_config, train_config, normalizer, plus any extra keys such as
 ``bn_recalibrated`` and the trainer's resume fields (``best_val``, ``lr``,
 ``sched_best``).  A training checkpoint adds ``<dir>/<name>.train.pt``:
 the optimizer's state dict (Adam's moments and step), which ``--resume``
-needs.
+needs.  A save's parts are spans of ``utils/trace.py``
+(``checkpoint.model``, ``checkpoint.optimizer``, ``checkpoint.meta``) and
+the files' sizes on disk a count (``checkpoint.bytes``).
 Orbax checkpoints need JAX to read and are not read here: carry JAX
 weights over with :mod:`..compat.from_jax`.
 """
@@ -15,12 +17,14 @@ weights over with :mod:`..compat.from_jax`.
 from __future__ import annotations
 
 import json
+import os
 from pathlib import Path
 from typing import Any
 
 import torch
 
 from ..models.flow_gnn import ModelConfig
+from ..utils import trace
 from .normalization import FieldNormalizer
 
 
@@ -41,9 +45,15 @@ def save_checkpoint(
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     path = directory / f"{name}.pt"
-    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, path)
+    with trace.span("checkpoint.model"):
+        torch.save({k: v.detach().cpu() for k, v in state_dict.items()},
+                   path)
+        trace.count("checkpoint.bytes", os.path.getsize(path))
     if train_state is not None:
-        torch.save(train_state, directory / f"{name}.train.pt")
+        with trace.span("checkpoint.optimizer"):
+            train_path = directory / f"{name}.train.pt"
+            torch.save(train_state, train_path)
+            trace.count("checkpoint.bytes", os.path.getsize(train_path))
     meta = {
         "epoch": epoch,
         "val_loss": float(val_loss),
@@ -52,7 +62,10 @@ def save_checkpoint(
         "normalizer": normalizer.to_dict() if normalizer is not None else None,
         **(extra or {}),
     }
-    (directory / f"{name}.meta.json").write_text(json.dumps(meta, indent=2))
+    with trace.span("checkpoint.meta"):
+        meta_path = directory / f"{name}.meta.json"
+        meta_path.write_text(json.dumps(meta, indent=2))
+        trace.count("checkpoint.bytes", os.path.getsize(meta_path))
     return path
 
 

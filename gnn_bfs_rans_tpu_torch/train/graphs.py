@@ -43,7 +43,10 @@ and counters in tensors made before any capture.
 Launch counts: a capture launches nothing, so the kernel wrappers'
 additions to ``kernels._build.LAUNCHES`` during it are taken back and
 added again at each replay, and the counters keep meaning launches on the
-card.
+card.  The warm-up and the capture are spans of ``utils/trace.py``
+(``graphs.warmup``, ``graphs.capture``) and counts (``graphs.warmups``,
+``graphs.captures``); each replay is a count (``graphs.replays``), not a
+span.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from typing import Callable, Iterable
 import torch
 
 from ..kernels import _build
+from ..utils import trace
 
 _SIDE: dict = {}
 
@@ -92,13 +96,18 @@ class Graphed:
             return self.fn(*args)
         if not self.warmed:
             self.warmed = True
-            return self._on_side_stream(lambda: self.fn(*args))
+            trace.count("graphs.warmups")
+            with trace.span("graphs.warmup", fn=_name(self.fn)):
+                return self._on_side_stream(lambda: self.fn(*args))
         if self.graph is None:
-            self._capture(args)
+            trace.count("graphs.captures")
+            with trace.span("graphs.capture", fn=_name(self.fn)):
+                self._capture(args)
         else:
             self._load(args)
         self.graph.replay()
         _build.LAUNCHES.update(self.launches)
+        trace.count("graphs.replays")
         return self.outputs
 
     def _on_side_stream(self, run: Callable):
@@ -135,6 +144,10 @@ class Graphed:
         _build.LAUNCHES.clear()
         _build.LAUNCHES.update(counts)
         self.graph = graph
+
+
+def _name(fn: Callable) -> str:
+    return getattr(fn, "__qualname__", type(fn).__name__)
 
 
 def _fields(obj) -> list[str]:

@@ -42,6 +42,17 @@ cache.  Dropout masks, kernel seeds and the blocks' snapshot
 permutations come from one ``torch.Generator`` on the training device,
 seeded from ``TrainConfig.seed``; parameters are initialized from a CPU
 generator with the same seed.
+
+The trainer's work is traced by ``utils/trace.py``: ``trainer.init``
+(``trainer.model_init``, ``trainer.to_device``, ``trainer.optimizer``),
+``trainer.run`` a ``_run_blocks`` call, ``trainer.block`` a block
+(``trainer.enqueue`` with its device time, ``trainer.sync``,
+``trainer.record``, its checkpoints), ``trainer.save_state`` and
+``trainer.save`` (``checkpoint.exact_stats`` and the file writes).  On the
+card the blocked loop's log line gives each block's device ms an epoch and
+its block end (from the synchronization to the block's last checkpoint);
+``train()`` ends with one line of each span's count and mean and each
+counter.
 """
 
 from __future__ import annotations
@@ -58,6 +69,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.flow_gnn import FlowGNN, ModelConfig
+from ..utils import trace
 from .checkpoint import (
     latest_checkpoint,
     load_checkpoint,
@@ -117,41 +129,48 @@ class Trainer:
         device: str | torch.device = "cuda",
         progress: bool = False,
     ):
-        self.device = resolve_device(device)
-        self.dataset = dataset
-        self.model_config = model_config
-        self.config = train_config
-        self.output_dir = Path(output_dir)
-        self.output_dir.mkdir(parents=True, exist_ok=True)
-        self.log = log_fn
-        self.progress = progress
-        self._pbar = None
+        with trace.span("trainer.init"):
+            self.device = resolve_device(device)
+            self.dataset = dataset
+            self.model_config = model_config
+            self.config = train_config
+            self.output_dir = Path(output_dir)
+            self.output_dir.mkdir(parents=True, exist_ok=True)
+            self.log = log_fn
+            self.progress = progress
+            self._pbar = None
 
-        self.model = FlowGNN(
-            model_config,
-            generator=torch.Generator().manual_seed(train_config.seed),
-        ).to(self.device)
-        self.optimizer = make_optimizer(self.model, train_config)
-        self.graph = dataset.graph.to(self.device)
-        self.targets = torch.from_numpy(dataset.targets).to(self.device)
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            train_config.seed)
-        self.np_rng = np.random.default_rng(train_config.seed)
-        self.bn_recal = resolve_bn_recal(train_config.bn_recal, model_config)
-        self.history = empty_history()
-        self.start_epoch = 1
-        self.scheduler = ReduceLROnPlateau(
-            train_config.lr, factor=train_config.plateau_factor,
-            patience=train_config.plateau_patience,
-            threshold=train_config.plateau_threshold,
-            min_lr=train_config.plateau_min_lr)
-        self.best_val = float("inf")
-        # the step, eval and epoch graphs: one memory pool, the generator
-        # registered with each
-        self._pool = (torch.cuda.graph_pool_handle()
-                      if self.device.type == "cuda" else None)
-        self._graphs: dict = {}
-        self.carry = None
+            with trace.span("trainer.model_init"):
+                model = FlowGNN(
+                    model_config,
+                    generator=torch.Generator().manual_seed(train_config.seed))
+            with trace.span("trainer.to_device"):
+                self.model = model.to(self.device)
+                self.graph = dataset.graph.to(self.device)
+                self.targets = torch.from_numpy(dataset.targets).to(
+                    self.device)
+                self.generator = torch.Generator(
+                    device=self.device).manual_seed(train_config.seed)
+            with trace.span("trainer.optimizer"):
+                self.optimizer = make_optimizer(self.model, train_config)
+            self.np_rng = np.random.default_rng(train_config.seed)
+            self.bn_recal = resolve_bn_recal(train_config.bn_recal,
+                                             model_config)
+            self.history = empty_history()
+            self.start_epoch = 1
+            self.scheduler = ReduceLROnPlateau(
+                train_config.lr, factor=train_config.plateau_factor,
+                patience=train_config.plateau_patience,
+                threshold=train_config.plateau_threshold,
+                min_lr=train_config.plateau_min_lr)
+            self.best_val = float("inf")
+            # the step, eval and epoch graphs: one memory pool, the generator
+            # registered with each
+            self._pool = (torch.cuda.graph_pool_handle()
+                          if self.device.type == "cuda" else None)
+            self._graphs: dict = {}
+            self.carry = None
+            self._block_end = None
 
     def _graphed(self, key, fn, zero_grad: bool = False) -> Graphed:
         g = self._graphs.get(key)
@@ -243,8 +262,9 @@ class Trainer:
         blocked loop the epochs whose graphs were queued are recorded
         first, so the saved parameters are those of the epoch the name
         says."""
+        since = trace.mark()
         try:
-            return self._train_loop()
+            history = self._train_loop()
         except KeyboardInterrupt:
             epoch = self.history["epoch"][-1] if self.history["epoch"] else 0
             val_loss = (self.history["val_loss"][-1] if epoch
@@ -255,6 +275,10 @@ class Trainer:
             self.save_history()
             self.log(f"Interrupted: checkpoint saved at epoch {epoch}")
             raise
+        line = trace.summary(since)
+        if line:
+            self.log(f"Trace: {line}")
+        return history
 
     def _train_loop(self) -> dict:
         cfg = self.config
@@ -416,69 +440,103 @@ class Trainer:
     def _run_blocks(self, carry) -> None:
         cfg = self.config
         epoch = self.start_epoch
-        while epoch <= cfg.epochs:
-            if cfg.curriculum_epochs > 0 and epoch == cfg.curriculum_epochs + 1:
-                new_lr = float(carry.sched.lr) * 0.5
-                carry.sched.lr.fill_(new_lr)
-                self.log(f"Curriculum phase 2: unfreezing pressure, "
-                         f"lr → {new_lr:.3e}")
-            freeze = cfg.curriculum_epochs > 0 and epoch <= cfg.curriculum_epochs
-            # block end: epoch_block cap, save_every multiple, curriculum
-            # boundary, final epoch — whichever comes first
-            stop = min(epoch + cfg.epoch_block - 1,
-                       ((epoch - 1) // cfg.save_every + 1) * cfg.save_every,
-                       cfg.epochs)
-            if freeze:
-                stop = min(stop, cfg.curriculum_epochs)
-            k = stop - epoch + 1
+        with trace.span("trainer.run", counters=True):
+            while epoch <= cfg.epochs:
+                if (cfg.curriculum_epochs > 0
+                        and epoch == cfg.curriculum_epochs + 1):
+                    new_lr = float(carry.sched.lr) * 0.5
+                    carry.sched.lr.fill_(new_lr)
+                    self.log(f"Curriculum phase 2: unfreezing pressure, "
+                             f"lr → {new_lr:.3e}")
+                freeze = (cfg.curriculum_epochs > 0
+                          and epoch <= cfg.curriculum_epochs)
+                # block end: epoch_block cap, save_every multiple, curriculum
+                # boundary, final epoch — whichever comes first
+                stop = min(epoch + cfg.epoch_block - 1,
+                           ((epoch - 1) // cfg.save_every + 1)
+                           * cfg.save_every, cfg.epochs)
+                if freeze:
+                    stop = min(stop, cfg.curriculum_epochs)
+                with trace.span("trainer.block", counters=True, first=epoch,
+                                last=stop):
+                    self._run_block(carry, epoch, stop, freeze)
+                epoch = stop + 1
 
-            t0 = time.perf_counter()
-            carry.epoch.fill_(epoch - 1)
-            carry.slot.zero_()
-            body = self._epoch(freeze)
-            try:
+    def _run_block(self, carry, epoch: int, stop: int,
+                   freeze: bool) -> None:
+        """Epochs ``epoch``..``stop``: queued, read, recorded, saved."""
+        cfg = self.config
+        k = stop - epoch + 1
+        t0 = time.perf_counter()
+        carry.epoch.fill_(epoch - 1)
+        carry.slot.zero_()
+        body = self._epoch(freeze)
+        try:
+            with trace.span("trainer.enqueue",
+                            device=self.device.type == "cuda") as enqueued:
                 for _ in range(k):
                     with _interrupt_after():
                         body()
-            except KeyboardInterrupt:
-                # the epochs queued before it ran whole: record them
-                self._end_block(carry, epoch, int(carry.slot), t0)
-                raise
-            with _interrupt_after():
-                extra = self._end_block(carry, epoch, k, t0)
-                if stop % cfg.save_every == 0 or stop == cfg.epochs:
-                    self._save(f"epoch_{stop}", stop,
-                               self.history["val_loss"][-1], extra)
-            epoch = stop + 1
+        except KeyboardInterrupt:
+            # the epochs queued before it ran whole: record them
+            self._end_block(carry, epoch, int(carry.slot), t0)
+            self._log_block(None)
+            raise
+        with _interrupt_after():
+            extra = self._end_block(carry, epoch, k, t0)
+            if stop % cfg.save_every == 0 or stop == cfg.epochs:
+                self._save(f"epoch_{stop}", stop,
+                           self.history["val_loss"][-1], extra)
+            self._log_block(enqueued)
+
+    def _log_block(self, enqueued) -> None:
+        """The block's log line, at its end: with ``enqueued`` (the
+        block's ``trainer.enqueue`` span, on the card) also the device ms
+        an epoch and the block end's ms, from the synchronization on."""
+        if self._block_end is None:
+            return
+        line, k, synced = self._block_end
+        self._block_end = None
+        device = trace.device_ms(enqueued)
+        if device is not None and k:
+            line += (f"; device {device / k:.2f} ms/epoch, block end "
+                     f"{(time.perf_counter() - synced) * 1e3:.0f} ms")
+        self.log(line + ")")
 
     def _end_block(self, carry, epoch: int, k: int, t0: float) -> dict:
         """Read the block's ``k`` epochs (one host synchronization), record
         them, take the scheduler state back to the host and save ``best``
         from the carry when the block improved on it.  Returns the resume
         fields a checkpoint of the block's end carries."""
-        vals = torch.cat([
-            carry.outs[:k].flatten(),
-            torch.stack([carry.sched.lr, carry.sched.best, carry.best_val,
-                         carry.best_epoch.float()]),
-        ]).tolist()
+        with trace.span("trainer.sync"):
+            vals = torch.cat([
+                carry.outs[:k].flatten(),
+                torch.stack([carry.sched.lr, carry.sched.best, carry.best_val,
+                             carry.best_epoch.float()]),
+            ]).tolist()
+        synced = time.perf_counter()
+        dt = synced - t0
         rows = np.asarray(vals[:-4], np.float64).reshape(k, 3 + len(FIELDS))
         lr, best, block_best, best_epoch = vals[-4:]
-        dt = time.perf_counter() - t0
         if not np.isfinite(rows[:, 0]).all():
             bad = epoch + int(np.argmax(~np.isfinite(rows[:, 0])))
             self.save_history()
             raise FloatingPointError(
                 f"non-finite training loss at epoch {bad} "
                 f"(block {epoch}..{epoch + k - 1})")
-        for j, row in enumerate(rows):
-            self._record(epoch + j, float(row[0]), float(row[1]),
-                         float(row[2]), dict(zip(FIELDS, map(float, row[3:]))),
-                         dt / k)
-        if k:
-            self.log(f"Epochs {epoch}-{epoch + k - 1}: train={rows[-1, 0]:.6f} "
-                     f"val={rows[-1, 1]:.6f} lr={rows[-1, 2]:.3e} "
-                     f"({dt:.2f}s, {dt / k * 1e3:.0f} ms/epoch)")
-            self._advance_pbar(k, *map(float, rows[-1, :3]))
+        with trace.span("trainer.record"):
+            for j, row in enumerate(rows):
+                self._record(epoch + j, float(row[0]), float(row[1]),
+                             float(row[2]),
+                             dict(zip(FIELDS, map(float, row[3:]))), dt / k)
+            if k:
+                # logged at the block's end (``_log_block``)
+                self._block_end = (
+                    f"Epochs {epoch}-{epoch + k - 1}: "
+                    f"train={rows[-1, 0]:.6f} val={rows[-1, 1]:.6f} "
+                    f"lr={rows[-1, 2]:.3e} "
+                    f"({dt:.2f}s, {dt / k * 1e3:.0f} ms/epoch", k, synced)
+                self._advance_pbar(k, *map(float, rows[-1, :3]))
         self.scheduler.lr, self.scheduler.best = lr, best
         extra = {"best_val": min(self.best_val, block_best),
                  "lr": self.scheduler.lr, "sched_best": self.scheduler.best}
@@ -493,27 +551,31 @@ class Trainer:
         """``_save`` of the parameters and buffers ``state``: copied into
         the model in place (the captured graphs keep reading its tensors)
         and back."""
-        current = {k: v.clone() for k, v in self.model.state_dict().items()}
-        self.model.load_state_dict(state)
-        try:
-            self._save(name, epoch, val_loss, extra)
-        finally:
-            self.model.load_state_dict(current)
+        with trace.span("trainer.save_state", name=name):
+            current = {k: v.clone()
+                       for k, v in self.model.state_dict().items()}
+            self.model.load_state_dict(state)
+            try:
+                self._save(name, epoch, val_loss, extra)
+            finally:
+                self.model.load_state_dict(current)
 
     def _save(self, name: str, epoch: int, val_loss: float,
               extra: dict) -> None:
-        state = self.model.state_dict()
-        if self.bn_recal:
-            # exact batch statistics for the saved parameters; the training
-            # state keeps its running averages
-            state = {**state, **exact_stats(self.model, self.graph)}
-            extra = {**extra, "bn_recalibrated": True}
-        save_checkpoint(
-            self.output_dir, name, state, model_config=self.model_config,
-            normalizer=self.dataset.normalizer, epoch=epoch,
-            val_loss=val_loss, train_config=self.config.to_dict(),
-            extra=extra,
-            train_state={"optimizer": self.optimizer.state_dict()})
+        with trace.span("trainer.save", counters=True, name=name):
+            state = self.model.state_dict()
+            if self.bn_recal:
+                # exact batch statistics for the saved parameters; the
+                # training state keeps its running averages
+                with trace.span("checkpoint.exact_stats"):
+                    state = {**state, **exact_stats(self.model, self.graph)}
+                extra = {**extra, "bn_recalibrated": True}
+            save_checkpoint(
+                self.output_dir, name, state, model_config=self.model_config,
+                normalizer=self.dataset.normalizer, epoch=epoch,
+                val_loss=val_loss, train_config=self.config.to_dict(),
+                extra=extra,
+                train_state={"optimizer": self.optimizer.state_dict()})
 
     def save_history(self) -> Path:
         path = self.output_dir / "training_history.json"

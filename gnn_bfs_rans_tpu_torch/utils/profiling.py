@@ -1,9 +1,9 @@
 """Profiling and debugging aids.
 
-Counterpart of ``gnn_bfs_rans_tpu/utils/profiling.py``:
+Counterpart of ``gnn_bfs_rans_tpu/utils/profiling.py`` but for its
+TensorBoard ``trace``: the program's spans and counters and the per-op
+device trace are ``utils/trace.py``'s.
 
-* ``trace`` — context manager around ``torch.profiler`` writing a
-  TensorBoard trace directory;
 * ``enable_nan_checks`` — autograd anomaly detection with NaN checks;
 * ``log_compile_times`` — logs each ``nvcc`` build's seconds;
 * ``device_memory_stats`` — the caching allocator's statistics per card.
@@ -11,31 +11,9 @@ Counterpart of ``gnn_bfs_rans_tpu/utils/profiling.py``:
 
 from __future__ import annotations
 
-import contextlib
 import logging
-import tempfile
-from pathlib import Path
 
 import torch
-
-
-@contextlib.contextmanager
-def trace(log_dir: str | Path | None = None):
-    """Profile a block: ``with trace('dir'): step()`` → a TensorBoard trace
-    (CPU and, with a card, CUDA activities) in ``log_dir`` (default: a
-    ``torch-trace`` directory in the temporary directory)."""
-    from torch.profiler import (ProfilerActivity, profile,
-                                tensorboard_trace_handler)
-
-    if log_dir is None:
-        log_dir = Path(tempfile.gettempdir()) / "torch-trace"
-    Path(log_dir).mkdir(parents=True, exist_ok=True)
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(str(log_dir))):
-        yield
 
 
 def enable_nan_checks(enable: bool = True) -> None:

@@ -1666,6 +1666,49 @@ def test_epoch_block_graph_equals_eager_block(card, tmp_path):
     assert tr.history["epoch"] == [1, 2, 3]
 
 
+def test_a_second_run_of_blocks_only_replays(card, tmp_path):
+    """The trainer's spans and counters on the card: after ``train()``
+    (the epoch graph's warm-up and capture), a second ``_run_blocks`` call
+    of two blocks of 3 records no capture and no warm-up, 3 replays a
+    block, and each block's ``trainer.enqueue`` device time above 0 and
+    within its block's host time; the block's log line gives the device
+    ms an epoch and the block end, and ``train()`` ends with the trace's
+    summary."""
+    from gnn_bfs_rans_tpu_torch.utils import trace
+
+    tr = _trainer(card, tmp_path, "gat-bf16", epochs=3, epoch_block=3,
+                  save_every=3)
+    lines = []
+    tr.log = lines.append
+    tr.train()
+    assert re.search(r"^Epochs 1-3: .*; device [0-9.]+ ms/epoch, block end "
+                     r"[0-9]+ ms\)$", lines[-2]), lines
+    assert lines[-1].startswith("Trace: spans: ")
+    assert "graphs.replays 2" in lines[-1]
+    first = [s for s in trace.records() if s.name == "trainer.run"][-1]
+    assert first.counters["graphs.warmups"] >= 1
+    assert first.counters["graphs.captures"] >= 1
+    tr.start_epoch = 4
+    tr.config = dataclasses.replace(tr.config, epochs=9)
+    tr._run_blocks(tr.carry)
+    spans = trace.records()
+    run = [s for s in spans if s.name == "trainer.run"][-1]
+    assert run.id > first.id and not trace.dropped_since(run)
+    assert run.counters["graphs.replays"] == 6
+    assert "graphs.captures" not in run.counters
+    assert "graphs.warmups" not in run.counters
+    blocks = [s for s in spans if s.name == "trainer.block"
+              and s.parent == run.id]
+    assert [(b.attrs["first"], b.attrs["last"]) for b in blocks] == [
+        (4, 6), (7, 9)]
+    for b in blocks:
+        assert b.counters["graphs.replays"] == 3
+        (enq,) = [s for s in spans if s.name == "trainer.enqueue"
+                  and s.parent == b.id]
+        assert enq.device_ms is not None
+        assert 0 < enq.device_ms <= b.ms, (enq.device_ms, b.ms)
+
+
 def test_predictor_replays_equal_eager(card, tmp_path):
     """``Predictor.predict_packed``: the first call eager, the later ones
     replays of its CUDA graph, all equal to the model's eager forward

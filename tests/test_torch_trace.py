@@ -1,20 +1,36 @@
-"""The port's device-trace aggregation (``gnn_bfs_rans_tpu_torch/utils/
-trace.py``) on a hand-made Chrome trace, mirroring the JAX module's tests
-(``tests/test_trace.py``): only the card's events (kernels, copies,
-memsets) are summed — not the host lanes, not the annotation ranges that
-span kernels already counted.  Then a live ``torch.profiler`` capture on
-the CPU, and the profiling aids of ``utils/profiling.py``.
+"""The port's tracing (``gnn_bfs_rans_tpu_torch/utils/trace.py``).
+
+* The device-trace aggregation on a hand-made Chrome trace, mirroring the
+  JAX module's tests (``tests/test_trace.py``): only the card's events
+  (kernels, copies, memsets) are summed — not the host lanes, not the
+  annotation ranges that span kernels already counted; then a live
+  ``torch.profiler`` capture on the CPU, and the profiling aids of
+  ``utils/profiling.py``.
+* The program's spans and counters: nesting and parent links, counter
+  deltas (``kernels._build.LAUNCHES`` among them), the bounded store and
+  its drop count, the store turned off, threads, stamps on the profiler's
+  clock, and a two-block ``Trainer`` run on the CPU (the 336-cell case of
+  ``tests/test_torch_epoch_block.py``, 2 layers).
 """
 
 import gzip
 import json
 import logging
+import os
+import sys
+import threading
+import time
 
 import pytest
 import torch
 
+from gnn_bfs_rans_tpu_torch.foam import drifting_box_fields, generate_box_case
 from gnn_bfs_rans_tpu_torch.kernels import _build
-from gnn_bfs_rans_tpu_torch.utils import profiling
+from gnn_bfs_rans_tpu_torch.models.flow_gnn import ModelConfig
+from gnn_bfs_rans_tpu_torch.train import trainer as trainer_mod
+from gnn_bfs_rans_tpu_torch.train.data import load_dataset
+from gnn_bfs_rans_tpu_torch.train.loop import TrainConfig
+from gnn_bfs_rans_tpu_torch.utils import profiling, trace
 from gnn_bfs_rans_tpu_torch.utils.trace import (
     aggregate_device_trace,
     top_ops,
@@ -111,12 +127,6 @@ def test_trace_steps_live_on_the_cpu():
         assert res["device_total_s_per_step"] == 0.0
 
 
-def test_profiling_trace_writes_a_tensorboard_trace(tmp_path):
-    with profiling.trace(tmp_path / "tb"):
-        torch.ones(8, 8).sum()
-    assert list((tmp_path / "tb").glob("*.pt.trace.json"))
-
-
 def test_profiling_aids():
     profiling.enable_nan_checks(True)
     try:
@@ -134,3 +144,246 @@ def test_profiling_aids():
     finally:
         profiling.log_compile_times(False)
     assert not _build.LOG.isEnabledFor(logging.INFO)
+
+
+# ------------------------------------------------------ spans and counters
+@pytest.fixture
+def store(monkeypatch):
+    """An empty store, on; left empty and on."""
+    monkeypatch.setattr(trace, "MAX_SPANS", trace.MAX_SPANS)
+    trace.reset()
+    trace.enable(True)
+    yield trace
+    trace.enable(True)
+    monkeypatch.undo()
+    trace.reset()
+
+
+def _by_name(spans):
+    return {s.name: s for s in spans}
+
+
+def test_spans_nest_and_link_their_parents(store):
+    with trace.span("a", tag=1) as a:
+        with trace.span("b") as b:
+            with trace.span("c"):
+                pass
+        with trace.span("d", name="x"):
+            pass
+    with trace.span("e"):
+        pass
+    got = _by_name(trace.records())
+    assert [s.name for s in trace.records()] == ["c", "b", "d", "a", "e"]
+    assert got["a"] is a and got["b"] is b
+    assert a.parent is None and got["e"].parent is None
+    assert b.parent == a.id and got["d"].parent == a.id
+    assert got["c"].parent == b.id
+    assert a.attrs == {"tag": 1} and got["d"].attrs == {"name": "x"}
+    # ids grow in the order spans open; the stamps nest
+    assert a.id < b.id < got["c"].id < got["d"].id < got["e"].id
+    assert a.start_ns <= b.start_ns <= got["c"].start_ns
+    assert got["c"].end_ns <= b.end_ns <= got["d"].start_ns <= a.end_ns
+    assert all(s.device_ms is None for s in trace.records())
+    summary = trace.summary()
+    assert summary.startswith("spans: a 1 x ") and "e 1 x " in summary
+
+
+def test_counter_deltas_attach_to_a_span(store, monkeypatch):
+    monkeypatch.setattr(_build, "LAUNCHES", _build.LAUNCHES.copy())
+    trace.count("outside", 5)
+    _build.LAUNCHES["k"] += 1
+    since = trace.mark()
+    with trace.span("s", counters=True) as s:
+        trace.count("c")
+        trace.count("c", 2)
+        _build.LAUNCHES["k"] += 4
+        with trace.span("inner"):
+            trace.count("d", 7)
+    assert s.counters == {"c": 3, "d": 7, "launches.k": 4}
+    assert _by_name(trace.records())["inner"].counters is None
+    snap = trace.counters()
+    assert snap["outside"] == 5 and snap["c"] == 3
+    assert snap["launches.k"] == _build.LAUNCHES["k"]
+    line = trace.summary(since)
+    assert "counters: c 3, d 7, launches.k 4" in line
+    assert "outside" not in line
+
+
+def test_the_store_is_bounded_and_counts_what_it_drops(store, monkeypatch):
+    monkeypatch.setattr(trace, "MAX_SPANS", 4)
+    trace.reset()
+    with trace.span("first") as first:
+        pass
+    with trace.span("outer") as outer:
+        for i in range(5):
+            with trace.span("inner", i=i):
+                pass
+    kept = trace.records()
+    assert len(kept) == 4 and trace.dropped() == 3
+    assert [s.name for s in kept] == ["inner"] * 3 + ["outer"]
+    assert [s.attrs["i"] for s in kept[:3]] == [2, 3, 4]
+    # the first span and two of the outer one's children went
+    assert trace.dropped_since(first) and trace.dropped_since(outer)
+    with trace.span("later") as later:
+        pass
+    assert not trace.dropped_since(later)
+    # the totals count every span, kept or dropped
+    assert "inner 5 x " in trace.summary()
+
+
+def test_off_records_nothing(store):
+    trace.enable(False)
+    with trace.span("a", device=True, counters=True) as a:
+        trace.count("c")
+    assert a is None
+    assert trace.span("b") is trace.span("c")   # one shared no-op
+    assert trace.records() == [] and trace.summary() == ""
+    assert "c" not in trace.counters()
+    trace.enable(True)
+    with trace.span("d"):
+        pass
+    assert [s.name for s in trace.records()] == ["d"]
+
+
+def test_threads_keep_their_own_parents_and_lose_no_count(store):
+    """More threads than cores, a short switch interval: every count lands
+    and each thread's spans nest under its own."""
+    n_threads, n = 4 * (os.cpu_count() or 1), 300
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work(t):
+            with trace.span("outer", t=t):
+                for _ in range(n):
+                    trace.count("hits")
+                    with trace.span("inner", t=t):
+                        pass
+
+        threads = [threading.Thread(target=work, args=(t,))
+                   for t in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+        assert not any(th.is_alive() for th in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert trace.counters()["hits"] == n_threads * n
+    spans = trace.records()
+    outer = {s.attrs["t"]: s.id for s in spans if s.name == "outer"}
+    inner = [s for s in spans if s.name == "inner"]
+    assert len(outer) == n_threads and len(inner) == n_threads * n
+    assert all(s.parent == outer[s.attrs["t"]] for s in inner)
+
+
+def test_span_stamps_are_on_the_profilers_clock(store, tmp_path):
+    """A span's start and end lie within 1 ms of its ``user_annotation``
+    event in the profiler's Chrome trace (``ts`` µs +
+    ``baseTimeNanoseconds``).  The first range of a profiler session
+    spends about 1 ms inside the profiler's own call after its stamp, so
+    one span goes first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with trace.span("trainer.first"):
+            pass
+        with trace.span("trainer.probe") as s:
+            time.sleep(0.02)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    data = json.loads(path.read_text())
+    base = data["baseTimeNanoseconds"]
+    (event,) = [e for e in data["traceEvents"]
+                if e.get("name") == "trainer.probe"
+                and e.get("cat") == "user_annotation"]
+    start = base + event["ts"] * 1e3
+    end = start + event["dur"] * 1e3
+    assert abs(s.start_ns - start) < 1e6, (s.start_ns - start)
+    assert abs(s.end_ns - end) < 1e6, (s.end_ns - end)
+    assert s.ms >= 20
+
+
+@pytest.fixture(scope="module")
+def small_case(tmp_path_factory):
+    path = tmp_path_factory.mktemp("torch_trace") / "case"
+    times = ["100", "200", "282"]
+    generate_box_case(path, 24, 14, 1, time_dirs=times,
+                      time_field_fn=drifting_box_fields)
+    return load_dataset(path, times, with_band=False)
+
+
+def test_a_two_block_trainer_run_is_traced(store, small_case, tmp_path,
+                                           monkeypatch):
+    """Two blocks of 2 epochs (GCN dense, 2 layers, BatchNorm
+    recalibration on): one ``trainer.init`` with its three parts, one
+    ``trainer.run`` with its two blocks and their epochs, one
+    ``trainer.enqueue``, ``trainer.sync`` and ``trainer.record`` a block,
+    one ``trainer.save`` per checkpoint written, each with its parts, and
+    ``checkpoint.bytes`` equal to the files' sizes on disk."""
+    written = []
+    save = trainer_mod.save_checkpoint
+
+    def recording_save(directory, name, *args, **kwargs):
+        written.append(name)
+        return save(directory, name, *args, **kwargs)
+
+    monkeypatch.setattr(trainer_mod, "save_checkpoint", recording_save)
+    lines = []
+    out = tmp_path / "run"
+    tr = trainer_mod.Trainer(
+        small_case, ModelConfig(hidden_dim=16, num_layers=2,
+                                layer_type="GCN", backend="dense"),
+        TrainConfig(lr=1e-3, epochs=4, epoch_block=2, save_every=2,
+                    bn_recal="on"),
+        output_dir=out, log_fn=lines.append, device="cpu")
+    tr.train()
+    spans = trace.records()
+    ids = {s.id: s for s in spans}
+
+    def kids(parent, name=None):
+        return [s for s in spans if s.parent == parent.id
+                and (name is None or s.name == name)]
+
+    (init,) = [s for s in spans if s.name == "trainer.init"]
+    assert [s.name for s in kids(init)] == [
+        "trainer.model_init", "trainer.to_device", "trainer.optimizer"]
+    (run,) = [s for s in spans if s.name == "trainer.run"]
+    blocks = kids(run, "trainer.block")
+    assert [(b.attrs["first"], b.attrs["last"]) for b in blocks] == [
+        (1, 2), (3, 4)]
+    for b in blocks:
+        for name in ("trainer.enqueue", "trainer.sync", "trainer.record"):
+            (s,) = kids(b, name)
+            assert b.start_ns <= s.start_ns <= s.end_ns <= b.end_ns
+            assert s.device_ms is None                  # the CPU
+        (sync,), (rec,) = kids(b, "trainer.sync"), kids(b, "trainer.record")
+        assert sync.end_ns <= rec.start_ns
+    saves = [s for s in spans if s.name == "trainer.save"]
+    assert [s.attrs["name"] for s in saves] == written
+    assert {"epoch_2", "epoch_4"} <= set(written)
+    for s in saves:
+        # under its block, or under a trainer.save_state under it
+        parent = ids[s.parent]
+        if parent.name == "trainer.save_state":
+            assert s.attrs["name"] == parent.attrs["name"] == "best"
+            parent = ids[parent.parent]
+        assert parent in blocks
+        assert [k.name for k in kids(s)] == [
+            "checkpoint.exact_stats", "checkpoint.model",
+            "checkpoint.optimizer", "checkpoint.meta"]
+    last = {s.attrs["name"]: s for s in saves}
+    for name, s in last.items():
+        on_disk = sum(os.path.getsize(out / f"{name}{ext}")
+                      for ext in (".pt", ".train.pt", ".meta.json"))
+        assert s.counters == {"checkpoint.bytes": on_disk}, name
+    assert run.counters["checkpoint.bytes"] == sum(
+        s.counters["checkpoint.bytes"] for s in saves)
+    assert sum(b.counters["checkpoint.bytes"] for b in blocks) == \
+        run.counters["checkpoint.bytes"]
+    # the log: a line a block at its end (no device time off the card),
+    # then the trace's summary
+    assert [ln.split(":")[0] for ln in lines
+            if ln.startswith("Epochs ")] == ["Epochs 1-2", "Epochs 3-4"]
+    assert all("device" not in ln for ln in lines if ln.startswith("Epochs"))
+    assert lines[-1].startswith("Trace: spans: checkpoint.exact_stats ")
+    assert f"checkpoint.bytes {run.counters['checkpoint.bytes']}" in lines[-1]
