@@ -11,7 +11,10 @@ with the reference's ``train.py main()``):
   and halves the LR;
 * ``best`` on val-loss improvement and ``epoch_N`` every ``save_every``
   epochs, saved with exact BN statistics when recalibration is on, plus the
-  optimizer state that ``resume`` continues from;
+  optimizer state that ``resume`` continues from: a snapshot in host
+  memory, taken in the card's stream order, whose files a writer thread
+  writes while the next epochs run (``checkpoint.CheckpointWriter``); the
+  loops return, or raise, only once every queued write has ended;
 * ``training_history.json`` in the reference schema and ``metrics.jsonl``;
 * on ``KeyboardInterrupt`` (Ctrl-C, or SIGTERM raised as one): the last
   completed epoch saved as ``epoch_<N>`` with ``interrupted: True`` and the
@@ -48,7 +51,9 @@ The trainer's work is traced by ``utils/trace.py``: ``trainer.init``
 ``trainer.run`` a ``_run_blocks`` call, ``trainer.block`` a block
 (``trainer.enqueue`` with its device time, ``trainer.sync``,
 ``trainer.record``, its checkpoints), ``trainer.save_state`` and
-``trainer.save`` (``checkpoint.exact_stats`` and the file writes).  On the
+``trainer.save`` (``checkpoint.exact_stats`` and the snapshot), and
+``checkpoint.wait`` (for the checkpoint writer; at a run's end, its last
+writes).  On the
 card the blocked loop's log line gives each block's device ms an epoch and
 its block end (from the synchronization to the block's last checkpoint);
 ``train()`` ends with one line of each span's count and mean and each
@@ -71,10 +76,11 @@ from ..device import resolve_device
 from ..models.flow_gnn import FlowGNN, ModelConfig
 from ..utils import trace
 from .checkpoint import (
+    CheckpointWriter,
+    checkpoint_meta,
     latest_checkpoint,
     load_checkpoint,
     load_train_state,
-    save_checkpoint,
 )
 from .data import FlowDataset
 from .graphs import Graphed
@@ -171,6 +177,7 @@ class Trainer:
             self._graphs: dict = {}
             self.carry = None
             self._block_end = None
+            self.checkpoints = CheckpointWriter(self.device)
 
     def _graphed(self, key, fn, zero_grad: bool = False) -> Graphed:
         g = self._graphs.get(key)
@@ -269,9 +276,10 @@ class Trainer:
             epoch = self.history["epoch"][-1] if self.history["epoch"] else 0
             val_loss = (self.history["val_loss"][-1] if epoch
                         else float("inf"))
-            self._save(f"epoch_{epoch}", epoch, val_loss, {
-                "best_val": self.best_val, "lr": self.scheduler.lr,
-                "sched_best": self.scheduler.best, "interrupted": True})
+            with self._writes_joined():
+                self._save(f"epoch_{epoch}", epoch, val_loss, {
+                    "best_val": self.best_val, "lr": self.scheduler.lr,
+                    "sched_best": self.scheduler.best, "interrupted": True})
             self.save_history()
             self.log(f"Interrupted: checkpoint saved at epoch {epoch}")
             raise
@@ -318,61 +326,63 @@ class Trainer:
         cfg = self.config
         n = self.dataset.n_snapshots
         lr = self.scheduler.lr
-        for epoch in range(self.start_epoch, cfg.epochs + 1):
-            freeze = False
-            if cfg.curriculum_epochs > 0:
-                if epoch <= cfg.curriculum_epochs:
-                    freeze = True
-                elif epoch == cfg.curriculum_epochs + 1:
-                    self.scheduler.lr *= 0.5
-                    lr = self.scheduler.lr
-                    self.log(f"Curriculum phase 2: unfreezing pressure, "
-                             f"lr → {lr:.3e}")
-            if cfg.scheduler == "cosine":
-                lr = cosine_lr(cfg, epoch)
+        with self._writes_joined():
+            for epoch in range(self.start_epoch, cfg.epochs + 1):
+                freeze = False
+                if cfg.curriculum_epochs > 0:
+                    if epoch <= cfg.curriculum_epochs:
+                        freeze = True
+                    elif epoch == cfg.curriculum_epochs + 1:
+                        self.scheduler.lr *= 0.5
+                        lr = self.scheduler.lr
+                        self.log(f"Curriculum phase 2: unfreezing pressure, "
+                                 f"lr → {lr:.3e}")
+                if cfg.scheduler == "cosine":
+                    lr = cosine_lr(cfg, epoch)
 
-            t0 = time.perf_counter()
-            batches = iterate_batches(n, cfg.batch_size, self.np_rng)
-            # the epoch's order on the device in one copy that does not
-            # wait for the card (pinned memory); each batch a view
-            order = torch.from_numpy(np.concatenate(batches))
-            if self.device.type == "cuda":
-                order = order.pin_memory().to(self.device, non_blocking=True)
-            losses, start = [], 0
-            for idx in batches:
-                step = self._step(freeze, len(idx))
-                # a replay's loss is overwritten by the next: keep a copy
-                losses.append(step(order[start:start + len(idx)],
-                                   lr).clone())
-                start += len(idx)
-                if self._pbar is not None:
-                    # the batch's loss: one host synchronization a batch
-                    self._pbar.set_postfix(loss=f"{losses[-1].item():.6f}")
-            vals = torch.cat([torch.stack(losses).mean().float()[None],
-                              self._eval()().float()]).tolist()
-            train_loss, val_loss = vals[0], vals[1]
-            errors = dict(zip(FIELDS, vals[2:]))
-            if not np.isfinite(train_loss):
-                self.save_history()
-                raise FloatingPointError(
-                    f"non-finite training loss at epoch {epoch} "
-                    f"(loss={train_loss})")
-            lr_used = lr
-            if cfg.scheduler == "plateau":
-                lr = self.scheduler.step(val_loss)
-            dt = time.perf_counter() - t0
-            self._record(epoch, train_loss, val_loss, lr_used, errors, dt)
-            self.log(f"Epoch {epoch}: train={train_loss:.6f} "
-                     f"val={val_loss:.6f} lr={lr_used:.3e} ({dt:.2f}s)")
-            self._advance_pbar(1, train_loss, val_loss, lr_used)
+                t0 = time.perf_counter()
+                batches = iterate_batches(n, cfg.batch_size, self.np_rng)
+                # the epoch's order on the device in one copy that does not
+                # wait for the card (pinned memory); each batch a view
+                order = torch.from_numpy(np.concatenate(batches))
+                if self.device.type == "cuda":
+                    order = order.pin_memory().to(self.device,
+                                                  non_blocking=True)
+                losses, start = [], 0
+                for idx in batches:
+                    step = self._step(freeze, len(idx))
+                    # a replay's loss is overwritten by the next: keep a copy
+                    losses.append(step(order[start:start + len(idx)],
+                                       lr).clone())
+                    start += len(idx)
+                    if self._pbar is not None:
+                        # the batch's loss: one host synchronization a batch
+                        self._pbar.set_postfix(loss=f"{losses[-1].item():.6f}")
+                vals = torch.cat([torch.stack(losses).mean().float()[None],
+                                  self._eval()().float()]).tolist()
+                train_loss, val_loss = vals[0], vals[1]
+                errors = dict(zip(FIELDS, vals[2:]))
+                if not np.isfinite(train_loss):
+                    self.save_history()
+                    raise FloatingPointError(
+                        f"non-finite training loss at epoch {epoch} "
+                        f"(loss={train_loss})")
+                lr_used = lr
+                if cfg.scheduler == "plateau":
+                    lr = self.scheduler.step(val_loss)
+                dt = time.perf_counter() - t0
+                self._record(epoch, train_loss, val_loss, lr_used, errors, dt)
+                self.log(f"Epoch {epoch}: train={train_loss:.6f} "
+                         f"val={val_loss:.6f} lr={lr_used:.3e} ({dt:.2f}s)")
+                self._advance_pbar(1, train_loss, val_loss, lr_used)
 
-            extra = {"best_val": min(self.best_val, val_loss), "lr": lr,
-                     "sched_best": self.scheduler.best}
-            if val_loss < self.best_val:
-                self.best_val = val_loss
-                self._save("best", epoch, val_loss, extra)
-            if epoch % cfg.save_every == 0:
-                self._save(f"epoch_{epoch}", epoch, val_loss, extra)
+                extra = {"best_val": min(self.best_val, val_loss), "lr": lr,
+                         "sched_best": self.scheduler.best}
+                if val_loss < self.best_val:
+                    self.best_val = val_loss
+                    self._save("best", epoch, val_loss, extra)
+                if epoch % cfg.save_every == 0:
+                    self._save(f"epoch_{epoch}", epoch, val_loss, extra)
 
     def _record(self, epoch: int, train_loss: float, val_loss: float,
                 lr: float, errors: dict, seconds: float) -> None:
@@ -440,7 +450,8 @@ class Trainer:
     def _run_blocks(self, carry) -> None:
         cfg = self.config
         epoch = self.start_epoch
-        with trace.span("trainer.run", counters=True):
+        with trace.span("trainer.run", counters=True), \
+                self._writes_joined():
             while epoch <= cfg.epochs:
                 if (cfg.curriculum_epochs > 0
                         and epoch == cfg.curriculum_epochs + 1):
@@ -562,6 +573,9 @@ class Trainer:
 
     def _save(self, name: str, epoch: int, val_loss: float,
               extra: dict) -> None:
+        """Queue the checkpoint ``name`` of the model and optimizer as they
+        are now (``self.checkpoints``: a snapshot in stream order, the
+        files written on the writer's thread)."""
         with trace.span("trainer.save", counters=True, name=name):
             state = self.model.state_dict()
             if self.bn_recal:
@@ -570,12 +584,25 @@ class Trainer:
                 with trace.span("checkpoint.exact_stats"):
                     state = {**state, **exact_stats(self.model, self.graph)}
                 extra = {**extra, "bn_recalibrated": True}
-            save_checkpoint(
-                self.output_dir, name, state, model_config=self.model_config,
-                normalizer=self.dataset.normalizer, epoch=epoch,
-                val_loss=val_loss, train_config=self.config.to_dict(),
-                extra=extra,
+            self.checkpoints.save(
+                self.output_dir, name, state, checkpoint_meta(
+                    model_config=self.model_config,
+                    normalizer=self.dataset.normalizer, epoch=epoch,
+                    val_loss=val_loss, train_config=self.config.to_dict(),
+                    extra=extra),
                 train_state={"optimizer": self.optimizer.state_dict()})
+
+    @contextlib.contextmanager
+    def _writes_joined(self):
+        """Leave only once every checkpoint queued has been written; a
+        failed write is raised here, or, while another exception leaves,
+        at the next save or join."""
+        try:
+            yield
+        except BaseException:
+            self.checkpoints.wait(raise_failed=False)
+            raise
+        self.checkpoints.wait()
 
     def save_history(self) -> Path:
         path = self.output_dir / "training_history.json"

@@ -46,16 +46,23 @@ The names are the program's layers:
                          the card), ``trainer.record`` (history rows), the
                          block's checkpoints
 ``trainer.save_state``   ``best`` from the carry: copy in, save, copy back
-``trainer.save``         a checkpoint (``name``); children
-                         ``checkpoint.exact_stats``, ``checkpoint.model``,
-                         ``checkpoint.optimizer``, ``checkpoint.meta``
+``trainer.save``         a checkpoint queued (``name``); child
+                         ``checkpoint.exact_stats``
+``checkpoint.wait``      the trainer waiting for its checkpoint writer: for
+                         a free buffer set, or for the queued writes at the
+                         end of a ``trainer.run`` (its last child)
+``checkpoint.write``     on the writer's thread: a checkpoint's files
+                         (``name``, ``bytes``); children
+                         ``checkpoint.model``, ``checkpoint.optimizer``,
+                         ``checkpoint.meta`` (their own spans where
+                         ``save_checkpoint`` writes on the calling thread)
 ``graphs.warmup``,       a ``Graphed`` function's eager first call and its
 ``graphs.capture``       capture (``fn``)
 =======================  =================================================
 
 Counters: ``graphs.warmups``, ``graphs.captures``, ``graphs.replays`` (one
 a replay: no span), ``checkpoint.bytes`` (the files written, by size on
-disk).
+disk), ``checkpoint.async_saves`` (checkpoints handed to the writer).
 
 Per-op device trace
 -------------------

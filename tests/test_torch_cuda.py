@@ -1709,6 +1709,81 @@ def test_a_second_run_of_blocks_only_replays(card, tmp_path):
         assert 0 < enq.device_ms <= b.ms, (enq.device_ms, b.ms)
 
 
+def _sync_save(tr, name, epoch, val_loss, extra):
+    """The trainer's checkpoint copied out and written on the calling
+    thread (``save_checkpoint``), in place of its checkpoint writer."""
+    from gnn_bfs_rans_tpu_torch.train.recal import exact_stats
+
+    state = tr.model.state_dict()
+    if tr.bn_recal:
+        state = {**state, **exact_stats(tr.model, tr.graph)}
+        extra = {**extra, "bn_recalibrated": True}
+    save_checkpoint(tr.output_dir, name, state, model_config=tr.model_config,
+                    normalizer=tr.dataset.normalizer, epoch=epoch,
+                    val_loss=val_loss, train_config=tr.config.to_dict(),
+                    extra=extra,
+                    train_state={"optimizer": tr.optimizer.state_dict()})
+
+
+def _assert_same_tree(a, b, where=""):
+    if isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and torch.equal(a, b), where
+    elif isinstance(a, dict):
+        assert list(a) == list(b), where
+        for k in a:
+            _assert_same_tree(a[k], b[k], f"{where}/{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_same_tree(x, y, f"{where}/{i}")
+    else:
+        assert a == b, where
+
+
+def test_checkpoints_equal_synchronous_saves_on_the_card(card, tmp_path):
+    """A blocked run (GAT bf16, dropout 0.1, 6 epochs in blocks of 2, an
+    ``epoch_N`` a block) through the trainer's checkpoint writer, and the
+    same seeded run saving on the calling thread (run first to pay the
+    process's one-time allocations, and again): every checkpoint's
+    ``.pt`` and ``.meta.json`` byte-equal and its ``.train.pt`` loads to
+    bit-equal tensors, so the snapshot read the state before the next
+    block's replays changed it; the run's device memory peak is the
+    synchronous run's."""
+    import functools
+    import gc
+
+    from gnn_bfs_rans_tpu_torch.train.checkpoint import load_train_state
+
+    runs = {}
+    for mode in ("sync", "async", "sync again"):
+        tr = _trainer(card, tmp_path / mode.replace(" ", "_"), "gat-bf16",
+                      dropout=0.1, epochs=6, epoch_block=2, save_every=2)
+        if mode != "async":
+            tr._save = functools.partial(_sync_save, tr)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        tr.train()
+        torch.cuda.synchronize()
+        runs[mode] = (tr.output_dir, torch.cuda.max_memory_allocated() - base)
+        del tr
+        gc.collect()
+    (got, peak), (want, want_peak) = runs["async"], runs["sync again"]
+    names = sorted(p.name[:-len(".meta.json")]
+                   for p in want.glob("*.meta.json"))
+    assert {"epoch_2", "epoch_4", "epoch_6"} <= set(names)
+    assert sorted(p.name for p in got.iterdir()) == \
+        sorted(p.name for p in want.iterdir())
+    for ref in (runs["sync"][0], want):
+        for name in names:
+            for ext in (".pt", ".meta.json"):
+                assert (got / f"{name}{ext}").read_bytes() == \
+                    (ref / f"{name}{ext}").read_bytes(), (name, ext)
+            _assert_same_tree(load_train_state(got, name),
+                              load_train_state(ref, name), name)
+    assert peak == want_peak
+
+
 def test_predictor_replays_equal_eager(card, tmp_path):
     """``Predictor.predict_packed``: the first call eager, the later ones
     replays of its CUDA graph, all equal to the model's eager forward

@@ -27,6 +27,7 @@ import torch
 from gnn_bfs_rans_tpu_torch.foam import drifting_box_fields, generate_box_case
 from gnn_bfs_rans_tpu_torch.kernels import _build
 from gnn_bfs_rans_tpu_torch.models.flow_gnn import ModelConfig
+from gnn_bfs_rans_tpu_torch.train import checkpoint as checkpoint_mod
 from gnn_bfs_rans_tpu_torch.train import trainer as trainer_mod
 from gnn_bfs_rans_tpu_torch.train.data import load_dataset
 from gnn_bfs_rans_tpu_torch.train.loop import TrainConfig
@@ -316,18 +317,21 @@ def test_a_two_block_trainer_run_is_traced(store, small_case, tmp_path,
                                            monkeypatch):
     """Two blocks of 2 epochs (GCN dense, 2 layers, BatchNorm
     recalibration on): one ``trainer.init`` with its three parts, one
-    ``trainer.run`` with its two blocks and their epochs, one
-    ``trainer.enqueue``, ``trainer.sync`` and ``trainer.record`` a block,
-    one ``trainer.save`` per checkpoint written, each with its parts, and
-    ``checkpoint.bytes`` equal to the files' sizes on disk."""
+    ``trainer.run`` with its two blocks and their epochs, then its
+    ``checkpoint.wait``; one ``trainer.enqueue``, ``trainer.sync`` and
+    ``trainer.record`` a block, one ``trainer.save`` per checkpoint queued
+    (its ``checkpoint.exact_stats`` and one ``checkpoint.async_saves``),
+    and on the writer's thread one ``checkpoint.write`` a save, in order,
+    with its parts, all ended inside the run; ``checkpoint.bytes`` equal
+    to the files' sizes on disk."""
     written = []
-    save = trainer_mod.save_checkpoint
+    write = checkpoint_mod.write_checkpoint
 
-    def recording_save(directory, name, *args, **kwargs):
-        written.append(name)
-        return save(directory, name, *args, **kwargs)
+    def recording_write(directory, name, *args, **kwargs):
+        written.append((name, threading.current_thread()))
+        return write(directory, name, *args, **kwargs)
 
-    monkeypatch.setattr(trainer_mod, "save_checkpoint", recording_save)
+    monkeypatch.setattr(checkpoint_mod, "write_checkpoint", recording_write)
     lines = []
     out = tmp_path / "run"
     tr = trainer_mod.Trainer(
@@ -351,6 +355,8 @@ def test_a_two_block_trainer_run_is_traced(store, small_case, tmp_path,
     blocks = kids(run, "trainer.block")
     assert [(b.attrs["first"], b.attrs["last"]) for b in blocks] == [
         (1, 2), (3, 4)]
+    assert [s.name for s in kids(run)] == [
+        "trainer.block", "trainer.block", "checkpoint.wait"]
     for b in blocks:
         for name in ("trainer.enqueue", "trainer.sync", "trainer.record"):
             (s,) = kids(b, name)
@@ -359,8 +365,11 @@ def test_a_two_block_trainer_run_is_traced(store, small_case, tmp_path,
         (sync,), (rec,) = kids(b, "trainer.sync"), kids(b, "trainer.record")
         assert sync.end_ns <= rec.start_ns
     saves = [s for s in spans if s.name == "trainer.save"]
-    assert [s.attrs["name"] for s in saves] == written
-    assert {"epoch_2", "epoch_4"} <= set(written)
+    writes = [s for s in spans if s.name == "checkpoint.write"]
+    assert [s.attrs["name"] for s in saves] == \
+        [s.attrs["name"] for s in writes] == [n for n, _ in written]
+    assert {"epoch_2", "epoch_4"} <= {n for n, _ in written}
+    assert all(t is not threading.main_thread() for _, t in written)
     for s in saves:
         # under its block, or under a trainer.save_state under it
         parent = ids[s.parent]
@@ -368,18 +377,21 @@ def test_a_two_block_trainer_run_is_traced(store, small_case, tmp_path,
             assert s.attrs["name"] == parent.attrs["name"] == "best"
             parent = ids[parent.parent]
         assert parent in blocks
-        assert [k.name for k in kids(s)] == [
-            "checkpoint.exact_stats", "checkpoint.model",
-            "checkpoint.optimizer", "checkpoint.meta"]
-    last = {s.attrs["name"]: s for s in saves}
+        assert [k.name for k in kids(s)] == ["checkpoint.exact_stats"]
+        assert s.counters["checkpoint.async_saves"] == 1
+    for w in writes:
+        # on the writer's thread, ended before the run
+        assert w.parent is None and w.end_ns <= run.end_ns
+        assert [k.name for k in kids(w)] == [
+            "checkpoint.model", "checkpoint.optimizer", "checkpoint.meta"]
+    last = {s.attrs["name"]: s for s in writes}
     for name, s in last.items():
         on_disk = sum(os.path.getsize(out / f"{name}{ext}")
                       for ext in (".pt", ".train.pt", ".meta.json"))
-        assert s.counters == {"checkpoint.bytes": on_disk}, name
+        assert s.attrs["bytes"] == on_disk, name
     assert run.counters["checkpoint.bytes"] == sum(
-        s.counters["checkpoint.bytes"] for s in saves)
-    assert sum(b.counters["checkpoint.bytes"] for b in blocks) == \
-        run.counters["checkpoint.bytes"]
+        s.attrs["bytes"] for s in writes)
+    assert run.counters["checkpoint.async_saves"] == len(saves)
     # the log: a line a block at its end (no device time off the card),
     # then the trace's summary
     assert [ln.split(":")[0] for ln in lines
