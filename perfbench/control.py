@@ -7,11 +7,13 @@ process.
 
 For each seed it sets the cell up as a run does (at the cell's own
 size), runs a short window, and prints one JSON line: the program's
-numbers, or with ``--control`` those of the reference computed
-in 8-bit floats put in the program's place, or with ``--fault`` those of
-the program with that fault planted (``perfbench/faults.py``).  The
-limits of ``perfbench/limits/<cell>.json`` lie between the program's
-largest reading and the smallest reading of the control and the faults.
+numbers, or with ``--control`` those of the reference computed in the
+precision below the configuration's (``reference/model.py``: 8-bit
+floats for bfloat16, TF32 for float32) put in the program's place, or
+with ``--fault`` those of the program with that fault planted
+(``perfbench/faults.py``).  The limits of
+``perfbench/limits/<cell>.json`` lie between the program's largest
+reading and the smallest reading of the control and the faults.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ def readings(files: dict, seed: int, control: bool, fault: str | None,
              seconds: float, device: str, out_dir: Path) -> dict:
     from perfbench import faults
     from perfbench.core.context import Context
+    from perfbench.reference import model
 
     ctx = Context(workload=files["workload"], config=files["config"],
                   traffic=files["traffic"], limits=files["limits"],
@@ -47,7 +50,8 @@ def readings(files: dict, seed: int, control: bool, fault: str | None,
         state = driver.setup(ctx)
         driver.window(ctx, state)
     driver.release(state)
-    return driver.check(ctx, state, quant="fp8" if control else "f32")
+    quant = model.control_precision(files["config"]) if control else "f32"
+    return driver.check(ctx, state, quant=quant)
 
 
 def main(argv=None) -> int:

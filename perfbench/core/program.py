@@ -33,18 +33,21 @@ def foam_mesh(mesh) -> FoamMesh:
 
 
 def program_graph(mesh, layer_type: str) -> Graph:
-    """The program's graph (CPU tensors, with the band the conv reads): a
-    box read as a mesh (RCM-reordered), a grid built as a graph."""
-    comps = LAYER_COMPONENTS[layer_type]
+    """The program's graph (CPU tensors): a box read as a mesh
+    (RCM-reordered), a grid built as a graph; with the band planes the
+    program's ``LAYER_COMPONENTS`` names for the layer, where it names
+    any."""
+    comps = LAYER_COMPONENTS.get(layer_type)
     if mesh.kind == "box":
-        graph = build_graph(foam_mesh(mesh), with_band=True,
+        graph = build_graph(foam_mesh(mesh), with_band=comps is not None,
                             band_components=comps)
     else:
         graph = build_padded_graph(mesh.senders, mesh.receivers,
                                    mesh.edge_feat,
                                    mesh.centers.astype(np.float32))
-        graph = attach_band(graph, comps)
-    if graph.band is None:
+        if comps is not None:
+            graph = attach_band(graph, comps)
+    if comps is not None and graph.band is None:
         raise RuntimeError("the mesh has no band: the kernels do not run")
     return graph
 

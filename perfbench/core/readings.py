@@ -6,7 +6,8 @@ a training window's ``blocks``, ``cells``, ``seconds`` (host clock),
 ``idle``; None without ``--trace 1``); ``memory_peak_bytes`` (the
 run's device peak);
 ``config``, ``traffic``, ``graph`` (``n_nodes``, ``n_edges``);
-``device_name`` and ``peaks`` (bf16 FLOP/s, bytes/s; None off the H100).
+``device_name`` and ``peaks`` (FLOP/s in the configuration's compute
+dtype, bytes/s; None off the H100).
 """
 
 from __future__ import annotations

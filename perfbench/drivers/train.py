@@ -245,8 +245,9 @@ def release(state: State) -> None:
 
 
 def check(ctx, state: State, quant: str = "f32") -> dict[str, float]:
-    """The numbers compared (see ``reference/train.py``); ``quant='fp8'``
-    puts the control in the program's place."""
+    """The numbers compared (see ``reference/train.py``); another
+    ``quant`` than ``'f32'`` puts the reference computed in that precision
+    in the program's place (the control: ``reference/model.py``)."""
     cfg = ctx.config
     dev = torch.device(ctx.device)
     g = ref_graph.build(state.mesh).to(dev)

@@ -11,8 +11,9 @@ and its window runs, so that the run's check must come out false:
   state as they found them;
 * ``half_batch`` — half of the batch left out, the mean taken over the
   rest: a training loss over the first half of the real rows;
-* ``altered`` — an answer altered where it is produced: the model's
-  prediction of the first row moved by 10 in every channel.
+* ``altered`` — an answer altered where it is produced: the prediction
+  of the first row moved by 10 in every channel, by a forward hook on
+  whatever module the ``Trainer`` trains.
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ import dataclasses
 
 import torch
 
-from gnn_bfs_rans_tpu_torch.models.flow_gnn import FlowGNN
 from gnn_bfs_rans_tpu_torch.train import loop
 from gnn_bfs_rans_tpu_torch.train.trainer import Trainer
 
@@ -80,10 +80,13 @@ def planted(fault: str):
                          dataclasses.replace(graph, node_mask=keep), cfg)
         return _patched(loop, "batch_loss", half)
     if fault == "altered":
-        inner_fwd = FlowGNN.forward
+        inner_init = Trainer.__init__
 
-        def forward(self, *a, **k):
-            out = inner_fwd(self, *a, **k)
+        def moved(module, args, out):
             return torch.cat([out[:1] + 10.0, out[1:]])
-        return _patched(FlowGNN, "forward", forward)
+
+        def init(self, *a, **k):
+            inner_init(self, *a, **k)
+            self.model.register_forward_hook(moved)
+        return _patched(Trainer, "__init__", init)
     raise ValueError(f"unknown fault {fault!r}")

@@ -1,7 +1,7 @@
 """The least time the traced training window's operations could take
-on the card (each operation's FLOPs at the bf16 peak or its bytes at the
-HBM bandwidth, the larger; ``yardstick/flops.py::step_ops``), over the
-device's busy time, %."""
+on the card (each operation's FLOPs at the compute dtype's peak or its
+bytes at the HBM bandwidth, the larger; ``yardstick/flops.py::step_ops``),
+over the device's busy time, %."""
 
 from perfbench.core.readings import kernel_roofline
 

@@ -1,37 +1,33 @@
-"""Plain PyTorch forward of the FlowGNN configurations, in float32.
+"""The reference's building blocks, its precisions and its loss.
 
-The model as its configuration states it, with no kernel, band or graph
-replay: ``Linear(3→H)``; per layer a conv, the residual add, BatchNorm
-(``mode='train'``: the batch statistics of the real rows, momentum 0.1
-and the unbiased variance into the running statistics; ``'exact'``: the
-batch statistics, the running ones untouched, no dropout — the eval of a
-bfloat16 model trained with BatchNorm recalibration; ``'eval'``: the
-running statistics), ReLU and dropout; then the MLP ``H→H→H→H/2→7``
-with dropout after its first two ReLUs.
+:func:`Forward` gives the plain forward of a configuration, found by its
+``layer_type`` (``archs/``): in float32, products with TF32 off, with no
+kernel, band or graph replay, the training dropout following the
+configuration's stream (:mod:`.stream`).  The blocks here serve every
+architecture: the rounding of a precision (:func:`quantizer`,
+:func:`products`), a linear layer, the edge-chunked aggregation and dot
+product with their backward, the softmax over each receiver's edges.
 
-* GAT (PyG ``GATConv``, head mean): ``z = x·Wᵀ``; logits
-  ``LeakyReLU_0.2(a_dst·z_i + a_src·z_j)`` over each receiver's senders
-  and itself; softmax; attention dropout; ``mean_h Σ_j α z_j`` + bias.
-* Transformer (PyG ``TransformerConv``, ``concat=False``, ``edge_dim``
-  4, root weight): ``q, k, v = x·Wᵀ + b``, ``e_ij = W_e·edge_ij``; logits
-  ``q_i·(k_j + e_ij)/√C`` over the senders; softmax; attention dropout;
-  ``mean_h Σ_j α (v_j + e_ij)`` + ``lin_skip(x)``.
+The precisions (``quant``):
 
-The training dropout follows the configuration's stream (:mod:`.stream`).
-Products run in float32 with TF32 off.  ``quant='fp8'`` is the control:
-the same model computed in 8-bit floats as the program computes in
-bfloat16 — every product's operands and result, every activation the
-model keeps (the residual stream, each conv's output, the normalized and
-dropped activations, the MLP's) and the gradients flowing through them
-rounded to 8 bits (e4m3 forward, e5m2 backward, one scale a tensor), the
-precision below the configurations' bfloat16.
+* ``f32``: the reference;
+* ``fp8`` (the control of a bfloat16 configuration): the same model in
+  8-bit floats as the program computes in bfloat16 — every product's
+  operands and result, every activation the model keeps and the gradients
+  flowing through them rounded to 8 bits (e4m3 forward, e5m2 backward,
+  one scale a tensor), the precision below bfloat16;
+* ``tf32`` (the control of a float32 configuration): every product of a
+  linear layer in TF32, as cuBLAS computes with TF32 on — both operands
+  rounded to TF32's 10-bit mantissa (to nearest, ties away from zero, as
+  PTX ``cvt.rna.tf32.f32``), forward and backward, sums in float32; the
+  rest in float32.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import stream
+from . import archs
 
 _CHUNK = 1 << 16
 _E4M3_MAX = 448.0
@@ -54,15 +50,53 @@ class _Fp8(torch.autograd.Function):
         return _fake8(g, torch.float8_e5m2, _E5M2_MAX)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    b = x.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+class _Tf32Mm(torch.autograd.Function):
+    """``a @ b`` of 2-D operands in TF32, and its backward alike."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ra, rb = _tf32(a), _tf32(b)
+        ctx.save_for_backward(ra, rb)
+        return ra @ rb
+
+    @staticmethod
+    def backward(ctx, g):
+        ra, rb = ctx.saved_tensors
+        rg = _tf32(g)
+        return rg @ rb.t(), ra.t() @ rg
+
+
+PRECISIONS = ("f32", "fp8", "tf32")
+# the control of each compute dtype: the precision below it
+CONTROL = {"bfloat16": "fp8", "mixed": "fp8", "float32": "tf32"}
+
+
+def control_precision(cfg: dict) -> str:
+    return CONTROL[cfg["compute_dtype"]]
+
+
 def quantizer(quant: str):
-    if quant == "f32":
+    """The rounding of a value the model keeps."""
+    if quant in ("f32", "tf32"):
         return lambda t: t
     if quant == "fp8":
         return _Fp8.apply
     raise ValueError(f"unknown precision {quant!r}")
 
 
-class _Aggregate(torch.autograd.Function):
+def products(quant: str):
+    """A linear layer's product."""
+    if quant not in PRECISIONS:
+        raise ValueError(f"unknown precision {quant!r}")
+    return _Tf32Mm.apply if quant == "tf32" else torch.matmul
+
+
+class Aggregate(torch.autograd.Function):
     """out[r] += α[e, h]·v[s, h, :] over the edges, in chunks of edges."""
 
     @staticmethod
@@ -87,7 +121,7 @@ class _Aggregate(torch.autograd.Function):
         return d_alpha, d_v, None, None, None
 
 
-class _EdgeDot(torch.autograd.Function):
+class EdgeDot(torch.autograd.Function):
     """⟨q[r, h], k[s, h]⟩ per edge and head, in chunks of edges."""
 
     @staticmethod
@@ -112,7 +146,7 @@ class _EdgeDot(torch.autograd.Function):
         return dq, dk, None, None
 
 
-def _softmax(logit: torch.Tensor, r: torch.Tensor, n: int) -> torch.Tensor:
+def softmax(logit: torch.Tensor, r: torch.Tensor, n: int) -> torch.Tensor:
     m = torch.full((n, logit.shape[1]), -torch.inf, device=logit.device)
     m = m.scatter_reduce(0, r[:, None].expand_as(logit), logit.detach(),
                          "amax", include_self=True)
@@ -122,121 +156,21 @@ def _softmax(logit: torch.Tensor, r: torch.Tensor, n: int) -> torch.Tensor:
     return e / den[r]
 
 
-def _linear(p, name, x, q, bias=True):
-    y = q(x) @ q(p[f"{name}.weight"]).t()
+def linear(p, name, x, q, bias=True, mm=torch.matmul):
+    y = mm(q(x), q(p[f"{name}.weight"]).t())
     return q(y + p[f"{name}.bias"] if bias else y)
 
 
-class Forward:
+def Forward(cfg: dict, graph, quant: str = "f32"):
     """``Forward(cfg, graph, quant)(p, stats, x, mode, gen)`` → [n, 7].
 
     ``p``: parameters by name; ``stats``: the running statistics by name
     (updated in place by a training forward); ``x`` [n, 3] f32 row
-    coordinates; ``gen``: the training generator (on the graph's
+    coordinates; ``mode``: ``train``, ``exact`` (batch statistics, the
+    running ones untouched, no dropout) or ``eval`` (running
+    statistics); ``gen``: the training generator (on the graph's
     device), from which the dropout seeds and masks are drawn."""
-
-    def __init__(self, cfg: dict, graph, quant: str = "f32"):
-        self.cfg = cfg
-        self.g = graph
-        self.q = quantizer(quant)
-        self.rate = cfg["dropout"]
-        self.itemsize = 2 if cfg["compute_dtype"] in ("bfloat16",
-                                                      "mixed") else 4
-        n = graph.n
-        dev = graph.senders.device
-        if cfg["layer_type"] == "GAT":
-            # each receiver's senders and itself
-            ar = torch.arange(n, device=dev)
-            self.s = torch.cat([graph.senders, ar])
-            self.r = torch.cat([graph.receivers, ar])
-            self.cols = torch.cat([graph.col, graph.self_col])
-        else:
-            self.s, self.r, self.cols = graph.senders, graph.receivers, \
-                graph.col
-
-    def __call__(self, p, stats, x, mode: str, gen=None) -> torch.Tensor:
-        cfg, g, q = self.cfg, self.g, self.q
-        dev = x.device
-        rate = self.rate if mode == "train" else 0.0
-        x = _linear(p, "input_proj", x, q)
-        for i in range(cfg["num_layers"]):
-            seed = stream.draw_seed(gen, dev) if rate > 0 else None
-            conv = (self._gat if cfg["layer_type"] == "GAT"
-                    else self._transformer)
-            x_res = q(x + q(conv(p, f"convs.{i}", x, rate, seed)))
-            ep_seed = stream.draw_seed(gen, dev) if rate > 0 else None
-            x = torch.relu(q(self._norm(p, stats, f"norms.{i}", x_res, mode)))
-            if rate > 0:
-                block = stream.epilogue_block(g.n_pad, x.shape[1],
-                                              self.itemsize)
-                k = stream.epilogue_keep(ep_seed, g.n_pad, x.shape[1], block,
-                                         rate, dev)[:g.n]
-                x = q(torch.where(k, x / (1.0 - rate), 0.0))
-        h = x
-        for j, name in enumerate(("out_0", "out_1", "out_2")):
-            h = torch.relu(_linear(p, name, h, q))
-            if rate > 0 and j < 2:
-                keep = torch.rand((g.n_pad, h.shape[1]), generator=gen,
-                                  device=dev) < 1.0 - rate
-                h = q(torch.where(keep[:g.n], h / (1.0 - rate), 0.0))
-        return _linear(p, "out_3", h, q)
-
-    def _norm(self, p, stats, name, x, mode):
-        w, b = p[f"{name}.weight"], p[f"{name}.bias"]
-        eps = 1e-5
-        if mode in ("train", "exact"):
-            mean = x.mean(0)
-            var = ((x - mean) ** 2).mean(0)
-        if mode == "train":
-            with torch.no_grad():
-                n = x.shape[0]
-                rm, rv = stats[f"{name}.running_mean"], \
-                    stats[f"{name}.running_var"]
-                rm.mul_(0.9).add_(0.1 * mean)
-                rv.mul_(0.9).add_(0.1 * var * n / max(n - 1, 1))
-        elif mode == "eval":
-            mean = stats[f"{name}.running_mean"]
-            var = stats[f"{name}.running_var"]
-        return (x - mean) * torch.rsqrt(var + eps) * w + b
-
-    def _gat(self, p, name, x, rate, seed):
-        g, q = self.g, self.q
-        heads, c = self.cfg["heads"], self.cfg["hidden_dim"]
-        z = _linear(p, f"{name}.lin", x, q, bias=False).view(-1, heads, c)
-        a_src = (z * p[f"{name}.att_src"]).sum(-1)
-        a_dst = (z * p[f"{name}.att_dst"]).sum(-1)
-        logit = torch.nn.functional.leaky_relu(a_dst[self.r] + a_src[self.s],
-                                               0.2)
-        alpha = _softmax(logit, self.r, g.n)
-        if rate > 0:
-            k = stream.gat_attention_keep(seed, self.r, self.cols, heads,
-                                          g.width, rate, 128)
-            alpha = torch.where(k, alpha / (1.0 - rate), 0.0)
-        out = _Aggregate.apply(alpha, q(z), self.s, self.r, g.n)
-        return out.mean(1) + p[f"{name}.bias"]
-
-    def _transformer(self, p, name, x, rate, seed):
-        g, q = self.g, self.q
-        heads, c = self.cfg["heads"], self.cfg["hidden_dim"]
-        s, r = self.s, self.r
-        qq, kk, vv = (_linear(p, f"{name}.{m}", x, q).view(-1, heads, c)
-                      for m in ("lin_query", "lin_key", "lin_value"))
-        # W_e [H, C, D]: e_ij = W_e·edge_ij per head
-        w_e = p[f"{name}.lin_edge.weight"].view(heads, c, -1)
-        ef = g.edge_feat
-        qw = torch.einsum("nhc,hcd->nhd", q(qq), q(w_e))
-        logit = (_EdgeDot.apply(q(qq), q(kk), s, r)
-                 + (qw[r] * ef[:, None, :]).sum(-1)) / c ** 0.5
-        alpha = _softmax(logit, r, g.n)
-        if rate > 0:
-            k = stream.transformer_attention_keep(seed, r, self.cols, heads,
-                                                  g.width, rate, 128)
-            alpha = torch.where(k, alpha / (1.0 - rate), 0.0)
-        out = _Aggregate.apply(alpha, q(vv), s, r, g.n)
-        sums = torch.zeros((g.n, heads, ef.shape[1]), device=x.device)
-        sums = sums.index_add(0, r, alpha[:, :, None] * ef[:, None, :])
-        out = out + torch.einsum("nhd,hcd->nhc", q(sums), q(w_e))
-        return out.mean(1) + _linear(p, f"{name}.lin_skip", x, q)
+    return archs.load(cfg).Forward(cfg, graph, quant)
 
 
 FIELD_WEIGHTS = (1.0, 3.0, 0.5, 0.5, 0.5)

@@ -30,6 +30,11 @@ epoch went through the replayed graph that the window replays.
 * ``pred``: the widest over the first epoch's steps of the prediction's
   RMS gap over the reference's RMS (every cell and channel: the loss
   averages per-element rounding away, this does not);
+* ``pred_first``: the same gap of the first step's prediction alone, at
+  the set-up weights: before Adam's first step, which moves every
+  parameter by ± the learning rate whatever the size of its gradient,
+  so that a gradient component within rounding of 0 (a ReLU whose input
+  rounds to either side of 0) moves its parameter either way;
 * ``grad``: by the worst leaf, the gap between the program's step-1
   gradient norm and the reference's, over the larger of the reference's
   norm of that leaf and of the median leaf; ``grad_median``: the median
@@ -61,7 +66,7 @@ import statistics
 import torch
 
 from .model import Forward, loss
-from ..yardstick.weights import BUFFER_KINDS, param_shapes
+from ..yardstick.weights import param_shapes
 
 BETA1 = 0.9
 EPOCHS = 2
@@ -69,8 +74,8 @@ EPOCHS = 2
 
 def split_weights(cfg: dict, weights: dict[str, torch.Tensor]):
     params, stats = {}, {}
-    for name, _, kind, _ in param_shapes(cfg):
-        (stats if kind in BUFFER_KINDS else params)[name] = weights[name]
+    for leaf in param_shapes(cfg):
+        (stats if leaf.buffer else params)[leaf.name] = weights[leaf.name]
     return params, stats
 
 
@@ -201,6 +206,7 @@ def judge(prog: dict, ref: dict, targets: torch.Tensor,
         "loss": max(step_gaps + epoch_gaps),
         "val": max(_rel(a, b) for a, b in zip(prog["val"], ref["val"])),
         "pred": max(preds),
+        "pred_first": preds[0],
         "grad": max(gaps["grad"].values()),
         "grad_median": statistics.median(gaps["grad"].values()),
         "change": max(gaps["change"].values()),

@@ -143,7 +143,8 @@ def run_cell(files: dict, metrics: list[dict], seed: int, seconds: float,
     rec = {"setup_s": setup_s, "window": records, "trace": ctx.tracer.result,
            "memory_peak_bytes": peak, "config": ctx.config,
            "traffic": ctx.traffic, "device_name": name,
-           "peaks": flops.peaks(name) if cuda else None,
+           "peaks": (flops.peaks(name, ctx.config["compute_dtype"])
+                     if cuda else None),
            "graph": {"n_nodes": state.n_nodes, "n_edges": state.n_edges}}
     values = {}
     for m in metrics:

@@ -16,6 +16,7 @@ import torch
 
 from perfbench import faults, run
 from perfbench.core.context import Context
+from perfbench.reference.model import control_precision
 from perfbench.tests import tiny
 
 
@@ -48,7 +49,7 @@ def test_a_run_loads_no_jax(tmp_path):
 
 @pytest.mark.parametrize("folder", ["reference", "yardstick"])
 def test_the_yardstick_imports_nothing_of_the_program(folder):
-    for path in (run.HERE / folder).glob("*.py"):
+    for path in (run.HERE / folder).rglob("*.py"):
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -85,9 +86,9 @@ def test_bare_checkout_no_result(tmp_path):
     assert out.returncode != 0 and not out.stdout.strip()
 
 
-@pytest.mark.parametrize("layer", ["GAT", "Transformer"])
+@pytest.mark.parametrize("name", tiny.configs())
 @pytest.mark.parametrize("mode", ["train", "exact", "eval"])
-def test_reference_is_the_plain_program_in_f32(layer, mode):
+def test_reference_is_the_plain_program_in_f32(name, mode):
     """In f32 the reference and the port's plain versions compute one
     forward: dropout streams, BatchNorm and attention alike."""
     from gnn_bfs_rans_tpu_torch.models.flow_gnn import FlowGNN
@@ -98,11 +99,9 @@ def test_reference_is_the_plain_program_in_f32(layer, mode):
     from perfbench.reference.train import split_weights
     from perfbench.yardstick import meshes, weights
 
-    cell = ("gat4x256-bf16.train-box12k" if layer == "GAT"
-            else "transformer8x256-bf16.train-box12k")
-    cfg = dict(tiny.files(cell)["config"], compute_dtype="float32")
+    cfg = dict(tiny.config(name), compute_dtype="float32")
     mesh = meshes.box_mesh(40, 6, 1)
-    g = program.program_graph(mesh, layer)
+    g = program.program_graph(mesh, cfg["layer_type"])
     model = FlowGNN(program.model_config(cfg))
     w = weights.make_weights(cfg, 9, "cpu")
     if mode == "eval":
@@ -172,18 +171,19 @@ def _faulted(cell: str, fault: str, tmp_path) -> bool:
 
 
 @pytest.mark.parametrize("fault", faults.FAULTS)
-@pytest.mark.parametrize("cell", ["gat4x256-bf16.train-box12k",
-                                  "transformer8x256-bf16.train-box12k"])
+@pytest.mark.parametrize("cell", tiny.cells())
 def test_a_planted_training_fault_is_not_correct(cell, fault, tmp_path):
     assert not _faulted(cell, fault, tmp_path)
 
 
 @pytest.mark.parametrize("cell", tiny.cells())
 def test_the_control_is_not_correct(cell, tmp_path):
-    """The reference in 8-bit floats put in the program's place fails a
-    number of the cell's check."""
+    """The reference in the precision below the configuration's (8-bit
+    floats for bfloat16, TF32 for float32) put in the program's place
+    fails a number of the cell's check."""
     files = tiny.files(cell)
-    nums = _numbers(files, 2 ** 31 + 31, tmp_path / cell, quant="fp8")
+    nums = _numbers(files, 2 ** 31 + 31, tmp_path / cell,
+                    quant=control_precision(files["config"]))
     assert any(nums[k] > lim for k, lim in files["limits"].items()), nums
 
 

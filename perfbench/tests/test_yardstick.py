@@ -88,31 +88,32 @@ def test_fields_and_targets_match_the_port():
                                rtol=1e-6, atol=1e-6)
 
 
-def test_weights_are_the_port_model_layout():
+@pytest.mark.parametrize("name", tiny.configs())
+def test_weights_are_the_port_model_layout(name):
     from gnn_bfs_rans_tpu_torch.models.flow_gnn import FlowGNN
 
     from perfbench.core import program
 
-    for cell in ("gat4x256-bf16.train-box12k",
-                 "transformer8x256-bf16.train-box12k"):
-        cfg = dict(tiny.files(cell)["config"])
-        w = weights.make_weights(cfg, 5, "cpu")
-        model = FlowGNN(program.model_config(cfg))
-        model.load_state_dict(w, strict=True)
-        again = weights.make_weights(cfg, 5, "cpu")
-        assert all(torch.equal(w[k], again[k]) for k in w)
+    cfg = tiny.config(name)
+    w = weights.make_weights(cfg, 5, "cpu")
+    model = FlowGNN(program.model_config(cfg))
+    model.load_state_dict(w, strict=True)
+    again = weights.make_weights(cfg, 5, "cpu")
+    assert all(torch.equal(w[k], again[k]) for k in w)
 
 
-def test_flops_equal_the_port_formula():
+@pytest.mark.parametrize("layer_type", ["GCN", "GAT", "GIN", "Transformer"])
+def test_flops_equal_the_port_formula(layer_type):
     from gnn_bfs_rans_tpu_torch.utils import roofline
 
-    for lt in ("GCN", "GAT", "GIN", "Transformer"):
-        kw = dict(layer_type=lt, num_layers=3, hidden_dim=32, n_nodes=100,
-                  n_edges=380, heads=4)
-        assert flops.forward_matmul_flops(**kw) == \
-            roofline.forward_matmul_flops(**kw)
-        assert flops.train_matmul_flops(**kw) == \
-            roofline.train_matmul_flops(**kw)
+    from perfbench.reference.archs import _flowgnn
+
+    kw = dict(layer_type=layer_type, num_layers=3, hidden_dim=32,
+              n_nodes=100, n_edges=380, heads=4)
+    assert _flowgnn.forward_matmul_flops(**kw) == \
+        roofline.forward_matmul_flops(**kw)
+    assert _flowgnn.train_matmul_flops(**kw) == \
+        roofline.train_matmul_flops(**kw)
     assert flops.DEVICE_PEAKS == roofline.DEVICE_PEAKS
 
 
@@ -142,6 +143,25 @@ def test_step_ops_on_a_tiny_graph():
     least = flops.least_seconds([("a", 2e12, 1.0), ("b", 1.0, 1e12)],
                                 1e12, 1e12)
     assert least == pytest.approx(3.0)
+
+
+def test_gcn_step_ops_on_a_tiny_graph():
+    cfg = dict(tiny.config("gcn6x256-f32"), hidden_dim=8, num_layers=1)
+    n, e = 10, 30
+    fwd = dict((k, (f, b)) for k, f, b in flops.step_ops(cfg, n, e, False))
+    # the projection, then the aggregation over edges and self-loops; x,
+    # W and the bias, the adjacency, the output, all f32
+    assert fwd["conv0"] == (2 * n * 8 * 8 + 2 * (e + n) * 8,
+                            n * 8 * 4 + (8 * 8 + 8) * 4 + 4 * e + n * 8 * 4)
+    assert fwd["input_proj"][1] == n * 3 * 4 + 3 * 8 * 4 + n * 8 * 4
+
+
+def test_peaks_follow_the_compute_dtype():
+    name = "NVIDIA H100 80GB HBM3"
+    assert flops.peaks(name) == (989e12, 3.35e12)
+    assert flops.peaks(name, "bfloat16") == (989e12, 3.35e12)
+    assert flops.peaks(name, "float32") == (67e12, 3.35e12)
+    assert flops.peaks("cpu") is None
 
 
 def test_rate_arithmetic():

@@ -27,6 +27,16 @@ def cells() -> list[str]:
     return [w["name"] for w in bench()["workloads"]]
 
 
+def configs() -> list[str]:
+    return [c["name"] for c in bench()["configs"]]
+
+
+def config(name: str) -> dict:
+    """A configuration on two layers."""
+    path = next(c["file"] for c in bench()["configs"] if c["name"] == name)
+    return dict(run.load_json(run.ROOT / path), num_layers=2)
+
+
 def run_tiny(cell: str, tmp_path, seed: int = 2 ** 31 + 17,
              trace: bool = False, seconds: float = 0.4) -> dict:
     return run.run_cell(files(cell), run.metrics_of(bench(), cell, trace),
