@@ -211,12 +211,26 @@ Phases (any failure raises and exits non-zero):
     dp --devices 1`` (``timing: chained_replay``); the native and numpy
     walks of the 100,000-cell mixed prism case's faces, equal, with their
     host times.  ``python3 chip_smoke.py --phase 21`` runs this phase alone;
-22. print the kernel table as one JSON line, then the result line.
+22. MeshGraphNets (``kernels/mgn.py``, ``csrc/mgn_edge.cu``): the edge
+    block over the benchmark grid's 994,918 receiver-sorted edges and the
+    node block over its 250,112 rows, latent 128, bf16, with the launch
+    counts set to 0 just before: each launch counted by kernel
+    (``mgn_edge_fwd``, ``mgn_edge_fixup`` in each direction,
+    ``mgn_edge_bwd``, ``mgn_edge_senders``; ``mgn_node_fwd``,
+    ``mgn_node_bwd``), every output and cotangent against
+    ``mgn_edge_plain`` / ``mgn_node_plain`` (``MGN_TOL_RATIO``: a limit the
+    same block in 8-bit floats fails), the training forward and the
+    backward timed beside the plain versions and their bounds; then one
+    train step of the 15 × 128 bf16 model on the 400×30 box, whose launch
+    counts the kernel table gives.  ``python3 chip_smoke.py --phase 22``
+    runs this phase alone and prints its rows of the kernel table;
+23. print the kernel table as one JSON line, then the result line.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times per
 call: ten calls captured in one CUDA graph and replayed, so host launch
-overhead does not enter them; the eager per-call time is printed beside
-them.  ``launches`` counts each wrapper's launches on its training path
+overhead does not enter them (MeshGraphNets' blocks: five calls; their
+plain versions' times are eager, between CUDA events); the eager per-call
+time is printed beside them.  ``launches`` counts each wrapper's launches on its training path
 (phase 12: the flagship GAT's for rows 1, 2, 3, 5, 6; the GCN run's for
 row 8; the unfused GAT run's for row 4; phase 15's Transformer run for
 rows 10 and 7 and ``transformer_project``, which is no TPU kernel but the
@@ -224,7 +238,8 @@ hand-written form of the JAX op's XLA products; phase 16's concat conv,
 bf16, for row 4's concat form and
 row 5's per-head form); rows 9 and 11 count theirs on the Transformer
 serving path (the 4×256 bf16 ``--bn_exact off`` run and the ``fuse_eval``
-run).
+run); MeshGraphNets' two rows count each kernel's launches in one train
+step of the 15 × 128 model (phase 22).
 
 Needs no network; builds into ``gnn_bfs_rans_tpu_torch/build`` and writes
 scratch files only under the temporary directory.
@@ -4279,6 +4294,267 @@ def last_modules_phase(case, train_case, smi):
     log(f"phase 21 in all {time.time() - t0:.1f} s")
 
 
+# MeshGraphNets' blocks (phase 22): each output and cotangent of the kernels
+# is held, by its relative RMS gap to the same block computed in f32 on the
+# same bf16 inputs, to MGN_TOL_RATIO times the plain bf16 version's own gap
+# (the kernels round at the same points; their f32 sums run in another
+# order, and the edge block rounds the node sums of dh0 once to bf16 before
+# the node products), and at least MGN_TOL_FLOOR; the same block with every
+# product's operands in 8-bit floats (e4m3 forward, e5m2 backward) must
+# fail that limit (all but dβ, which no product enters).  As in
+# tests/test_torch_cuda.py::test_mgn_kernels_match_plain.
+MGN_TOL_RATIO = 3.0
+MGN_TOL_FLOOR = 2e-3
+MGN_C = 128
+# the benchmark's grid: 96 × 2,605 cells, 994,918 directed edges
+MGN_GRID = (96, 2605)
+
+
+def _mgn_fake8(x, dtype, top):
+    scale = top / x.detach().abs().amax().float().clamp_min(1e-30)
+    return ((x.float() * scale).to(dtype).float() / scale).to(x.dtype)
+
+
+def _mgn_e4m3(block):
+    """The plain block with every product's operands in 8-bit floats."""
+    import torch
+    import torch.nn.functional as F
+
+    class Fake8(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return _mgn_fake8(x, torch.float8_e4m3fn, 448.0)
+
+        @staticmethod
+        def backward(ctx, g):
+            return _mgn_fake8(g, torch.float8_e5m2, 57344.0)
+
+    def mlp_ln(x, w0, b0, w1, b1, w2, b2, gamma, beta):
+        def lin(x, w, b):
+            return Fake8.apply(x.float()) @ Fake8.apply(w.float()).t() + b
+
+        h1 = torch.relu(lin(torch.relu(lin(x, w0, b0)), w1, b1))
+        return F.layer_norm(lin(h1, w2, b2), (MGN_C,), gamma, beta, 1e-5)
+
+    def edge(v, e, s, r, *w):
+        ep = mlp_ln(torch.cat([v.index_select(0, s), v.index_select(0, r),
+                               e], dim=1), *w)
+        agg = torch.zeros((v.shape[0], MGN_C), device=e.device).index_add(
+            0, r.long(), ep)
+        return e.float() + ep, agg
+
+    def node(v, agg, *w):
+        return v.float() + mlp_ln(torch.cat([v, agg], dim=1), *w)
+
+    return edge if block == "edge" else node
+
+
+def _mgn_outputs(fn, args, w, leaves, cot):
+    import torch
+
+    out = fn(*args, *w)
+    out = out if isinstance(out, tuple) else (out,)
+    grads = torch.autograd.grad(out, leaves, cot)
+    return [o.detach() for o in out] + list(grads)
+
+
+def _mgn_gap(got, want):
+    want = want.double()
+    return float((got.double() - want).norm() / want.norm())
+
+
+def check_mgn(graph, block, gen):
+    """One MeshGraphNets block (``kernels/mgn.py``: the edge block over the
+    grid's receiver-sorted edges, or the node block over its rows) at latent
+    128 in bf16: launches counted by kernel, every output and cotangent
+    against the plain version, forward and backward timed; the row of the
+    kernel table."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.kernels import _build
+    from gnn_bfs_rans_tpu_torch.kernels.mgn import (
+        edge_block_bwd, edge_block_fwd, mgn_edge, mgn_edge_plain, mgn_node,
+        mgn_node_plain, node_block_bwd, node_block_fwd, sender_order)
+
+    dev = torch.device("cuda")
+    c, ne, n = MGN_C, graph.n_edges, graph.n_pad
+
+    def u(*shape, scale=1.0):
+        return ((torch.rand(shape, generator=gen) * 2 - 1) * scale).to(dev)
+
+    def latent(rows):
+        return torch.randn((rows, c), generator=gen).to(
+            dev, torch.bfloat16).requires_grad_(True)
+
+    k0 = 3 * c if block == "edge" else 2 * c
+    w = [u(c, k0, scale=k0 ** -0.5), u(c, scale=k0 ** -0.5),
+         u(c, c, scale=c ** -0.5), u(c, scale=c ** -0.5),
+         u(c, c, scale=c ** -0.5), u(c, scale=c ** -0.5),
+         1 + 0.1 * u(c), 0.1 * u(c)]
+    for t in w:
+        t.requires_grad_(True)
+    v = latent(n)
+    wn = ["dW0", "db0", "dW1", "db1", "dW2", "db2", "dgamma", "dbeta"]
+    if block == "edge":
+        e = latent(ne)
+        s, r = graph.senders[:ne].to(dev), graph.receivers[:ne].to(dev)
+        order = sender_order(s, n)
+        args = (v, e, s, r)
+        leaves = [v, e, *w]
+        cot = (torch.randn((ne, c), generator=gen).to(dev, torch.bfloat16),
+               torch.randn((n, c), generator=gen).to(dev, torch.bfloat16))
+        names = ["e_new", "agg", "dv", "de", *wn]
+        kernel, plain = (lambda *a: mgn_edge(*a, s_order=order),
+                         mgn_edge_plain)
+        rows = ne
+    else:
+        agg = latent(n)
+        args = (v, agg)
+        leaves = [v, agg, *w]
+        cot = (torch.randn((n, c), generator=gen).to(dev, torch.bfloat16),)
+        names = ["v_new", "dv", "dagg", *wn]
+        kernel, plain = mgn_node, mgn_node_plain
+        rows = n
+
+    _build.reset_launches()
+    got = _mgn_outputs(kernel, args, w, leaves, cot)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want = ({"mgn_edge_fwd": 1, "mgn_edge_fixup": 2, "mgn_edge_bwd": 1,
+             "mgn_edge_senders": 1} if block == "edge"
+            else {"mgn_node_fwd": 1, "mgn_node_bwd": 1})
+    if launches != want:
+        raise AssertionError(f"mgn_{block} launches {launches}, expected "
+                             f"{want}")
+    ref = _mgn_outputs(plain, args, w, leaves, cot)
+    n_lat = len(leaves) - len(w)
+    d = [t.detach().double().requires_grad_(True) for t in leaves]
+    exact = _mgn_outputs(plain, list(d[:n_lat]) + list(args[n_lat:]),
+                         d[n_lat:], d, [x.double() for x in cot])
+    low = _mgn_outputs(_mgn_e4m3(block), args, w, leaves, cot)
+    worst = 0.0
+    for name, k, p_, x, q in zip(names, got, ref, exact, low):
+        if k.dtype != p_.dtype or k.shape != p_.shape:
+            raise AssertionError(f"mgn_{block} {name}: {k.dtype} "
+                                 f"{tuple(k.shape)} against the plain "
+                                 f"{p_.dtype} {tuple(p_.shape)}")
+        tol = max(MGN_TOL_RATIO * _mgn_gap(p_, x), MGN_TOL_FLOOR)
+        gk, gq = _mgn_gap(k, x), _mgn_gap(q, x)
+        log(f"mgn_{block} {name}: kernel {gk:.3e} plain {_mgn_gap(p_, x):.3e}"
+            f" e4m3 {gq:.3e} limit {tol:.3e}")
+        if not gk <= tol:
+            raise AssertionError(f"mgn_{block} {name}: gap {gk:.3e} > "
+                                 f"{tol:.3e}")
+        if name != "dbeta" and not gq > tol:
+            raise AssertionError(f"mgn_{block} {name}: the e4m3 version's "
+                                 f"gap {gq:.3e} is within {tol:.3e}")
+        worst = max(worst, gk / tol)
+    del got, ref, exact, low, d
+
+    # times: the training forward (it saves for the backward) and the
+    # backward's launches, each ten calls in a CUDA graph
+    wd = [t.detach() for t in w]
+    xs = [t.detach() for t in args]
+    if block == "edge":
+        _, _, saved = edge_block_fwd(*xs, *wd, save=True)
+
+        def fwd():
+            edge_block_fwd(*xs, *wd, save=True)
+
+        def bwd():
+            edge_block_bwd(cot[0], cot[1], xs[3], *order, saved, wd[0],
+                           wd[2], wd[4], wd[6])
+    else:
+        _, saved = node_block_fwd(*xs, *wd, save=True)
+
+        def fwd():
+            node_block_fwd(*xs, *wd, save=True)
+
+        def bwd():
+            node_block_bwd(cot[0], saved, wd[0], wd[2], wd[4], wd[6])
+    fwd_ms = graph_time_ms(fwd, calls=5, replays=4)
+    bwd_ms = graph_time_ms(bwd, calls=5, replays=4)
+    eager_ms = cuda_time_ms(fwd, iters=10)
+
+    def plain_fwd():
+        with torch.no_grad():
+            plain(*xs, *wd)
+
+    def plain_step():
+        _mgn_outputs(plain, args, w, leaves, cot)
+
+    plain_ms = cuda_time_ms(plain_fwd, iters=5, warmup=1)
+    plain_step_ms = cuda_time_ms(plain_step, iters=3, warmup=1)
+    # the least bytes and operations: each input read once, each output
+    # written once (bf16 latents, f32 sums and statistics, 4-byte indices)
+    lat, lat_n = 2 * rows * c, 2 * n * c
+    weights = 2 * c * (k0 + 2 * c) + 4 * 8 * c
+    kept = 3 * lat + 8 * rows
+    ln = 8 * c * rows
+    if block == "edge":
+        f_bytes = lat_n + lat + 8 * rows + weights + lat + lat_n + kept
+        b_bytes = (lat + lat_n + kept + 4 * rows + 4 * lat + 4 * n * c
+                   + lat + 4 * rows + 4 * n * c)
+    else:
+        f_bytes = 2 * lat + weights + lat + kept
+        b_bytes = lat + kept + 5 * lat
+    f_flops = 2 * rows * c * (k0 + 2 * c) + ln
+    b_flops = 2 * rows * c * c * (3 if block == "edge" else 4) + 2 * ln
+    fb, fby = bound(f_bytes, f_flops, H100_BF16_FLOPS)
+    bb, bby = bound(b_bytes, b_flops, H100_BF16_FLOPS)
+    log(f"mgn_{block} rows {rows}: launches {launches}; forward ms "
+        f"{fwd_ms:.4f} (eager {eager_ms:.4f}) bound_ms {fb:.5f} ({fby}); "
+        f"backward ms {bwd_ms:.4f} bound_ms {bb:.5f} ({bby}); plain forward "
+        f"ms {plain_ms:.4f}, forward + backward {plain_step_ms:.4f}; worst "
+        f"gap {worst:.3f} of its limit")
+    return dict(max_rel_gap_of_limit=worst, ms=fwd_ms, bwd_ms=bwd_ms,
+                plain_ms=plain_ms, plain_step_ms=plain_step_ms,
+                bound_ms=fb, bound_by=fby, bwd_bound_ms=bb, bwd_bound_by=bby,
+                library_ms=None)
+
+
+def mgn_phase(case):
+    """Phase 22: MeshGraphNets' edge and node kernels at the grid's size,
+    then one train step of the 15 × 128 bf16 model on ``case`` (its launch
+    counts: the ``launches`` of the kernel table).  Returns the table's
+    rows."""
+    import torch
+    from gnn_bfs_rans_tpu_torch.infer import load_graph
+    from gnn_bfs_rans_tpu_torch.kernels import _build
+    from gnn_bfs_rans_tpu_torch.models import ModelConfig, build_model
+    from gnn_bfs_rans_tpu_torch.utils.synthetic import build_grid_graph
+
+    gen = torch.Generator().manual_seed(22)
+    grid = build_grid_graph(*MGN_GRID, with_band=False)
+    measured = {block: check_mgn(grid, block, gen)
+                for block in ("edge", "node")}
+    del grid
+    torch.cuda.empty_cache()
+    cfg = ModelConfig(layer_type="MeshGraphNets", num_layers=15,
+                      hidden_dim=MGN_C, dropout=0.0, use_batch_norm=False,
+                      backend="pallas", compute_dtype="bfloat16")
+    model = build_model(cfg).to("cuda")
+    graph = load_graph(case, "MeshGraphNets").to("cuda")
+    _build.reset_launches()
+    model(graph, train=True).square().mean().backward()
+    torch.cuda.synchronize()
+    step = dict(_build.LAUNCHES)
+    want = {"mgn_edge_fwd": 15, "mgn_edge_fixup": 30, "mgn_edge_bwd": 15,
+            "mgn_edge_senders": 15, "mgn_node_fwd": 15, "mgn_node_bwd": 15}
+    if step != want:
+        raise AssertionError(f"MeshGraphNets train step launches {step}, "
+                             f"expected {want}")
+    log(f"MeshGraphNets 15x128 bf16 train step on {graph.n_nodes} cells: "
+        f"launches {step}")
+    src = "gnn_bfs_rans_tpu_torch/csrc/mgn_edge.cu"
+    return [dict(name=f"mgn_{block}", route="cuda", source=src,
+                 replaces="not a TPU function (MeshGraphNets' "
+                          f"{block} block)",
+                 launches={k: v for k, v in step.items()
+                           if k.startswith(f"mgn_{block}")},
+                 **measured[block])
+            for block in ("edge", "node")]
+
+
 def main() -> int:
     import torch
 
@@ -4317,6 +4593,17 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     log(f"card: {smi}")
+
+    if sys.argv[1:] == ["--phase", "22"]:
+        # phase 22 alone: its rows of the kernel table, no result line
+        with tempfile.TemporaryDirectory() as tmp:
+            case = Path(tmp) / "case"
+            generate_box_case(case, 400, 30, 1)
+            mgn_rows = mgn_phase(case)
+        print(smi)
+        print(json.dumps({"kernels": mgn_rows}))
+        log("phase 22 alone: passed")
+        return 0
 
     if sys.argv[1:] in (["--phase", "20"], ["--phase", "21"]):
         # phase 20 or 21 alone (a quicker call while working on it): no
@@ -4504,7 +4791,12 @@ def main() -> int:
         last_modules_phase(case, train_case, smi)
         log(f"phase 21 (the last modules): {time.time() - t1:.1f} s")
 
-    # phase 22: the kernel table and the result line
+        # MeshGraphNets' edge and node kernels at the grid's size
+        t1 = time.time()
+        mgn_rows = mgn_phase(case)
+        log(f"phase 22 (MeshGraphNets): {time.time() - t1:.1f} s")
+
+    # phase 23: the kernel table and the result line
     gat = {k: v for k, v in rows[("gat_train", 400, "bfloat16")].items()}
     kernels = [
         dict(name="banded_gat_mean_fused", route="cuda",
@@ -4587,9 +4879,14 @@ def main() -> int:
              replaces="gnn_bfs_rans_tpu/kernels/banded_bwd.py:682",
              launches=launches_concat["bfloat16"].get("banded_gat_bwd", 0),
              **rows[("row5h", "bfloat16")]),
+        # not TPU kernels: MeshGraphNets' blocks (launches by kernel, one
+        # train step of the 15 x 128 model)
+        *mgn_rows,
     ]
     for k in kernels:
-        if k["launches"] <= 0:
+        n_launched = (sum(k["launches"].values())
+                      if isinstance(k["launches"], dict) else k["launches"])
+        if n_launched <= 0:
             raise AssertionError(f"{k['name']} never launched on its "
                                  "main path")
     if launches_tr_noedge.get("fold_partials", 0) <= 0:

@@ -7,8 +7,12 @@ of the JAX package's subcommands (``gnn_bfs_rans_tpu/cli/main.py``), and
 those that run a model (``train``, ``train-multicase``, ``train-multitopo``,
 ``infer``, ``visualize``, ``plot-lines``, ``bench``) also ``--device`` (``cuda`` by default; ``cpu``
 runs the kernels' plain versions).  ``train`` defaults to the JAX CLI's model
-(``--layer_type GCN``, 6 layers, hidden 256) and trains every layer type
-on every backend: ``--backend pallas`` (the port's default, where the JAX
+(``--layer_type GCN``, 6 layers, hidden 256) and trains every layer type,
+and MeshGraphNets (``--layer_type MeshGraphNets``: ``--num_layers``
+message-passing steps of latent ``--hidden_dim``, its own LayerNorms and no
+BatchNorm whatever ``--norm_type`` says, ``--dropout 0``; on the card its
+edge and node blocks' kernels take ``--compute_dtype bfloat16``), on
+every backend: ``--backend pallas`` (the port's default, where the JAX
 CLI defaults to ``dense``: the banded kernels, or the dense branches on a
 mesh without a band), ``dense`` or ``segment``, with ``--norm_type batch``,
 ``layer`` or ``none``.  The band is built only for ``pallas``, as the JAX
@@ -62,10 +66,11 @@ def cmd_train(args) -> int:
     (out_dir / "config.json").write_text(json.dumps(cfg_dict, indent=2))
 
     print("Loading dataset...")
+    comps = LAYER_COMPONENTS.get(args.layer_type)
     dataset = load_dataset(
         args.case_path, args.time_dirs, include_uniform=args.include_uniform,
-        with_band=args.backend == "pallas",
-        band_components=LAYER_COMPONENTS.get(args.layer_type))
+        with_band=args.backend == "pallas" and comps is not None,
+        band_components=comps)
     print(f"Loaded {dataset.n_snapshots} samples: {dataset.time_dirs}")
     dataset.normalizer.save(out_dir / "normalizer.json")
 
@@ -73,7 +78,9 @@ def cmd_train(args) -> int:
         hidden_dim=args.hidden_dim, num_layers=args.num_layers,
         layer_type=args.layer_type, dropout=args.dropout,
         backend=args.backend, compute_dtype=args.compute_dtype,
-        norm_type=args.norm_type)
+        norm_type=args.norm_type,
+        # MeshGraphNets' LayerNorms belong to the architecture
+        use_batch_norm=args.layer_type != "MeshGraphNets")
     tcfg = TrainConfig(
         lr=args.lr, weight_decay=args.weight_decay, epochs=args.epochs,
         batch_size=args.batch_size,
@@ -412,7 +419,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
-    p = sub.add_parser("train", help="Train a FlowGNN surrogate")
+    p = sub.add_parser("train", help="Train a FlowGNN or MeshGraphNets "
+                                     "surrogate")
     p.add_argument("--case_path", type=str, default="OpenFOAM-data",
                    help="Path to OpenFOAM case directory")
     p.add_argument("--time_dirs", type=str, nargs="+",
@@ -421,7 +429,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hidden_dim", type=int, default=256)
     p.add_argument("--num_layers", type=int, default=6)
     p.add_argument("--layer_type", type=str, default="GCN",
-                   choices=["GCN", "GAT", "GIN", "Transformer"])
+                   choices=["GCN", "GAT", "GIN", "Transformer",
+                            "MeshGraphNets"],
+                   help="MeshGraphNets: --num_layers message-passing steps "
+                        "of latent --hidden_dim, with its own LayerNorms "
+                        "(no BatchNorm, whatever --norm_type says) and "
+                        "--dropout 0")
     p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--lr", type=float, default=3e-4)
@@ -447,7 +460,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16", "mixed"])
     p.add_argument("--norm_type", type=str, default="batch",
-                   choices=["batch", "layer", "none"])
+                   choices=["batch", "layer", "none"],
+                   help="the FlowGNN blocks' norm; MeshGraphNets takes none "
+                        "of these (use_batch_norm off whatever this says)")
     p.add_argument("--bn_recal", type=str, default="auto",
                    choices=["auto", "on", "off"],
                    help="BatchNorm recalibration: eval/best-selection on "

@@ -77,6 +77,9 @@ def _get(sd: dict, *names: str):
 
 
 def _layer_type(config: ModelConfig) -> str:
+    if config.layer_type == "MeshGraphNets":
+        raise ValueError("MeshGraphNets has no reference .pt format: "
+                         "export-torch takes FlowGNN layers only")
     if config.layer_type not in ("GCN", "GAT", "GIN", "Transformer"):
         raise ValueError(f"unknown layer type {config.layer_type}")
     return config.layer_type

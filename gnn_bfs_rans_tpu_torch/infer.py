@@ -17,7 +17,9 @@ the layer type reads (the Transformer's ``bias_noself`` and its geo
 planes, or the generic edge planes for non-geometric features) when the
 backend is ``pallas``.  ``Predictor.from_torch_checkpoint`` serves a
 checkpoint in the reference's own ``.pt`` format (``compat/torch_port.py``)
-under ``'auto'``.
+under ``'auto'``.  Every checkpoint's model is built by
+``models.build_model`` from its meta file's ``model_config`` (a FlowGNN,
+or MeshGraphNets, which reads no band).
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ from .foam.reader import FoamCase
 from .graph.band import LAYER_COMPONENTS
 from .graph.build import build_graph
 from .graph.structs import Graph
-from .models.flow_gnn import FlowGNN, ModelConfig, split_fields
+from .models.factory import build_model
+from .models.flow_gnn import ModelConfig, split_fields
 from .train.checkpoint import load_checkpoint
 from .train.graphs import Graphed
 from .train.normalization import FieldNormalizer
@@ -73,7 +76,7 @@ class Predictor:
     statistics in place, so the replays see them.
     """
 
-    model: FlowGNN
+    model: torch.nn.Module
     model_config: ModelConfig
     normalizer: FieldNormalizer | None
     meta: dict
@@ -130,7 +133,7 @@ class Predictor:
         model_config = dataclasses.replace(
             model_config, backend=resolve_backend(
                 backend, model_config.backend, recalibrated))
-        model = FlowGNN(model_config)
+        model = build_model(model_config)
         model.load_state_dict(state)
         model.eval().to(dev)
         return cls(model=model, model_config=model_config,
@@ -188,10 +191,13 @@ def load_graph(case_path: str | Path, layer_type: str = "GAT",
                backend: str = "pallas") -> Graph:
     """Parse a case and build its graph (CPU tensors), with the band planes
     ``layer_type`` reads when ``backend`` is ``pallas`` (``graph.band`` is
-    None on a mesh whose band would be wider than 5 tiles)."""
+    None on a mesh whose band would be wider than 5 tiles; no band for a
+    layer that reads none: MeshGraphNets)."""
     mesh = FoamCase(case_path).load_mesh()
-    return build_graph(mesh, with_band=backend == "pallas",
-                       band_components=LAYER_COMPONENTS[layer_type],
+    comps = LAYER_COMPONENTS.get(layer_type)
+    return build_graph(mesh,
+                       with_band=backend == "pallas" and comps is not None,
+                       band_components=comps,
                        boundary_self_loops=boundary_self_loops)
 
 

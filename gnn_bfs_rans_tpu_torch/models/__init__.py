@@ -1,5 +1,6 @@
 """Model zoo: FlowGNN, conv layers, encoder-decoder surrogate (the public
-names of ``gnn_bfs_rans_tpu/models/__init__.py``)."""
+names of ``gnn_bfs_rans_tpu/models/__init__.py``), MeshGraphNets, and
+:func:`build_model`, which builds either from a ``ModelConfig``."""
 
 from .convs import CONV_REGISTRY, GATConv, GCNConv, GINConv, TransformerConv
 from .flow_gnn import (
@@ -10,6 +11,8 @@ from .flow_gnn import (
     ModelConfig,
     split_fields,
 )
+from .factory import build_model
+from .meshgraphnets import MeshGraphNet
 from .norm import MaskedBatchNorm
 
 __all__ = [
@@ -25,4 +28,6 @@ __all__ = [
     "FIELD_NAMES",
     "FIELD_SLICES",
     "MaskedBatchNorm",
+    "MeshGraphNet",
+    "build_model",
 ]

@@ -109,6 +109,11 @@ class FlowGNN(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         cfg = config
+        if cfg.layer_type == "MeshGraphNets":
+            raise ValueError(
+                "MeshGraphNets is not a FlowGNN conv: build it with "
+                "models.build_model; partitioned, multi-topology and "
+                "surrogate models take FlowGNN layers only")
         if cfg.layer_type not in ("GCN", "GAT", "GIN", "Transformer"):
             raise ValueError(f"unknown layer_type {cfg.layer_type!r}")
         self.bn = cfg.use_batch_norm and cfg.norm_type == "batch"
@@ -158,6 +163,11 @@ class FlowGNN(nn.Module):
         self.out_3 = lin(h // 2, cfg.output_dim)
         self.reset_parameters(
             generator or torch.Generator().manual_seed(0))
+
+    @property
+    def head(self) -> nn.Linear:
+        """The last linear layer (the trainer's pressure column)."""
+        return self.out_3
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

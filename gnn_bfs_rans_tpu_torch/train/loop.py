@@ -147,10 +147,10 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
 
 
 def _pressure_column(model: FlowGNN):
-    """``out_3``'s pressure output: weight row 3 and bias element 3 (the
-    flax kernel's column 3)."""
-    return ((model.out_3.weight, (3, slice(None))),
-            (model.out_3.bias, (3,)))
+    """The head's pressure output (``out_3`` in a FlowGNN): weight row 3
+    and bias element 3 (the flax kernel's column 3)."""
+    return ((model.head.weight, (3, slice(None))),
+            (model.head.bias, (3,)))
 
 
 def batch_loss(out: torch.Tensor, targets: torch.Tensor, graph: Graph,

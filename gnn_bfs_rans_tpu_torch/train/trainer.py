@@ -73,7 +73,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.flow_gnn import FlowGNN, ModelConfig
+from ..models.factory import build_model
+from ..models.flow_gnn import ModelConfig
 from ..utils import trace
 from .checkpoint import (
     CheckpointWriter,
@@ -147,7 +148,7 @@ class Trainer:
             self._pbar = None
 
             with trace.span("trainer.model_init"):
-                model = FlowGNN(
+                model = build_model(
                     model_config,
                     generator=torch.Generator().manual_seed(train_config.seed))
             with trace.span("trainer.to_device"):

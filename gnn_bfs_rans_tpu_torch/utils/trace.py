@@ -58,11 +58,20 @@ The names are the program's layers:
                          ``save_checkpoint`` writes on the calling thread)
 ``graphs.warmup``,       a ``Graphed`` function's eager first call and its
 ``graphs.capture``       capture (``fn``)
+``mgn.forward``          a ``MeshGraphNet`` forward run eagerly (a warm-up,
+                         a capture, a served case; ``train``; counters);
+                         children ``mgn.encode``, ``mgn.process`` (the
+                         message-passing steps), ``mgn.decode``
 =======================  =================================================
 
 Counters: ``graphs.warmups``, ``graphs.captures``, ``graphs.replays`` (one
 a replay: no span), ``checkpoint.bytes`` (the files written, by size on
-disk), ``checkpoint.async_saves`` (checkpoints handed to the writer).
+disk), ``checkpoint.async_saves`` (checkpoints handed to the writer),
+``mgn.edge_rows`` (edges × message-passing steps a ``MeshGraphNet``
+forward), ``mgn.saved_bytes`` (the bytes its processor keeps for the
+backward, each storage once, counted as autograd saves them), and
+``launches.mgn_edge_fwd``, ``.mgn_edge_fixup``, ``.mgn_edge_bwd``,
+``.mgn_edge_senders`` (the edge block's kernel launches).
 
 Per-op device trace
 -------------------
@@ -242,6 +251,11 @@ def counters() -> dict[str, int]:
 
 def enable(on: bool = True) -> None:
     _STORE.on = on
+
+
+def counting() -> bool:
+    """Whether the store records (:func:`enable`)."""
+    return _STORE.on
 
 
 def reset() -> None:

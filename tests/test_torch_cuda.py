@@ -7,6 +7,7 @@ imports no JAX, so it runs on a machine that has only PyTorch:
 """
 
 import dataclasses
+import json
 import re
 
 import numpy as np
@@ -2331,3 +2332,229 @@ def test_surrogate_kernels_match_plain(card, tmp_path, name):
     assert torch.isfinite(got).all()
     assert (got[rows] - want[rows]).abs().max() <= \
         SERVE_TOL * want[rows].abs().max()
+
+
+# --------------------------------------------------------------------------
+# MeshGraphNets' edge block (csrc/mgn_edge.cu) at the published widths on
+# the benchmark's grid (96 × 2,605 cells, 994,918 directed edges)
+
+
+class _Fake8(torch.autograd.Function):
+    """e4m3 forward (one scale a tensor), e5m2 backward: a product's
+    operand in 8-bit floats."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _fake8(x, torch.float8_e4m3fn, 448.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _fake8(g, torch.float8_e5m2, 57344.0)
+
+
+def _fake8(x, dtype, top):
+    scale = top / x.detach().abs().amax().float().clamp_min(1e-30)
+    return ((x.float() * scale).to(dtype).float() / scale).to(x.dtype)
+
+
+def _mlp_ln_e4m3(x, w0, b0, w1, b1, w2, b2, gamma, beta):
+    """``kernels/mgn.py``'s plain MLP and LayerNorm with every product's
+    operands in 8-bit floats."""
+    import torch.nn.functional as F
+
+    q = _Fake8.apply
+
+    def lin(x, w, b):
+        return q(x.float()) @ q(w.float()).t() + b.float()
+
+    h1 = torch.relu(lin(torch.relu(lin(x, w0, b0)), w1, b1))
+    return F.layer_norm(lin(h1, w2, b2), (128,), gamma, beta, 1e-5)
+
+
+def _mgn_edge_e4m3(v, e, senders, receivers, *w):
+    x = torch.cat([v.index_select(0, senders), v.index_select(0, receivers),
+                   e], dim=1)
+    ep = _mlp_ln_e4m3(x, *w)
+    agg = torch.zeros((v.shape[0], 128), device=e.device).index_add(
+        0, receivers.long(), ep)
+    return e.float() + ep, agg
+
+
+def _mgn_node_e4m3(v, agg, *w):
+    return v.float() + _mlp_ln_e4m3(torch.cat([v, agg], dim=1), *w)
+
+
+def _mgn_case(card, block, seed=0):
+    """The grid's receiver-sorted edges at latent 128: (kernel, plain,
+    e4m3, leading args, leaves, cotangents, output names) of the edge or
+    the node block, bf16 latents and f32 weights (``requires_grad``)."""
+    from gnn_bfs_rans_tpu_torch.kernels.mgn import (mgn_edge, mgn_edge_plain,
+                                                    mgn_node, mgn_node_plain,
+                                                    sender_order)
+    from gnn_bfs_rans_tpu_torch.utils.synthetic import build_grid_graph
+
+    g = build_grid_graph(96, 2605, with_band=False)
+    ne = g.n_edges
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def u(*shape, scale=1.0):
+        return (torch.rand(shape, generator=gen, device=card) * 2 - 1) * scale
+
+    def latent(rows):
+        return torch.randn((rows, 128), generator=gen,
+                           device=card).bfloat16().requires_grad_(True)
+
+    k0 = 384 if block == "edge" else 256
+    w = [u(128, k0, scale=k0 ** -0.5), u(128, scale=k0 ** -0.5),
+         u(128, 128, scale=128 ** -0.5), u(128, scale=128 ** -0.5),
+         u(128, 128, scale=128 ** -0.5), u(128, scale=128 ** -0.5),
+         1 + 0.1 * u(128), 0.1 * u(128)]
+    for t in w:
+        t.requires_grad_(True)
+    v = latent(g.n_pad)
+    wn = ["dW0", "db0", "dW1", "db1", "dW2", "db2", "dgamma", "dbeta"]
+    if block == "edge":
+        e = latent(ne)
+        s, r = g.senders[:ne].to(card), g.receivers[:ne].to(card)
+        order = sender_order(s, v.shape[0])
+        cot = (torch.randn(e.shape, generator=gen, device=card).bfloat16(),
+               torch.randn(v.shape, generator=gen, device=card).bfloat16())
+        return (lambda *a: mgn_edge(*a, order), mgn_edge_plain,
+                _mgn_edge_e4m3, (v, e, s, r), [v, e, *w], cot,
+                ["e_new", "agg", "dv", "de", *wn], w)
+    agg = latent(g.n_pad)
+    cot = (torch.randn(v.shape, generator=gen, device=card).bfloat16(),)
+    return (mgn_node, mgn_node_plain, _mgn_node_e4m3, (v, agg), [v, agg, *w],
+            cot, ["v_new", "dv", "dagg", *wn], w)
+
+
+def _rel_gap(got, want):
+    want = want.double()
+    return float((got.double() - want).norm() / want.norm())
+
+
+def _outputs(fn, args, w, leaves, cot):
+    out = fn(*args, *w)
+    out = out if isinstance(out, tuple) else (out,)
+    grads = torch.autograd.grad(out, leaves, cot)
+    return [o.detach() for o in out] + list(grads)
+
+
+@pytest.mark.parametrize("block", ["edge", "node"])
+def test_mgn_kernels_match_plain(card, block):
+    """Forward (the block's output and, for the edge block, the receiver
+    sums) and backward (every input's cotangent) of the edge or node
+    kernels against ``mgn_edge_plain`` / ``mgn_node_plain``, each output by
+    its relative RMS gap to the same block on the same bf16 inputs without
+    their roundings (the plain version on float64 inputs: f32 products and
+    LayerNorm).  Limit: 3× the plain bf16 version's own gap (the kernels round
+    at the same points, their f32 sums run in another order, and the edge
+    block rounds the node sums of dh0 once to bf16 before the node
+    products), and at least 2e-3; the same block with every product's
+    operands in 8-bit floats must fail it."""
+    kernel, plain, low8, args, leaves, cot, names, w = _mgn_case(card, block)
+    _build.reset_launches()
+    got = _outputs(kernel, args, w, leaves, cot)
+    assert dict(_build.LAUNCHES) == (
+        {"mgn_edge_fwd": 1, "mgn_edge_fixup": 2, "mgn_edge_bwd": 1,
+         "mgn_edge_senders": 1} if block == "edge"
+        else {"mgn_node_fwd": 1, "mgn_node_bwd": 1})
+    ref = _outputs(plain, args, w, leaves, cot)
+    d = [t.detach().double().requires_grad_(True) for t in leaves]
+    n_lat = len(leaves) - len(w)
+    d_args = list(d[:n_lat]) + list(args[n_lat:])
+    exact = _outputs(plain, d_args, d[n_lat:], d, [c.double() for c in cot])
+    low = _outputs(low8, args, w, leaves, cot)
+    for name, k, p, x, q in zip(names, got, ref, exact, low):
+        assert k.dtype == p.dtype and k.shape == p.shape, name
+        tol = max(3 * _rel_gap(p, x), 2e-3)
+        print(f"mgn_{block} {name}: kernel {_rel_gap(k, x):.3e} plain "
+              f"{_rel_gap(p, x):.3e} e4m3 {_rel_gap(q, x):.3e} limit {tol:.3e}")
+        assert _rel_gap(k, x) <= tol, name
+        # dβ sums the cotangent of the LayerNorm's output alone: no
+        # product enters it
+        if name != "dbeta":
+            assert _rel_gap(q, x) > tol, name
+
+
+@pytest.mark.parametrize("block", ["edge", "node"])
+def test_mgn_kernels_are_deterministic_and_keep_no_wide_input(card, block):
+    """Two calls give the same bits, forward and backward; one forward call
+    allocates no more than its outputs, what it saves and the edge block's
+    partials (no [rows, 384] or [rows, 256] input)."""
+    kernel, _, _, args, leaves, cot, _, w = _mgn_case(card, block, seed=1)
+    runs = [_outputs(kernel, args, w, leaves, cot) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    del runs
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    out = kernel(*args, *w)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(card) - before
+    rows = args[1].shape[0]                     # edges, or nodes
+    n_pad = args[0].shape[0]
+    if block == "edge":
+        outputs = 2 * rows * 128 + 2 * n_pad * 128        # e_new, agg
+        partials = 4 * 2 * 128 * -(-rows // 16)
+        wide = 2 * 384 * rows
+    else:
+        outputs = 2 * rows * 128                          # v_new
+        partials = 0
+        wide = 2 * 256 * rows
+    kept = 3 * 2 * rows * 128 + 2 * 4 * rows              # h0, h1, y, stats
+    weights = 2 * 5 * 128 * 128 + 4 * 8 * 128
+    print(f"mgn_{block} forward: {extra / 2**20:.1f} MiB allocated, outputs "
+          f"{outputs / 2**20:.1f}, kept {kept / 2**20:.1f}")
+    assert extra <= outputs + kept + partials + weights + (1 << 20)
+    assert extra < outputs + kept + wide
+    del out
+
+
+def test_mgn_train_and_serve_through_the_cli(card, tmp_path):
+    """``train --layer_type MeshGraphNets`` at 15 × 128 in bf16 on the
+    kernels, through the blocked loop's CUDA graphs, then ``infer`` from
+    its meta file on the card.  The card's served fields against the same
+    checkpoint served in f32 on the CPU: an RMS gap no larger than twice
+    that of the CPU's own bf16 plain path (bf16 through 15 steps)."""
+    from gnn_bfs_rans_tpu_torch.cli.main import main
+    from gnn_bfs_rans_tpu_torch.infer import Predictor, load_graph
+    from gnn_bfs_rans_tpu_torch.models import build_model
+
+    generate_box_case(tmp_path / "case", 24, 14, 1, time_dirs=("100", "200"))
+    _build.reset_launches()
+    ckpt = tmp_path / "ckpt"
+    assert main(["train", "--case_path", str(tmp_path / "case"),
+                 "--time_dirs", "100", "200", "--output_dir", str(ckpt),
+                 "--layer_type", "MeshGraphNets", "--num_layers", "15",
+                 "--hidden_dim", "128", "--dropout", "0", "--backend",
+                 "pallas", "--compute_dtype", "bfloat16", "--epochs", "6",
+                 "--epoch_block", "3", "--save_every", "3"]) == 0
+    assert _build.LAUNCHES["mgn_edge_fwd"] > 0
+    assert _build.LAUNCHES["mgn_edge_bwd"] > 0
+    hist = json.loads((ckpt / "training_history.json").read_text())
+    assert len(hist["train_loss"]) == 6
+    assert all(np.isfinite(hist["train_loss"]))
+    assert main(["infer", "--checkpoint", str(ckpt), "--case_path",
+                 str(tmp_path / "case"), "--output_dir", str(tmp_path / "p"),
+                 "--save_format", "numpy"]) == 0
+    graph = load_graph(tmp_path / "case", "MeshGraphNets")
+    card_pred = Predictor.from_checkpoint(ckpt, device="cuda")
+    got = card_pred.predict_packed(graph)
+    cpu = Predictor.from_checkpoint(ckpt, device="cpu").predict_packed(graph)
+    f32 = build_model(dataclasses.replace(card_pred.model_config,
+                                          compute_dtype="float32"))
+    f32.load_state_dict(card_pred.model.state_dict())
+    with torch.no_grad():
+        rows = f32(graph).numpy()[:graph.n_nodes]
+    exact = np.empty_like(rows)
+    exact[graph.perm.numpy()[:graph.n_nodes]] = rows
+    saved = np.load(tmp_path / "p" / "predictions.npz")
+    np.testing.assert_allclose(saved["U"], card_pred.predict_fields(graph)["U"],
+                               rtol=1e-6, atol=1e-6)
+
+    def rms(a):
+        return float(np.sqrt(np.mean(a.astype(np.float64) ** 2)))
+
+    assert rms(got - exact) <= 2 * rms(cpu - exact) + 1e-3 * rms(exact)
